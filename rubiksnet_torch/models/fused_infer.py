@@ -1,0 +1,81 @@
+"""Fused inference executor: the RubiksNet forward with every block on a
+fused kernel.
+
+Counterpart of ``rubiksnet_tpu/models/fused_infer.py``, same weights and
+same function, different schedule. Routing:
+
+* each run of consecutive stride-1 equal-width blocks -> K2
+  (``ops/fused_block.py``), at any H x W: on the card no VMEM limit splits
+  them between whole-clip, per-frame and unfused schedules as on the TPU;
+* each stride-2 entry block -> K3 (``ops/fused_entry.py``);
+* the stem conv and the head (bn_last, ReLU, spatial mean, new_fc, mean
+  over frames) are plain PyTorch, as they were XLA ops in the JAX package.
+
+On a CPU tensor the kernels' plain versions run instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.fused_block import fused_block_run, stack_block_params
+from ..ops.fused_entry import fused_entry_run, stack_entry_params
+
+
+class FusedExecutor:
+    """Folds and stacks a model's block parameters once, then runs clips.
+
+    The model must be in eval mode, and every shift must lie in its
+    ``max_shift`` tap window (checked here, once).
+    """
+
+    def __init__(self, model):
+        if model.training:
+            raise ValueError("FusedExecutor runs inference: call .eval()")
+        self.model = model
+        dtype, k, q = model.dtype, model.max_shift, model.quantize
+        self.steps = []  # ("block", names, (vt, wm)) | ("entry", names, p)
+        run = []  # (name, block) of the current stride-1 run
+
+        def flush():
+            if run:
+                params = stack_block_params([b for _, b in run], dtype, k, q)
+                self.steps.append(("block", tuple(n for n, _ in run), params))
+                run.clear()
+
+        # The block plan is the backbone's own block order.
+        for name, blk in model.backbone.named_blocks():
+            if blk.stride == 1 and blk.in_planes == blk.out_planes:
+                run.append((name, blk))
+                continue
+            flush()
+            if blk.stride != 2:
+                raise NotImplementedError(
+                    f"{name}: stride {blk.stride} width {blk.in_planes}->"
+                    f"{blk.out_planes} has no fused kernel")
+            self.steps.append(("entry", (name,),
+                               stack_entry_params(blk, dtype, k, q)))
+        flush()
+
+    @torch.no_grad()
+    def __call__(self, video):
+        """video (N, T, H, W, 3) -> logits (N, num_classes) in the model's
+        compute dtype."""
+        model = self.model
+        if video.ndim != 5 or video.shape[-1] != 3:
+            raise ValueError(
+                f"expected (N, T, H, W, 3), got {tuple(video.shape)}")
+        x = model.backbone.conv1(video.to(model.dtype))
+        for kind, _, params in self.steps:
+            if kind == "block":
+                x = fused_block_run(x, *params, max_shift=model.max_shift)
+            else:
+                x = fused_entry_run(x, params, max_shift=model.max_shift)
+        return model.head(x)
+
+
+def fused_infer_apply(model, video):
+    """Inference forward equal to ``model(video)``, every block on a fused
+    kernel. Stacks the parameters on each call; keep a
+    :class:`FusedExecutor` to serve many batches."""
+    return FusedExecutor(model)(video)
