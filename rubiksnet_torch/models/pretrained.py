@@ -23,12 +23,15 @@ def _torch_name(name: str) -> str:
     return name
 
 
-def state_dict_from_jax(params, batch_stats):
+def state_dict_from_jax(params, batch_stats=None):
     """JAX variables -> state dict of float32 CPU tensors.
 
     Conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), BN
     scale -> weight, running statistics -> running_mean / running_var (plus
-    num_batches_tracked = 0), shifts as they are.
+    num_batches_tracked = 0), shifts as they are. Any tree shaped like
+    ``params`` maps the same way: with ``batch_stats`` None, a JAX gradient
+    or momentum tree becomes ``{parameter name: tensor}`` in the layout of
+    the port's ``param.grad`` and SGD momentum buffers.
     """
     out = {}
 
@@ -65,7 +68,7 @@ def state_dict_from_jax(params, batch_stats):
                 raise ValueError(f"unexpected statistic {prefix}{name}")
 
     emit(params, "")
-    emit_stats(batch_stats, "")
+    emit_stats(batch_stats or {}, "")
     return {k: torch.from_numpy(np.array(v, dtype=np.int64 if v.dtype ==
                                           np.int64 else np.float32))
             for k, v in out.items()}

@@ -52,11 +52,15 @@ class Linear(nn.Module):
 
 
 class RubiksNet(nn.Module):
-    """Video action recognition with learnable fractional shifts, inference.
+    """Video action recognition with learnable fractional shifts.
 
-    ``dtype`` is the compute dtype; parameters stay float32. ``max_shift``
-    is the bound K on the integer part of the shifts that the fused
-    executor's tap weights cover (see models/fused_infer.py).
+    Train and eval run the same modules; train mode normalizes with batch
+    statistics and updates the running ones (``nn.backbone.BN``), and the
+    shifts carry the reference's normalized gradient. ``dtype`` is the
+    compute dtype; parameters stay float32. ``max_shift`` is the bound K on
+    the integer part of the shifts that the fused inference executor's tap
+    weights cover (see models/fused_infer.py); the module path takes any
+    shift.
     """
 
     def __init__(self, tier, num_classes, num_frames=8, variant="rubiks3d",
@@ -92,8 +96,9 @@ class RubiksNet(nn.Module):
 
     def forward(self, video, plain=False):
         """video (N, T, H, W, 3) -> logits (N, num_classes) in the compute
-        dtype. Shifts run through K1 on CUDA; ``plain=True`` runs every op
-        as plain PyTorch (the reference route the kernels are held to)."""
+        dtype. Shifts run through K1 on CUDA (and their gradients through
+        K1-inverse and K4); ``plain=True`` runs every op as plain PyTorch
+        (the reference route the kernels are held to)."""
         if video.ndim != 5 or video.shape[-1] != 3:
             raise ValueError(
                 f"expected (N, T, H, W, 3), got {tuple(video.shape)}")

@@ -1,4 +1,4 @@
-"""RubiksNet backbone on channel-last clips (N, T, H, W, C), inference.
+"""RubiksNet backbone on channel-last clips (N, T, H, W, C).
 
 Counterpart of ``rubiksnet_tpu/nn/backbone.py`` (unrolled stages only): a
 3x3 stride-2 stem, stages of RubiksShiftBlocks of widths (w, w, 2w, 4w, 8w),
@@ -28,9 +28,14 @@ def he_fan_out_normal_(weight: torch.Tensor, generator: torch.Generator):
 
 
 class BN(nn.Module):
-    """Batch norm over the last axis with running statistics, eps 1e-5.
+    """Batch norm over the last axis, eps 1e-5, as flax's BatchNorm with
+    momentum 0.9.
 
-    Inference only: batch-statistics mode (training) is not ported yet.
+    Train mode normalizes with the batch statistics over every axis but the
+    last, computed in at least float32 (flax's rule), and updates the running statistics in place:
+    ``running = 0.9 * running + 0.1 * batch`` with the biased batch variance
+    (torch's ``batch_norm`` would use the unbiased one). Eval mode uses the
+    running statistics. Either way the output is in the input's dtype.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
@@ -44,13 +49,19 @@ class BN(nn.Module):
                              torch.tensor(0, dtype=torch.long))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "batch-statistics BN (training) is not ported yet (ROADMAP "
-                "A6); call .eval()")
-        scale, bias = fold_bn(self.weight, self.bias, self.running_mean,
-                              self.running_var, self.eps)
-        return (x.float() * scale + bias).to(x.dtype)
+        if not self.training:
+            scale, bias = fold_bn(self.weight, self.bias, self.running_mean,
+                                  self.running_var, self.eps)
+            return (x.float() * scale + bias).to(x.dtype)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var, mean = torch.var_mean(xf, dim=tuple(range(x.ndim - 1)),
+                                   correction=0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+            self.num_batches_tracked += 1
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
 
 
 class Conv1x1(nn.Module):

@@ -10,11 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.shift3d import (
-    refuse_autograd,
-    rubiks_shift_3d_forward,
-    shift3d_plain,
-)
+from ..ops.shift3d import rubiks_shift_3d
 
 
 def uniform_shift_init(tensor: torch.Tensor, generator: torch.Generator,
@@ -26,13 +22,18 @@ def uniform_shift_init(tensor: torch.Tensor, generator: torch.Generator,
 
 class RubiksShift3D(nn.Module):
     """Learnable per-channel fractional (T, H, W) shift; parameter ``shift``
-    (3, C), rows (T, H, W)."""
+    (3, C), rows (T, H, W). Its gradient is the reference's: unit-normalized
+    per channel when ``normalize_grad``, the T row scaled by
+    ``normalize_t_factor`` (a number or ``"auto"``) first."""
 
     def __init__(self, num_channels, stride=(1, 1, 1), padding=(0, 0, 0),
-                 quantize=False, *, generator=None):
+                 normalize_grad=True, normalize_t_factor=1.0, quantize=False,
+                 *, generator=None):
         super().__init__()
         self.stride = tuple(stride)
         self.padding = tuple(padding)
+        self.normalize_grad = bool(normalize_grad)
+        self.normalize_t_factor = normalize_t_factor
         self.quantize = bool(quantize)
         self.shift = nn.Parameter(
             torch.empty((3, num_channels), dtype=torch.float32))
@@ -40,14 +41,12 @@ class RubiksShift3D(nn.Module):
             uniform_shift_init(self.shift, generator)
 
     def forward(self, x, plain=False):
-        """plain=True runs the gather form on any device (the reference
-        route); otherwise K1 on CUDA and the gather form on the CPU."""
-        if not plain:
-            return rubiks_shift_3d_forward(x, self.shift, self.stride,
-                                           self.padding, self.quantize)
-        refuse_autograd(x, self.shift)
-        return shift3d_plain(x, self.shift, self.stride, self.padding,
-                             self.quantize)
+        """plain=True runs the gather form and its plain gradients on any
+        device (the reference route); otherwise K1, K1-inverse and K4 on
+        CUDA and the plain forms on the CPU."""
+        return rubiks_shift_3d(x, self.shift, self.stride, self.padding,
+                               self.normalize_grad, self.normalize_t_factor,
+                               self.quantize, plain=plain)
 
 
 class Rubiks3DWrap(nn.Module):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, cached under
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+process per file, all in parallel, and linked into one shared library with a
+plain C interface, cached under
 ``rubiksnet_torch/build/`` by a hash of the sources and flags, and loaded with
 ``ctypes``. Nothing is compiled at import time: the first kernel launch
 builds. A missing ``nvcc`` or a failed build raises.
@@ -21,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 PTR = ctypes.c_void_p
@@ -61,6 +62,36 @@ def _digest(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc: str, sources, lib_path: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
+    try:
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for s, o in zip(sources, objs)]
+        failed = []
+        for s, p in zip(sources, procs):
+            out, err = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{s.name} ({p.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
@@ -69,15 +100,7 @@ def load_library() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"librubiks_{_digest(sources + headers)}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
-                f"{proc.stderr}")
-        os.replace(tmp, lib_path)
+        _compile(_find_nvcc(), sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.rubiks_error_string.argtypes = [INT]
     lib.rubiks_error_string.restype = ctypes.c_char_p

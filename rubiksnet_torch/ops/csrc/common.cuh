@@ -1,5 +1,6 @@
-// Device code shared by the port's kernels (shift3d.cu, fused_block.cu,
-// fused_entry.cu): dtype conversions, a tiled GEMM whose operand loads and
+// Device code shared by the port's kernels (shift3d.cu, shift_grad.cu,
+// fused_block.cu, fused_entry.cu): dtype conversions, the per-axis taps and
+// corner sum of the one-pass shifts, a tiled GEMM whose operand loads and
 // output stores are functors, and the loaders and stores the fused kernels
 // plug into it.
 //
@@ -41,6 +42,95 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <class T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
+}
+
+// The cells one axis of a trilinear shift reads, with their weights; an
+// index of -1 marks a tap that reads nothing (outside the source, or a zero
+// weight).
+struct AxisTaps {
+  int idx[2];
+  float w[2];
+};
+
+// Taps of a shift by s (already rounded to the compute dtype) reading cells
+// j0 + {0, 1} with weights (1 - r, r), where j0 = base + floor(s) and r is
+// the remainder; quantize reads the one cell j0 + (r >= 0.5).
+__device__ __forceinline__ AxisTaps raw_taps(int base, float s,
+                                             int quantize) {
+  const float f = floorf(s);
+  const float r = s - f;
+  const int j0 = base + (int)f;
+  AxisTaps a;
+  if (quantize) {
+    a.idx[0] = j0 + (r >= 0.5f);
+    a.w[0] = 1.f;
+    a.idx[1] = -1;
+    a.w[1] = 0.f;
+  } else {
+    a.idx[0] = j0;
+    a.w[0] = 1.f - r;
+    a.idx[1] = j0 + 1;
+    a.w[1] = r;
+  }
+  return a;
+}
+
+// Forward: output position o of a source of extent d reads input cells
+// o * stride - pad + floor(s) + {0, 1}.
+__device__ __forceinline__ AxisTaps forward_taps(int o, int stride, int pad,
+                                                 float s, int d,
+                                                 int quantize) {
+  AxisTaps a = raw_taps(o * stride - pad, s, quantize);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (a.w[k] == 0.f || a.idx[k] < 0 || a.idx[k] >= d) a.idx[k] = -1;
+  return a;
+}
+
+// Inverse (input gradient): input position i pulls from output positions
+// j / stride, j = i + pad + floor(-s) + {0, 1}, where j is a non-negative
+// multiple of the stride and j / stride < d_out (the reference's stride
+// gating; j is tested for sign first, so C's truncating % and / agree with
+// the floor rule).
+__device__ __forceinline__ AxisTaps inverse_taps(int i, int stride, int pad,
+                                                 float s, int d_out,
+                                                 int quantize) {
+  AxisTaps a = raw_taps(i + pad, -s, quantize);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int j = a.idx[k];
+    const bool ok = a.w[k] != 0.f && j >= 0 && j % stride == 0 &&
+                    j / stride < d_out;
+    a.idx[k] = ok ? j / stride : -1;
+  }
+  return a;
+}
+
+// sum over the 2x2x2 corners of wT * wH * wW * src[t, h, w], in f32; src
+// points at channel c of one clip of a (T, H, W, C) tensor.
+template <class T>
+__device__ __forceinline__ float corner_sum(const T* __restrict__ src,
+                                            const AxisTaps (&a)[3], int H,
+                                            int W, int C) {
+  float acc = 0.f;
+#pragma unroll
+  for (int dt = 0; dt < 2; ++dt) {
+    if (a[0].idx[dt] < 0) continue;
+#pragma unroll
+    for (int dh = 0; dh < 2; ++dh) {
+      if (a[1].idx[dh] < 0) continue;
+      const float wth = a[0].w[dt] * a[1].w[dh];
+      const T* row = src + ((int64_t)a[0].idx[dt] * H + a[1].idx[dh]) *
+                               (int64_t)W * C;
+#pragma unroll
+      for (int dw = 0; dw < 2; ++dw) {
+        if (a[2].idx[dw] < 0) continue;
+        acc = fmaf(wth * a[2].w[dw], to_f32(row[(int64_t)a[2].idx[dw] * C]),
+                   acc);
+      }
+    }
+  }
+  return acc;
 }
 
 // Four consecutive values p[0..3] as f32 (p 16-byte aligned for float,

@@ -63,3 +63,59 @@ def frac_shift_axis(x: torch.Tensor, shift_c: torch.Tensor, axis: int,
     g1 = gather_axis_zero(x, base + small + 1, axis)
     rb = r.reshape((1,) * (x.ndim - 1) + (-1,))
     return (1 - rb) * g0 + rb * g1
+
+
+def _strided_tap(og: torch.Tensor, j: torch.Tensor, axis: int,
+                 stride: int) -> torch.Tensor:
+    """og gathered along ``axis`` at output position ``j // stride`` for raw
+    coordinates ``j`` (D_in, C), zero where ``j`` is not a multiple of the
+    stride or ``j // stride`` lies outside og."""
+    divisible = torch.remainder(j, stride) == 0
+    q = torch.where(divisible, torch.div(j, stride, rounding_mode="floor"),
+                    torch.full_like(j, -1))
+    return gather_axis_zero(og, q, axis)
+
+
+def inverse_shift_axis(og: torch.Tensor, shift_c: torch.Tensor, axis: int,
+                       stride: int, padding: int, d_in: int,
+                       quantize: bool) -> torch.Tensor:
+    """Input gradient of :func:`frac_shift_axis` along ``axis``.
+
+    Input position i pulls from output position ``(i + padding + s') /
+    stride`` for the negated shift ``s' = -shift_c``, where that raw
+    coordinate is a multiple of the stride, with linear interpolation on
+    the remainder of ``s'`` (quantize: one tap, remainder < 0.5 rounds
+    down). Returns og's shape with ``d_in`` along ``axis``.
+    """
+    offs = (torch.arange(d_in, device=og.device) + padding)[:, None]
+    neg = -shift_c
+    sf = torch.floor(neg)
+    small = sf.to(torch.int64)[None, :]
+    r = (neg - sf).to(og.dtype)
+    if quantize:
+        q = torch.where(r < 0.5, small, small + 1)
+        return _strided_tap(og, offs + q, axis, stride)
+    g0 = _strided_tap(og, offs + small, axis, stride)
+    g1 = _strided_tap(og, offs + small + 1, axis, stride)
+    rb = r.reshape((1,) * (og.ndim - 1) + (-1,))
+    return (1 - rb) * g0 + rb * g1
+
+
+def corrected_taps(x: torch.Tensor, shift_c: torch.Tensor, axis: int,
+                   stride: int, padding: int, d_out: int):
+    """The two corner gathers of the shift gradient along ``axis``.
+
+    The small tap moves back one cell where the remainder is exactly zero
+    (a backward difference at integer shifts; 3D rule, no tolerance).
+    Returns ``(g_small, g_large, r)``: x gathered at output positions
+    ``o * stride - padding`` plus the corrected small and the large offset,
+    and the remainder.
+    """
+    base = (torch.arange(d_out, device=x.device) * stride - padding)[:, None]
+    sf = torch.floor(shift_c)
+    small = sf.to(torch.int64)
+    r = (shift_c - sf).to(x.dtype)
+    small_corr = small - (r == 0).to(torch.int64)
+    g_small = gather_axis_zero(x, base + small_corr[None, :], axis)
+    g_large = gather_axis_zero(x, base + (small + 1)[None, :], axis)
+    return g_small, g_large, r

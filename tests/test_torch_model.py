@@ -24,10 +24,12 @@ from rubiksnet_torch.models import (
     max_int_shift,
     state_dict_from_jax,
 )
+from rubiksnet_torch.nn import BN
 from rubiksnet_torch.ops import launch_counters
 from rubiksnet_tpu.models import RubiksNet as JaxRubiksNet
 from rubiksnet_tpu.models import create_rubiksnet as jax_create
 from rubiksnet_tpu.models.pretrained import _max_int_shift, export_torch_state_dict
+from rubiksnet_tpu.nn.backbone import BN as jax_bn
 
 torch.set_num_threads(1)
 
@@ -41,12 +43,13 @@ def _randomize(tree, rng, lo, hi):
         tree)
 
 
-def tiny_bundle(quantize=False, seed=0):
+def tiny_bundle(quantize=False, seed=0, dtype=jnp.float32):
     """JAX tiny rubiks3d, 4 frames, 32 px, with non-trivial BN: running mean
-    U(-0.2, 0.2), var U(0.5, 2), BN weight U(0.5, 1.5), bias U(-0.3, 0.3)."""
+    U(-0.2, 0.2), var U(0.5, 2), BN weight U(0.5, 1.5), bias U(-0.3, 0.3).
+    ``dtype`` is the compute dtype; parameters are float32."""
     bundle = jax_create("tiny", num_classes=11, num_frames=4, input_size=32,
                         quantize=quantize, shift_max_shift=1,
-                        rng=jax.random.PRNGKey(seed))
+                        rng=jax.random.PRNGKey(seed), dtype=dtype)
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(lambda a: a, dict(bundle.variables["params"]))
     stats = dict(bundle.variables["batch_stats"])
@@ -170,17 +173,55 @@ def test_max_int_shift_matches_jax():
 
 
 def test_eval_mode_required():
+    """The fused executor is inference only; the module path trains, with
+    train-mode BN equal to flax's BatchNorm of the JAX package: batch
+    statistics, and running statistics updated with momentum 0.9 and the
+    biased batch variance (torch's batch_norm would use the unbiased one).
+    Tolerance 1e-5 (float32, the same arithmetic in another order)."""
     model = create_rubiksnet("tiny", 5).train()
-    with pytest.raises(NotImplementedError, match="eval"):
-        with torch.no_grad():
-            model(torch.zeros(1, 2, 16, 16, 3))
     with pytest.raises(ValueError, match="eval"):
         FusedExecutor(model)
+    video = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 2, 16, 16, 3)).astype(np.float32))
+    model(video).sum().backward()
+    assert model.new_fc.weight.grad is not None
+
+    rng = np.random.default_rng(6)
+    c = 8
+    x = (rng.standard_normal((2, 3, 4, 5, c)) * 2 + 0.5).astype(np.float32)
+    scale, bias = (rng.uniform(0.5, 1.5, c).astype(np.float32),
+                   rng.uniform(-0.3, 0.3, c).astype(np.float32))
+    mean0, var0 = (rng.uniform(-0.2, 0.2, c).astype(np.float32),
+                   rng.uniform(0.5, 2.0, c).astype(np.float32))
+    want, upd = jax_bn(jnp.float32, None).apply(
+        {"params": {"scale": scale, "bias": bias},
+         "batch_stats": {"mean": mean0, "var": var0}},
+        jnp.asarray(x), use_running_average=False, mutable=["batch_stats"])
+    bn = BN(c).train()
+    bn.load_state_dict({
+        "weight": torch.from_numpy(scale), "bias": torch.from_numpy(bias),
+        "running_mean": torch.from_numpy(mean0),
+        "running_var": torch.from_numpy(var0),
+        "num_batches_tracked": torch.tensor(0)})
+    got = bn(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    stats = upd["batch_stats"]
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(stats["mean"]), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(stats["var"]), rtol=1e-5, atol=1e-5)
+    biased = x.reshape(-1, c).var(axis=0)
+    np.testing.assert_allclose(bn.running_var.numpy(), 0.9 * var0 + 0.1 *
+                               biased, rtol=1e-5)
+    assert int(bn.num_batches_tracked) == 1
 
 
 def test_port_imports_no_jax():
     code = ("import sys, rubiksnet_torch, rubiksnet_torch.models, "
-            "rubiksnet_torch.nn, rubiksnet_torch.ops, rubiksnet_torch.utils; "
+            "rubiksnet_torch.nn, rubiksnet_torch.ops, rubiksnet_torch.train, "
+            "rubiksnet_torch.utils; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'rubiksnet_tpu')]; "
             "assert not bad, bad")

@@ -107,15 +107,22 @@ def test_bf16_shift_rounds_like_jax():
 
 
 def test_op_refuses_autograd():
-    x = torch.randn(1, 2, 4, 4, 3)
-    s = torch.zeros(3, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        shift3d.rubiks_shift_3d_forward(x, s)
-    with pytest.raises(NotImplementedError):
-        shift3d.rubiks_shift_3d_forward(x.requires_grad_(), s.detach())
+    """The autograd op records the shift and returns the normalized shift
+    gradient (unit norm per channel) and the input gradient; the bare
+    forward records nothing."""
+    x = torch.randn(1, 2, 4, 4, 3, dtype=torch.float64)
+    s = torch.tensor([[0.3, -0.7, 1.2], [0.5, 0.1, -0.4], [-0.9, 0.6, 0.2]],
+                     dtype=torch.float32, requires_grad=True)
+    assert shift3d.rubiks_shift_3d_forward(x, s).grad_fn is None
+    out = shift3d.rubiks_shift_3d(x.requires_grad_(), s)
+    assert out.grad_fn is not None and out.shape == x.shape
+    (out * out).sum().backward()
+    assert s.grad.dtype == torch.float32 and s.grad.shape == (3, 3)
+    np.testing.assert_allclose(s.grad.norm(dim=0).numpy(), 1.0, rtol=1e-6)
+    assert x.grad.shape == x.shape and bool(torch.isfinite(x.grad).all())
     with torch.no_grad():
-        out = shift3d.rubiks_shift_3d_forward(x, s)
-    assert out.shape == x.shape
+        out = shift3d.rubiks_shift_3d(x, s)
+    assert out.grad_fn is None
 
 
 def test_op_checks_shapes_and_device():
