@@ -4,19 +4,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse, K4
-shift_grad, K2 fused_block, K3 fused_entry) from rubiksnet_torch/ops/csrc,
-holds each against its plain PyTorch version at every RubiksNet-Large shape
-of its path, checks the whole Large model (fused executor and unfused module
-path against the plain model), counts the kernel launches of one fused and
-one unfused forward, and times serving at batch sizes 1, 8 and 32 (bf16, 8
-frames, 224x224). Then it trains: a tiny synthetic overfit through the
-kernels, one Large f32 train step through the kernels against the same step
-on the plain shift, the launches of one Large bf16 train step, and train
-throughput at batch 8, 16 and 32. Fails (non-zero exit, no result line) on
-the first problem, and without a CUDA device.
+shift_grad, K2 fused_block, K3 fused_entry, and the SE gate kernels inside
+K2 and K3) from rubiksnet_torch/ops/csrc, holds each against its plain
+PyTorch version at every shape of its path: RubiksNet-Large (rubiks3d),
+Large with the rubiks3d-aq variant (K1 and K1-inverse in their 2D mode, K2
+with the attention mix) and the SE tier Small (K2 and K3 with the gate).
+For each of the three models it checks the logits (fused executor and
+unfused module path against the plain model), counts the kernel launches of
+one fused and one unfused forward, and times serving at batch sizes 1, 8
+and 32 (bf16, 8 frames, 224x224). Then it trains: a tiny synthetic overfit
+through the kernels, one Large f32 train step through the kernels against
+the same step on the plain shift, the launches of one bf16 train step of
+each model, and train throughput (Large at batch 8, 16 and 32, Large-AQ
+and Small at batch 8). Fails (non-zero exit, no result line) on the first
+problem, and without a CUDA device.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
-the per-kernel results as {"kernels": [...]}.
+the per-kernel results as {"kernels": [...]}: for each kernel its launches
+on its main path, its error against the plain version, its time beside the
+plain version's, its bound (the larger of bytes moved over the memory rate
+and operations over the peak rate, from the shapes) and the time of the
+one PyTorch library call that computes the same function, where one
+exists (a depthwise convolution for the shifts).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from rubiksnet_torch.utils import cuda_call_times_ms
 
@@ -83,6 +93,49 @@ BLOCK_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 7), (14, 288, 35),
                 (7, 576, 2)]
 ENTRY_SHAPES = [(112, 72, 72), (56, 72, 144), (28, 144, 288),
                 (14, 288, 576)]
+# Small (the SE tier, repeats 3/4/6/3) has the same shapes with fewer
+# stride-1 blocks; Large-AQ has Large's.
+SMALL_BLOCK_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 3), (14, 288, 5),
+                      (7, 576, 2)]
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory 3.35 TB/s, bf16 tensor cores 989 TFLOP/s, float32 outside the
+# tensor cores 67 TFLOP/s. A bound is the larger of bytes / memory rate and
+# operations / peak: each input read once, each output written once;
+# matrix products of bf16 operands at the tensor-core peak, everything else
+# (interpolation weights, bn, relu, sums) at the float32 peak.
+HBM_BYTES_PER_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+FLOPS_PER_CORNER = 4  # weight product and multiply-add per corner read
+
+# Every kernel of the JSON line: where it lives and what it replaces.
+KERNELS = {
+    "shift3d": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+                "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
+    "shift3d_inverse": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+                        "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
+    "shift_grad": ("rubiksnet_torch/ops/csrc/shift_grad.cu",
+                   "rubiksnet_tpu/ops/pallas/shift_grad_kernel.py:190"),
+    "fused_block": ("rubiksnet_torch/ops/csrc/fused_block.cu",
+                    "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
+    "fused_entry": ("rubiksnet_torch/ops/csrc/fused_entry.cu",
+                    "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
+    # K1 and K1-inverse on the (N*T, 1, H, W, C) view with a zero T row and
+    # the 2D rounding: the 2D shift of rubiksnet_tpu/ops/shift2d.py:86-100
+    # and :129-146, which calls the same TPU kernel so.
+    "shift2d": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+                "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
+    "shift2d_inverse": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+                        "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
+    # K2 with the attention mix (fused_block.py:267 aq_mix), K2 with the SE
+    # gate (:215 se_gate, :231 se_conv3_batched; fused_frames.py:459 too) and
+    # K3 with it (fused_entry.py:198 gate_from_mean).
+    "fused_block_aq": ("rubiksnet_torch/ops/csrc/fused_block.cu",
+                       "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
+    "fused_block_se": ("rubiksnet_torch/ops/csrc/fused_block.cu",
+                       "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
+    "fused_entry_se": ("rubiksnet_torch/ops/csrc/fused_entry.cu",
+                       "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
+}
 
 
 def fail(msg):
@@ -129,10 +182,12 @@ def randomize_bn(model, gen):
     return model
 
 
-def random_block(cin, cout, stride, quantize, gen, device):
+def random_block(cin, cout, stride, quantize, gen, device,
+                 variant="rubiks3d", use_se=False):
     from rubiksnet_torch.nn.backbone import RubiksShiftBlock
 
-    blk = RubiksShiftBlock(cin, cout, stride, quantize, generator=gen)
+    blk = RubiksShiftBlock(cin, cout, stride, quantize, variant, use_se,
+                           generator=gen)
     with torch.no_grad():
         for bn in (blk.bn1, blk.bn2):
             c = bn.weight.numel()
@@ -365,7 +420,8 @@ def train_phase(dev, gen, name, smi):
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
     want = {"shift3d": 51, "shift3d_inverse": 51, "shift_grad": 51,
-            "fused_block": 0, "fused_entry": 0}
+            "fused_block": 0, "fused_entry": 0, "shift2d": 0,
+            "shift2d_inverse": 0}
     loss = float(metrics["loss"])
     print(f"[train] (c) launches of one Large bf16 train step, batch "
           f"{TIME_BATCH}: {launches}; loss {loss:.4f}")
@@ -400,17 +456,254 @@ def train_phase(dev, gen, name, smi):
     return launches
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from rubiksnet_torch.models.fused_infer import FusedExecutor
-    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
-    from rubiksnet_torch.ops import _build, launch_counters
+def rand_shift2d(c, gen, device):
+    """(2, C) shifts U(-1.8, 1.8); every fourth channel a multiple of 0.5,
+    so quantize meets exact ties of both signs and integers."""
+    shift = torch.rand((2, c), generator=gen, device=device) * 3.6 - 1.8
+    shift[:, ::4] = (shift[:, ::4] * 2).round() / 2
+    return shift
+
+
+def check_new_kernels(errs, gen, cpu_gen, dev):
+    """K1 and K1-inverse in 2D mode, K2 with the attention mix, with the SE
+    gate and with both, and K3 with the SE gate, against their plain
+    versions at the Large-AQ and Small shapes, f32 and bf16. Every SE run
+    is repeated and must agree bit for bit."""
+    from rubiksnet_torch.ops import shift2d
     from rubiksnet_torch.ops.fused_block import (
         fused_block_kernel,
         fused_block_plain,
         stack_block_params,
+        stack_block_params_aq,
+        stack_se_params,
+    )
+    from rubiksnet_torch.ops.fused_entry import (
+        fused_entry_kernel,
+        fused_entry_plain,
+        stack_entry_params,
+    )
+    from rubiksnet_torch.ops.shift3d import shift3d_kernel, shift3d_plain
+
+    dtypes = (torch.float32, torch.bfloat16)
+    print("[kernels] K1 / K1-inverse in 2D mode vs the 2D gather forms "
+          "(quantize: half away from zero; and K1's half-up rule on the "
+          "same one-frame view)")
+    for h, c, s in SHIFT_SHAPES:
+        for dt in dtypes:
+            x = randn((BATCH_CHECK * FRAMES, h, h, c), dt, gen, dev)
+            shift = rand_shift2d(c, gen, dev)
+            for q in (False, True):
+                mode = "quantize" if q else "fractional"
+                got = shift2d.shift2d_kernel(x, shift, s, 0, q)
+                ref = shift2d.shift2d_plain(x, shift, s, 0, q)
+                judge(f"K1-2D {h}x{h}x{c} stride {s} {str(dt)[6:]} {mode}",
+                      got, ref, dt, errs["shift2d"])
+                og = randn(got.shape, dt, gen, dev)
+                got = shift2d.shift2d_input_grad_kernel(og, shift, x.shape,
+                                                        s, 0, q)
+                ref = shift2d.shift2d_input_grad_plain(og, shift, x.shape, s,
+                                                       0, q)
+                judge(f"K1-inverse-2D {h}x{h}x{c} stride {s} {str(dt)[6:]} "
+                      f"{mode}", got, ref, dt, errs["shift2d_inverse"])
+            shift3 = torch.cat([torch.zeros_like(shift[:1]), shift])
+            got = shift3d_kernel(x[:, None], shift3, (1, s, s), (0, 0, 0),
+                                 True)
+            ref = shift3d_plain(x[:, None], shift3, (1, s, s), (0, 0, 0),
+                                True)
+            judge(f"K1 one frame {h}x{h}x{c} stride {s} {str(dt)[6:]} "
+                  f"quantize half-up", got, ref, dt, errs["shift2d"])
+
+    def twice(label, fn):
+        got, again = fn(), fn()
+        if not torch.equal(got, again):
+            fail(f"{label}: two runs on the same inputs differ")
+        return got
+
+    print("[kernels] K2 fused_block (2 blocks) with the attention mix (AQ), "
+          "the SE gate, and both, vs plain; SE runs bit-identical on a "
+          "rerun")
+    for h, c, _ in BLOCK_SHAPES:
+        for dt in dtypes:
+            for aq, se in ((True, False), (False, True), (True, True)):
+                variant = "rubiks3d-aq" if aq else "rubiks3d"
+                blocks = [random_block(c, c, 1, False, cpu_gen, dev, variant,
+                                       se) for _ in range(2)]
+                vt, wm = (stack_block_params_aq(blocks, dt, MAX_SHIFT) if aq
+                          else stack_block_params(blocks, dt, MAX_SHIFT))
+                sep = stack_se_params(blocks) if se else None
+                x = randn((BATCH_CHECK, FRAMES, h, h, c), dt, gen, dev)
+                label = (f"K2{'-AQ' if aq else ''}{'-SE' if se else ''} "
+                         f"{h}x{h}x{c} {str(dt)[6:]}")
+                got = twice(label, lambda: fused_block_kernel(
+                    x, vt, wm, sep, aq=aq, max_shift=MAX_SHIFT))
+                ref = fused_block_plain(x, vt, wm, sep, aq=aq,
+                                        max_shift=MAX_SHIFT)
+                kinds = [k for k, on in (("fused_block_aq", aq),
+                                         ("fused_block_se", se)) if on]
+                result = []
+                judge(label, got, ref, dt, result)
+                for k in kinds:
+                    errs[k].extend(result)
+
+    print("[kernels] K3 fused_entry with the SE gate vs plain; bit-identical "
+          "on a rerun")
+    for h, cin, cm in ENTRY_SHAPES:
+        for dt in dtypes:
+            for q in (False, True):
+                blk = random_block(cin, cm, 2, q, cpu_gen, dev, use_se=True)
+                params = stack_entry_params(blk, dt, MAX_SHIFT, q)
+                sep = stack_se_params([blk])[0]
+                x = randn((BATCH_CHECK, FRAMES, h, h, cin), dt, gen, dev)
+                label = (f"K3-SE {h}x{h}x{cin}->{cm} {str(dt)[6:]} "
+                         f"{'quantize' if q else 'fractional'}")
+                got = twice(label, lambda: fused_entry_kernel(
+                    x, params, sep, max_shift=MAX_SHIFT))
+                ref = fused_entry_plain(x, params, sep, max_shift=MAX_SHIFT)
+                judge(label, got, ref, dt, errs["fused_entry_se"])
+
+
+# ------------------------------------------------ bounds from the shapes
+
+
+def shift_work(written, read, itemsize, corners):
+    """(bytes, matrix-product operations, other operations) of one shift
+    call that writes ``written`` elements from ``read`` elements."""
+    return ((written + read) * itemsize, 0,
+            written * corners * FLOPS_PER_CORNER)
+
+
+def shift_grad_work(n_out, n_in, itemsize):
+    """K4: og and x read once; about 40 operations per output element (8
+    corners, three derivative sums)."""
+    return (n_out + n_in) * itemsize, 0, n_out * 40
+
+
+def block_work(n, h, c, itemsize, rows, aq=False, se=False):
+    """One stride-1 block on (n, FRAMES, h, h, c): x read, out written, the
+    parameters read; `mid` is the kernel's own intermediate."""
+    m = n * FRAMES * h * h
+    nbytes = 2 * m * c * itemsize + 2 * c * c * itemsize + rows * c * 4
+    if se:
+        nbytes += 2 * c * (c // 12) * 4
+    other = m * c * (6 + FLOPS_PER_CORNER * (4 if aq else 8)
+                     + (6 if aq else 0) + (3 if se else 0))
+    return nbytes, 4 * m * c * c, other
+
+
+def entry_work(n, h, cin, cm, itemsize, rows, se=False):
+    """One stride-2 entry block on (n, FRAMES, h, h, cin)."""
+    m, mo = n * FRAMES * h * h, n * FRAMES * (h // 2) * (h // 2)
+    nbytes = (m * cin + mo * cm + 2 * cin * cm + cm * cm) * itemsize + (
+        2 * cin + rows * cm) * 4
+    if se:
+        nbytes += 2 * cm * (cm // 12) * 4
+    other = (m * 2 * (cin + cm) + mo * cm * 8 * FLOPS_PER_CORNER
+             + (3 * m * cm if se else 0))
+    return nbytes, 2 * m * cin * cm + 2 * mo * (cm + cin) * cm, other
+
+
+def bound_times_ms(work, dtype):
+    """(ms for the bytes, ms for the operations) of one call."""
+    nbytes, mm, other = work
+    mm_peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    return (1e3 * nbytes / HBM_BYTES_PER_S,
+            1e3 * (mm / mm_peak + other / PEAK_F32))
+
+
+# -------------------------------------- library yardsticks (never called
+# by the port): the shift as one depthwise convolution over its tap
+# weights, the input gradient as the transposed convolution.
+
+
+def depthwise_weight(shift, dtype, axes):
+    """(C, 1, 3, ...) depthwise kernel of a shift with |s| < 1: the outer
+    product of the per-axis tap weights at offsets -1, 0, 1."""
+    from rubiksnet_torch.ops.shift3d import shift_tap_weights
+
+    taps = [shift_tap_weights(shift[a], dtype, 1, False)[:3].float()
+            for a in axes]
+    eq = "tc,hc,wc->cthw" if len(taps) == 3 else "hc,wc->chw"
+    return torch.einsum(eq, *taps)[:, None].to(dtype).contiguous()
+
+
+def library_shift(x, shift, s, inverse=False, in_hw=None):
+    """A closure running the depthwise (transposed) convolution on the
+    channel-first view of channel-last x (no copy), 3D for a (3, C) shift
+    on (N, T, H, W, C) and 2D for a (2, C) shift on (N, H, W, C)."""
+    three = shift.shape[0] == 3
+    w = depthwise_weight(shift, x.dtype, range(shift.shape[0]))
+    c = x.shape[-1]
+    xp = x.permute(0, 4, 1, 2, 3) if three else x.permute(0, 3, 1, 2)
+    stride = (1, s, s) if three else (s, s)
+    if not inverse:
+        conv = F.conv3d if three else F.conv2d
+        return lambda: conv(xp, w, stride=stride, padding=1, groups=c)
+    conv = F.conv_transpose3d if three else F.conv_transpose2d
+    pad_out = (0, s - 1, s - 1) if three else (s - 1, s - 1)
+    return lambda: conv(xp, w, stride=stride, padding=1,
+                        output_padding=pad_out, groups=c)
+
+
+def channel_last(y):
+    return y.permute(0, 2, 3, 4, 1) if y.ndim == 5 else y.permute(0, 2, 3, 1)
+
+
+class Timer:
+    """Sums, per kernel name, the time of its calls over one forward or
+    train step beside the plain version's, the library call's and the
+    bound."""
+
+    def __init__(self, names):
+        self.rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                         "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+                     for k in names}
+
+    def add(self, kind, label, count, kernel_fn, plain_fn, work, dtype,
+            lib_fn=None):
+        from rubiksnet_torch.utils import cuda_time_ms
+
+        row = self.rows[kind]
+        ms, plain_ms = cuda_time_ms(kernel_fn), cuda_time_ms(plain_fn)
+        tb, to = bound_times_ms(work, dtype)
+        row["ms"] += count * ms
+        row["plain_ms"] += count * plain_ms
+        row["bytes_ms"] += count * tb
+        row["ops_ms"] += count * to
+        row["bound_ms"] += count * max(tb, to)
+        text = (f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {max(tb, to):.4f} ms "
+                f"({'bytes' if tb >= to else 'operations'})")
+        if lib_fn is not None:
+            # The library call must compute the same function.
+            _, _, rel = errors(channel_last(lib_fn()), kernel_fn())
+            if rel > 2 * TOL_BF16_REL_L2:
+                fail(f"{label}: the library call disagrees, rel_l2 {rel}")
+            lib_ms = cuda_time_ms(lib_fn, iters=5)
+            row["library_ms"] = (row["library_ms"] or 0.0) + count * lib_ms
+            text += f", library (depthwise conv) {lib_ms:.4f} ms"
+        print(f"{text} (x{count} per forward or train step)")
+
+    def summary(self, kind, per):
+        row = self.rows[kind]
+        by = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.3f} ms")
+        print(f"  {kind}: {row['ms']:.3f} ms per {per}, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({by}), library {lib}")
+
+
+def time_kernels(timer, gen, cpu_gen, dev, name, smi):
+    """Kernel times at batch TIME_BATCH, bf16, summed over one forward's or
+    one train step's calls at each shape (calls per shape from the model's
+    plan)."""
+    from rubiksnet_torch.ops import shift2d
+    from rubiksnet_torch.ops.fused_block import (
+        fused_block_kernel,
+        fused_block_plain,
+        stack_block_params,
+        stack_block_params_aq,
+        stack_se_params,
     )
     from rubiksnet_torch.ops.fused_entry import (
         fused_entry_kernel,
@@ -426,8 +719,307 @@ def main() -> int:
         shift3d_shift_grad_kernel,
         shift3d_shift_grad_plain,
     )
-    from rubiksnet_torch.utils import cuda_time_ms, nvidia_smi_line
+    from rubiksnet_torch.utils import cuda_time_ms
 
+    print(f"[timing] per call, batch {TIME_BATCH} bf16, {name} ({smi})")
+    bf, nb, k = torch.bfloat16, TIME_BATCH, MAX_SHIFT
+    rows3, rows_aq = 4 + 3 * 3, 4 + 3 * 3 + 3
+    small_counts = {h: n for h, _, n in SMALL_BLOCK_SHAPES}
+
+    for h, c, count in BLOCK_SHAPES:
+        x = randn((nb, FRAMES, h, h, c), bf, gen, dev)
+        shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
+        timer.add("shift3d", f"K1 {h}x{h}x{c} stride 1", count,
+                  lambda: shift3d_kernel(x, shift),
+                  lambda: shift3d_plain(x, shift),
+                  shift_work(x.numel(), x.numel(), 2, 8), bf,
+                  library_shift(x, shift, 1))
+        blocks = {}
+        for aq, se in ((False, False), (True, False), (False, True)):
+            blk = random_block(c, c, 1, False, cpu_gen, dev,
+                               "rubiks3d-aq" if aq else "rubiks3d", se)
+            vt, wm = (stack_block_params_aq([blk], bf, k) if aq
+                      else stack_block_params([blk], bf, k))
+            blocks[aq, se] = (vt, wm, stack_se_params([blk]) if se else None)
+
+        def run(fn, aq, se):
+            vt, wm, sep = blocks[aq, se]
+            return lambda: fn(x, vt, wm, sep, aq=aq, max_shift=k)
+
+        for kind, tag, aq, se, n_calls in (
+                ("fused_block", "K2", False, False, count),
+                ("fused_block_aq", "K2-AQ", True, False, count),
+                ("fused_block_se", "K2-SE", False, True, small_counts[h])):
+            timer.add(kind, f"{tag} {h}x{h}x{c} 1 block", n_calls,
+                      run(fused_block_kernel, aq, se),
+                      run(fused_block_plain, aq, se),
+                      block_work(nb, h, c, 2, rows_aq if aq else rows3, aq,
+                                 se), bf)
+    for h, cin, cm in ENTRY_SHAPES:
+        xm = randn((nb, FRAMES, h, h, cm), bf, gen, dev)
+        shift = torch.rand((3, cm), generator=gen, device=dev) * 2 - 1
+        timer.add("shift3d", f"K1 {h}x{h}x{cm} stride 2", 1,
+                  lambda: shift3d_kernel(xm, shift, (1, 2, 2)),
+                  lambda: shift3d_plain(xm, shift, (1, 2, 2)),
+                  shift_work(xm.numel() // 4, xm.numel(), 2, 8), bf,
+                  library_shift(xm, shift, 2))
+        x = randn((nb, FRAMES, h, h, cin), bf, gen, dev)
+        for kind, tag, se in (("fused_entry", "K3", False),
+                              ("fused_entry_se", "K3-SE", True)):
+            blk = random_block(cin, cm, 2, False, cpu_gen, dev, use_se=se)
+            params = stack_entry_params(blk, bf, k)
+            sep = stack_se_params([blk])[0] if se else None
+            timer.add(kind, f"{tag} {h}x{h}x{cin}->{cm}", 1,
+                      lambda: fused_entry_kernel(x, params, sep,
+                                                 max_shift=k),
+                      lambda: fused_entry_plain(x, params, sep, max_shift=k),
+                      entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, se), bf)
+    # The shifts' backward kernels, summed over one train step's calls (one
+    # input gradient and one shift gradient per shift), and the 2D shift
+    # (Large-AQ: 51 per unfused forward and per train step).
+    counts = [n for _, _, n in BLOCK_SHAPES] + [1] * len(ENTRY_SHAPES)
+    plain2d_grad_ms = 0.0
+    for (h, c, s), count in zip(SHIFT_SHAPES, counts):
+        stride = (1, s, s)
+        x_shape = (nb, FRAMES, h, h, c)
+        og = randn(compute_output_shape_3d(x_shape, stride, (0, 0, 0)), bf,
+                   gen, dev)
+        x = randn(x_shape, bf, gen, dev)
+        shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
+        timer.add("shift3d_inverse", f"K1-inverse {h}x{h}x{c} stride {s}",
+                  count,
+                  lambda: shift3d_input_grad_kernel(og, shift, x_shape,
+                                                    stride),
+                  lambda: shift3d_input_grad_plain(og, shift, x_shape,
+                                                   stride),
+                  shift_work(x.numel(), og.numel(), 2, 8), bf,
+                  library_shift(og, shift, s, inverse=True))
+        timer.add("shift_grad", f"K4 {h}x{h}x{c} stride {s}", count,
+                  lambda: shift3d_shift_grad_kernel(og, x, shift, stride),
+                  lambda: shift3d_shift_grad_plain(og, x, shift, stride),
+                  shift_grad_work(og.numel(), x.numel(), 2), bf)
+        x4 = x.reshape((-1,) + x_shape[2:])
+        og4 = og.reshape((-1,) + tuple(og.shape[2:]))
+        shift2 = shift[1:].contiguous()
+        timer.add("shift2d", f"K1-2D {h}x{h}x{c} stride {s}", count,
+                  lambda: shift2d.shift2d_kernel(x4, shift2, s),
+                  lambda: shift2d.shift2d_plain(x4, shift2, s),
+                  shift_work(og.numel(), x.numel(), 2, 4), bf,
+                  library_shift(x4, shift2, s))
+        timer.add("shift2d_inverse", f"K1-inverse-2D {h}x{h}x{c} stride {s}",
+                  count,
+                  lambda: shift2d.shift2d_input_grad_kernel(og4, shift2,
+                                                            x4.shape, s),
+                  lambda: shift2d.shift2d_input_grad_plain(og4, shift2,
+                                                           x4.shape, s),
+                  shift_work(x.numel(), og.numel(), 2, 4), bf,
+                  library_shift(og4, shift2, s, inverse=True))
+        ms = cuda_time_ms(lambda: shift2d.rubiks_shift_2d_shift_grad(
+            og4, x4, shift2, s))
+        plain2d_grad_ms += count * ms
+        print(f"  2D shift gradient (plain PyTorch, no kernel) {h}x{h}x{c} "
+              f"stride {s}: {ms:.4f} ms (x{count} per train step)")
+    for kind in timer.rows:
+        backward = kind in ("shift3d_inverse", "shift_grad",
+                            "shift2d_inverse")
+        timer.summary(kind, "train step" if backward else "forward")
+    print(f"  2D shift gradient (plain PyTorch, no kernel): "
+          f"{plain2d_grad_ms:.3f} ms per Large-AQ train step")
+
+
+# ------------------------------------------------------------ the models
+
+
+def build_models(tier, variant, dev):
+    """The f32 and bf16 models of one configuration, seed 0, BN statistics
+    randomized."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+
+    models = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m = create_rubiksnet(tier, CLASSES, FRAMES, variant,
+                             max_shift=MAX_SHIFT, dtype=dt, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        models[dt] = randomize_bn(m, torch.Generator().manual_seed(1)).to(dev)
+    return models
+
+
+def check_logits(label, models, video):
+    """Fused executor and unfused module path against the plain model."""
+    from rubiksnet_torch.models.fused_infer import FusedExecutor
+
+    print(f"[model] RubiksNet-{label}, random init (seed 0), BN stats "
+          f"randomized")
+    with torch.no_grad():
+        for dt, tol in ((torch.float32, TOL_MODEL_F32),
+                        (torch.bfloat16, TOL_MODEL_BF16)):
+            m = models[dt]
+            ref = m(video, plain=True)
+            routes = {"fused executor": FusedExecutor(m)(video),
+                      "unfused forward": m(video)}
+            for route, got in routes.items():
+                if got.shape != (video.shape[0], CLASSES) or not (
+                        torch.isfinite(got.float()).all()):
+                    fail(f"{label} {route} {dt}: bad logits "
+                         f"{tuple(got.shape)}")
+                _, _, rel_l2 = errors(got, ref)
+                ok = rel_l2 <= tol
+                print(f"  {route} vs plain model, {str(dt)[6:]}: logits "
+                      f"rel_l2={rel_l2:.3e} [<= {tol}] "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"{label} {route} {dt} logits outside tolerance")
+
+
+def counted(fn):
+    """The launch counts of ``fn()``, every counter set to 0 just before it
+    and read just after."""
+    from rubiksnet_torch.ops import launch_counters
+
+    counters = launch_counters()
+    for ctr in counters.values():
+        ctr.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.count for k, c in counters.items()}
+
+
+def main_path(label, model, batch, want_fused, want_unfused):
+    """One batch through the fused executor, then through the unfused module
+    path, each counted; returns (executor, fused counts, unfused counts)."""
+    from rubiksnet_torch.models.fused_infer import FusedExecutor
+
+    executor = FusedExecutor(model)
+    zero = dict.fromkeys(("shift3d", "shift3d_inverse", "shift_grad",
+                          "fused_block", "fused_entry", "shift2d",
+                          "shift2d_inverse"), 0)
+    with torch.no_grad():
+        fused_logits, fused = counted(lambda: executor(batch))
+        unfused_logits, unfused = counted(lambda: model(batch))
+    print(f"[main path] {label}: launches of the fused forward {fused}; of "
+          f"the unfused forward {unfused}")
+    if fused != dict(zero, **want_fused):
+        fail(f"{label} fused forward launches {fused} != {want_fused}")
+    if unfused != dict(zero, **want_unfused):
+        fail(f"{label} unfused forward launches {unfused} != {want_unfused}")
+    for route, lg in (("fused", fused_logits), ("unfused", unfused_logits)):
+        if lg.shape != (batch.shape[0], CLASSES) or not torch.isfinite(
+                lg.float()).all():
+            fail(f"{label} main path {route} logits bad: {tuple(lg.shape)}")
+    _, _, rel = errors(fused_logits, unfused_logits)
+    print(f"  fused vs unfused logits, bf16: rel_l2={rel:.3e}")
+    if rel > TOL_MODEL_BF16:
+        fail(f"{label}: fused and unfused main-path logits disagree")
+    return executor, fused, unfused
+
+
+def serve_phase(label, executor, model, gen, dev, name, smi):
+    """Serving: each call answers one batch; its device time comes from CUDA
+    events around it (median, min and max of SERVE_ITERS calls)."""
+    print(f"[serve] {label} fused executor, bf16, {FRAMES}x{SIZE}x{SIZE}, "
+          f"{name} ({smi})")
+
+    def serve(route, fn, bs):
+        ms = sorted(cuda_call_times_ms(fn, iters=SERVE_ITERS, warmup=2))
+        med = ms[len(ms) // 2]
+        print(f"  {label} {route} batch {bs}: median {med:.3f} ms/batch "
+              f"(min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
+              f"{bs * 1000.0 / med:.1f} clips/s ({name}, {smi})")
+
+    with torch.no_grad():
+        for bs in SERVE_BATCHES:
+            clips = torch.randn((bs, FRAMES, SIZE, SIZE, 3), generator=gen,
+                                device=dev)
+            serve("fused executor", lambda: executor(clips), bs)
+        clips = torch.randn((8, FRAMES, SIZE, SIZE, 3), generator=gen,
+                            device=dev)
+        serve("plain model", lambda: model(clips, plain=True), 8)
+
+
+def small_aq_check(dev, gen):
+    """The SE tier with the rubiks3d-aq variant (both options through one K2
+    call) at a small size: 4 frames, 64 px, float32."""
+    from rubiksnet_torch.models.fused_infer import FusedExecutor
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+
+    m = create_rubiksnet("small", CLASSES, 4, "rubiks3d-aq",
+                         max_shift=MAX_SHIFT, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    m = randomize_bn(m, torch.Generator().manual_seed(1)).to(dev)
+    video = torch.randn((2, 4, 64, 64, 3), generator=gen, device=dev)
+    with torch.no_grad():
+        ref = m(video, plain=True)
+        got, counts = counted(lambda: FusedExecutor(m)(video))
+    _, _, rel = errors(got, ref)
+    ok = (rel <= TOL_MODEL_F32 and counts["fused_block"] == 13
+          and counts["shift2d"] == 4 and counts["fused_entry"] == 0)
+    print(f"[model] Small rubiks3d-aq (SE and AQ together), 4x64x64, f32: "
+          f"fused vs plain logits rel_l2={rel:.3e} [<= {TOL_MODEL_F32}], "
+          f"launches {counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("Small rubiks3d-aq fused forward failed")
+
+
+def train_config(label, tier, variant, want, dev, gen, name, smi):
+    """One bf16 train step of a configuration at batch TIME_BATCH, counted
+    (its main path), then its throughput at that batch."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
+
+    model = create_rubiksnet(tier, CLASSES, FRAMES, variant,
+                             max_shift=MAX_SHIFT, device=dev,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+    model.train()
+    step = make_train_step(model, sgd_with_shift_mult(model, 0.01, 0.1))
+    video = torch.randn((TIME_BATCH, FRAMES, SIZE, SIZE, 3), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, CLASSES, (TIME_BATCH,), generator=gen,
+                           device=dev)
+    metrics, launches = counted(lambda: step(video, labels))
+    loss = float(metrics["loss"])
+    print(f"[train] launches of one {label} bf16 train step, batch "
+          f"{TIME_BATCH}: {launches}; loss {loss:.4f}")
+    zero = dict.fromkeys(launches, 0)
+    if launches != dict(zero, **want):
+        fail(f"{label} train step launches {launches} != {want}")
+    if not math.isfinite(loss):
+        fail(f"{label} train step loss is not finite")
+    for n, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            fail(f"{label} train step: bad gradient of {n}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = sorted(cuda_call_times_ms(lambda: step(video, labels),
+                                   iters=TRAIN_ITERS, warmup=TRAIN_WARMUP))
+    med = ms[len(ms) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label} kernels batch {TIME_BATCH}: median {med:.3f} ms/step "
+          f"(min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
+          f"{TIME_BATCH * 1000.0 / med:.1f} clips/s, peak memory "
+          f"{peak:.2f} GiB ({name}, {smi})")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from rubiksnet_torch.ops import _build
+    from rubiksnet_torch.ops.fused_block import (
+        fused_block_kernel,
+        fused_block_plain,
+        stack_block_params,
+    )
+    from rubiksnet_torch.ops.fused_entry import (
+        fused_entry_kernel,
+        fused_entry_plain,
+        stack_entry_params,
+    )
+    from rubiksnet_torch.ops.shift3d import shift3d_kernel, shift3d_plain
+    from rubiksnet_torch.utils import nvidia_smi_line
+
+    started = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -447,15 +1039,12 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
-    errs = {"shift3d": [], "shift3d_inverse": [], "shift_grad": [],
-            "fused_block": [], "fused_entry": []}
+    errs = {k: [] for k in KERNELS}
     dtypes = (torch.float32, torch.bfloat16)
 
     # Phase 3: each kernel against its plain version at the Large shapes.
     print("[kernels] K1 shift3d vs gather form")
-    k1_shapes = [(h, c, 1) for h, c, _ in BLOCK_SHAPES] + [
-        (h, cm, 2) for h, _, cm in ENTRY_SHAPES]
-    for h, c, s in k1_shapes:
+    for h, c, s in SHIFT_SHAPES:
         for dt in dtypes:
             for q in (False, True):
                 x = randn((BATCH_CHECK, FRAMES, h, h, c), dt, gen, dev)
@@ -495,175 +1084,80 @@ def main() -> int:
                       f"{'quantize' if q else 'fractional'}", got, ref, dt,
                       errs["fused_entry"])
     check_shift_backward(errs, gen, dev)
+    check_new_kernels(errs, gen, cpu_gen, dev)
     torch.cuda.synchronize()
+    print(f"[clock] kernel checks done at "
+          f"{time.perf_counter() - started:.0f} s")
 
-    # Kernel times at batch TIME_BATCH, bf16, summed over one forward's
-    # calls at each shape (blocks per shape from the Large plan).
-    print(f"[timing] per call, batch {TIME_BATCH} bf16, {name} ({smi})")
-    bf = torch.bfloat16
-    times = {k: [0.0, 0.0] for k in errs}
+    timer = Timer(KERNELS)
+    time_kernels(timer, gen, cpu_gen, dev, name, smi)
+    print(f"[clock] kernel timing done at "
+          f"{time.perf_counter() - started:.0f} s")
 
-    def timed(kind, label, count, kernel_fn, plain_fn):
-        ms = cuda_time_ms(kernel_fn)
-        plain_ms = cuda_time_ms(plain_fn)
-        times[kind][0] += count * ms
-        times[kind][1] += count * plain_ms
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(x{count} per forward or train step)")
-
-    for h, c, count in BLOCK_SHAPES:
-        x = randn((TIME_BATCH, FRAMES, h, h, c), bf, gen, dev)
-        shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
-        timed("shift3d", f"K1 {h}x{h}x{c} stride 1", count,
-              lambda: shift3d_kernel(x, shift),
-              lambda: shift3d_plain(x, shift))
-        vt, wm = stack_block_params([random_block(c, c, 1, False, cpu_gen,
-                                                  dev)], bf, MAX_SHIFT)
-        timed("fused_block", f"K2 {h}x{h}x{c} 1 block", count,
-              lambda: fused_block_kernel(x, vt, wm, max_shift=MAX_SHIFT),
-              lambda: fused_block_plain(x, vt, wm, max_shift=MAX_SHIFT))
-    for h, cin, cm in ENTRY_SHAPES:
-        xm = randn((TIME_BATCH, FRAMES, h, h, cm), bf, gen, dev)
-        shift = torch.rand((3, cm), generator=gen, device=dev) * 2 - 1
-        timed("shift3d", f"K1 {h}x{h}x{cm} stride 2", 1,
-              lambda: shift3d_kernel(xm, shift, (1, 2, 2)),
-              lambda: shift3d_plain(xm, shift, (1, 2, 2)))
-        x = randn((TIME_BATCH, FRAMES, h, h, cin), bf, gen, dev)
-        params = stack_entry_params(random_block(cin, cm, 2, False, cpu_gen,
-                                                 dev), bf, MAX_SHIFT)
-        timed("fused_entry", f"K3 {h}x{h}x{cin}->{cm}", 1,
-              lambda: fused_entry_kernel(x, params, max_shift=MAX_SHIFT),
-              lambda: fused_entry_plain(x, params, max_shift=MAX_SHIFT))
-    # The backward kernels, summed over one train step's calls: one input
-    # gradient and one shift gradient per shift.
-    counts = [n for _, _, n in BLOCK_SHAPES] + [1] * len(ENTRY_SHAPES)
-    for (h, c, s), count in zip(SHIFT_SHAPES, counts):
-        stride = (1, s, s)
-        x_shape = (TIME_BATCH, FRAMES, h, h, c)
-        og = randn(compute_output_shape_3d(x_shape, stride, (0, 0, 0)), bf,
-                   gen, dev)
-        x = randn(x_shape, bf, gen, dev)
-        shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
-        timed("shift3d_inverse", f"K1-inverse {h}x{h}x{c} stride {s}", count,
-              lambda: shift3d_input_grad_kernel(og, shift, x_shape, stride),
-              lambda: shift3d_input_grad_plain(og, shift, x_shape, stride))
-        timed("shift_grad", f"K4 {h}x{h}x{c} stride {s}", count,
-              lambda: shift3d_shift_grad_kernel(og, x, shift, stride),
-              lambda: shift3d_shift_grad_plain(og, x, shift, stride))
-    for k, (ms, pms) in times.items():
-        per = ("train step" if k in ("shift3d_inverse", "shift_grad")
-               else "forward")
-        print(f"  {k}: {ms:.3f} ms per {per}, plain {pms:.3f} ms")
-
-    # Phase 4: the whole Large model against the plain model.
-    print("[model] RubiksNet-Large rubiks3d, random init (seed 0), "
-          "BN stats randomized")
-    models = {}
-    for dt in dtypes:
-        m = create_rubiksnet("large", CLASSES, FRAMES, "rubiks3d",
-                             max_shift=MAX_SHIFT, dtype=dt,
-                             generator=torch.Generator().manual_seed(0))
-        models[dt] = randomize_bn(m, torch.Generator().manual_seed(1)).to(dev)
+    # Phases 4-6, once per configuration: the whole model against the plain
+    # model, the main path counted (one batch through the fused executor,
+    # then through the unfused module path), serving.
     video = torch.randn((BATCH_CHECK, FRAMES, SIZE, SIZE, 3), generator=gen,
                         device=dev)
-    with torch.no_grad():
-        for dt, tol in ((torch.float32, TOL_MODEL_F32),
-                        (torch.bfloat16, TOL_MODEL_BF16)):
-            m = models[dt]
-            ref = m(video, plain=True)
-            routes = {"fused executor": FusedExecutor(m)(video)}
-            if dt == torch.float32:
-                routes["unfused forward (K1)"] = m(video)
-            for route, got in routes.items():
-                if got.shape != (BATCH_CHECK, CLASSES) or not torch.isfinite(
-                        got.float()).all():
-                    fail(f"{route} {dt}: bad logits {tuple(got.shape)}")
-                _, _, rel_l2 = errors(got, ref)
-                ok = rel_l2 <= tol
-                print(f"  {route} vs plain model, {str(dt)[6:]}: logits "
-                      f"rel_l2={rel_l2:.3e} [<= {tol}] "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"{route} {dt} logits outside tolerance")
-
-    # Phase 5: the main path, counted. One batch through the fused
-    # executor, then the same batch through the unfused module path.
-    model = models[torch.bfloat16]
-    executor = FusedExecutor(model)
     batch = torch.randn((TIME_BATCH, FRAMES, SIZE, SIZE, 3), generator=gen,
                         device=dev)
-    counters = launch_counters()
-    for ctr in counters.values():
-        ctr.reset()
-    with torch.no_grad():
-        fused_logits = executor(batch)
-        torch.cuda.synchronize()
-        after_fused = {k: c.count for k, c in counters.items()}
-        unfused_logits = model(batch)
-        torch.cuda.synchronize()
-    launches = {k: c.count for k, c in counters.items()}
-    print(f"[main path] launches after the fused forward: {after_fused}; "
-          f"after the unfused forward too: {launches}")
-    want_fused = {"shift3d": 0, "shift3d_inverse": 0, "shift_grad": 0,
-                  "fused_block": 47, "fused_entry": 4}
-    if after_fused != want_fused:
-        fail(f"fused forward launches {after_fused} != {want_fused}")
-    if launches != dict(want_fused, shift3d=51):
-        fail(f"unfused forward launches {launches}: K1 51 times and no "
-             f"backward kernel expected")
-    for label, lg in (("fused", fused_logits), ("unfused", unfused_logits)):
-        if lg.shape != (TIME_BATCH, CLASSES) or not torch.isfinite(
-                lg.float()).all():
-            fail(f"main path {label} logits bad: {tuple(lg.shape)}")
-    _, _, rel = errors(fused_logits, unfused_logits)
-    print(f"  fused vs unfused logits, bf16: rel_l2={rel:.3e}")
-    if rel > TOL_MODEL_BF16:
-        fail("fused and unfused main-path logits disagree")
+    launches = {}
+    configs = (
+        ("Large rubiks3d", "large", "rubiks3d",
+         {"fused_block": 47, "fused_entry": 4}, {"shift3d": 51},
+         {"fused_block": "fused_block", "fused_entry": "fused_entry"},
+         {"shift3d": "shift3d"}),
+        ("Large rubiks3d-aq", "large", "rubiks3d-aq",
+         {"fused_block": 47, "shift2d": 4}, {"shift2d": 51},
+         {"fused_block_aq": "fused_block"}, {"shift2d": "shift2d"}),
+        ("Small rubiks3d (SE)", "small", "rubiks3d",
+         {"fused_block": 13, "fused_entry": 4}, {"shift3d": 17},
+         {"fused_block_se": "fused_block", "fused_entry_se": "fused_entry"},
+         {}),
+    )
+    for label, tier, variant, want_f, want_u, from_f, from_u in configs:
+        models = build_models(tier, variant, dev)
+        check_logits(label, models, video)
+        model = models[torch.bfloat16]
+        executor, fused, unfused = main_path(label, model, batch, want_f,
+                                             want_u)
+        launches.update({k: fused[ctr] for k, ctr in from_f.items()})
+        launches.update({k: unfused[ctr] for k, ctr in from_u.items()})
+        serve_phase(label, executor, model, gen, dev, name, smi)
+        del models, model, executor
+        torch.cuda.empty_cache()
+        print(f"[clock] {label} done at "
+              f"{time.perf_counter() - started:.0f} s")
+    small_aq_check(dev, gen)
 
-    # Phase 6: serving. Each call answers one batch; its device time comes
-    # from CUDA events around it (median, min and max of SERVE_ITERS calls).
-    print(f"[serve] fused executor, bf16, {FRAMES}x{SIZE}x{SIZE}, "
-          f"{name} ({smi})")
-
-    def serve(label, fn, bs):
-        ms = sorted(cuda_call_times_ms(fn, iters=SERVE_ITERS, warmup=2))
-        med = ms[len(ms) // 2]
-        print(f"  {label} batch {bs}: median {med:.3f} ms/batch "
-              f"(min {ms[0]:.3f}, max {ms[-1]:.3f}, n={len(ms)}), "
-              f"{bs * 1000.0 / med:.1f} clips/s ({name}, {smi})")
-
-    with torch.no_grad():
-        for bs in SERVE_BATCHES:
-            clips = torch.randn((bs, FRAMES, SIZE, SIZE, 3), generator=gen,
-                                device=dev)
-            serve("fused executor", lambda: executor(clips), bs)
-        clips = torch.randn((8, FRAMES, SIZE, SIZE, 3), generator=gen,
-                            device=dev)
-        serve("plain model", lambda: model(clips, plain=True), 8)
-
-    # Phase 7: training, its own main path counted inside.
-    del model, executor, models
-    torch.cuda.empty_cache()
+    # Phase 7: training, each configuration's train step counted inside.
     train_launches = train_phase(dev, gen, name, smi)
     for k in ("shift3d_inverse", "shift_grad"):
         launches[k] = train_launches[k]
+    torch.cuda.empty_cache()
+    aq_launches = train_config(
+        "Large rubiks3d-aq", "large", "rubiks3d-aq",
+        {"shift2d": 51, "shift2d_inverse": 51}, dev, gen, name, smi)
+    launches["shift2d_inverse"] = aq_launches["shift2d_inverse"]
+    torch.cuda.empty_cache()
+    train_config("Small rubiks3d (SE)", "small", "rubiks3d",
+                 {"shift3d": 17, "shift3d_inverse": 17, "shift_grad": 17},
+                 dev, gen, name, smi)
+    print(f"[clock] training done at {time.perf_counter() - started:.0f} s")
 
-    source = {"shift3d": ("rubiksnet_torch/ops/csrc/shift3d.cu",
-                          "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
-              "shift3d_inverse": (
-                  "rubiksnet_torch/ops/csrc/shift3d.cu",
-                  "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
-              "shift_grad": (
-                  "rubiksnet_torch/ops/csrc/shift_grad.cu",
-                  "rubiksnet_tpu/ops/pallas/shift_grad_kernel.py:190"),
-              "fused_block": ("rubiksnet_torch/ops/csrc/fused_block.cu",
-                              "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
-              "fused_entry": ("rubiksnet_torch/ops/csrc/fused_entry.cu",
-                              "rubiksnet_tpu/ops/pallas/fused_entry.py:338")}
-    kernels = [{"name": k, "route": "cuda", "source": source[k][0],
-                "replaces": source[k][1], "launches": launches[k],
-                "max_abs_err": max(errs[k]), "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in errs]
+    kernels = []
+    for k, (source, replaces) in KERNELS.items():
+        row = timer.rows[k]
+        if launches[k] < 1:
+            fail(f"kernel {k} was not launched on its main path")
+        kernels.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": max(errs[k]), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                         else "operations"),
+            "library_ms": row["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,12 @@
 """Model, weights and the fused inference executor of the PyTorch port."""
 
 from .fused_infer import FusedExecutor, fused_infer_apply
-from .pretrained import max_int_shift, state_dict_from_jax
+from .pretrained import (
+    load_pretrained,
+    max_int_shift,
+    save_pretrained,
+    state_dict_from_jax,
+)
 from .rubiksnet import TIERS, RubiksNet, create_rubiksnet, from_ntchw
 
 __all__ = [
@@ -11,6 +16,8 @@ __all__ = [
     "create_rubiksnet",
     "from_ntchw",
     "fused_infer_apply",
+    "load_pretrained",
     "max_int_shift",
+    "save_pretrained",
     "state_dict_from_jax",
 ]

@@ -7,13 +7,12 @@ reference's (N, T, 3, H, W).
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.backbone import RubiksNetBackbone
+from ..nn.backbone import VARIANTS, RubiksNetBackbone
+from ..nn.layers import lecun_normal_
 
 TIERS = {
     # tier -> (width, repeats, use_se)
@@ -22,19 +21,6 @@ TIERS = {
     "medium": (72, (3, 4, 23, 3), False),
     "large": (72, (3, 8, 36, 3), False),
 }
-
-VARIANTS = ("rubiks3d", "rubiks3d-aq")
-
-
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    """Truncated normal (2 std) with variance 1 / fan_in, in place."""
-    fan_in = weight.shape[1]
-    # Std of the unit normal truncated to [-2, 2].
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
-                                     generator=generator)
-
 
 class Linear(nn.Module):
     """Dense layer, weight (out, in) lecun-normal, bias zero."""
@@ -72,22 +58,26 @@ class RubiksNet(nn.Module):
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}")
         width, repeats, use_se = TIERS[tier]
-        if use_se:
-            raise NotImplementedError(
-                f"tier {tier!r} uses SE blocks, not ported yet (ROADMAP: "
-                "K2/K3 with SE)")
-        if variant != "rubiks3d":
-            raise NotImplementedError(
-                f"variant {variant!r} is not ported yet (ROADMAP: K2 with "
-                "AQ, and P1 as a 2D shift)")
         self.tier, self.num_classes, self.num_frames = tier, num_classes, (
             num_frames)
         self.variant, self.quantize, self.max_shift = variant, quantize, (
             max_shift)
         self.dtype = dtype
-        self.backbone = RubiksNetBackbone(width, repeats, quantize,
-                                          generator=generator)
+        self.backbone = RubiksNetBackbone(width, repeats, quantize, variant,
+                                          use_se, generator=generator)
         self.new_fc = Linear(8 * width, num_classes, generator=generator)
+
+    def replace_new_fc(self, num_classes, generator=None):
+        """A fresh classification head of ``num_classes`` outputs (lecun-
+        normal weight drawn on the CPU from ``generator``, default seed 0;
+        zero bias), in place, on the old head's device. Returns self."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        old = self.new_fc.weight
+        head = Linear(old.shape[1], num_classes, generator=generator)
+        self.new_fc = head.to(old.device)
+        self.num_classes = num_classes
+        return self
 
     def head(self, x):
         """Last stage's (N, T, H, W, C) -> (N, num_classes): bn_last, ReLU,
@@ -106,20 +96,36 @@ class RubiksNet(nn.Module):
         return self.new_fc(feats).mean(dim=1)
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA card, and raises
+    where CUDA is not available (the CPU is never a silent default)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: rubiksnet_torch builds its models on the card "
+            "by default; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
 def from_ntchw(video):
     """Reference-layout (N, T, 3, H, W) video to (N, T, H, W, 3)."""
     return video.permute(0, 1, 3, 4, 2)
 
 
 def create_rubiksnet(tier, num_classes, num_frames=8, variant="rubiks3d",
-                     max_shift=4, quantize=False, device="cpu",
+                     max_shift=4, quantize=False, device=None,
                      dtype=torch.float32, generator=None):
     """A randomly initialized RubiksNet in eval mode on ``device``.
 
+    ``device=None`` is the CUDA card and raises where there is none; pass
+    ``device="cpu"`` to run on the CPU (the kernels' plain versions).
     Weights are drawn on the CPU from ``generator`` (default: seed 0), so a
     seed gives the same model on every device. Init: He fan-out normal
-    convs, shifts U(-1, 1), BN weight 1 and bias 0, lecun-normal new_fc.
+    convs, shifts U(-1, 1), attention weights U[0, 1), BN weight 1 and bias
+    0, lecun-normal SE and new_fc weights.
     """
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = RubiksNet(tier, num_classes, num_frames, variant, quantize,

@@ -4,7 +4,10 @@ Counterpart of ``rubiksnet_tpu/nn/backbone.py`` (unrolled stages only): a
 3x3 stride-2 stem, stages of RubiksShiftBlocks of widths (w, w, 2w, 4w, 8w),
 then BN, ReLU and a spatial mean. Parameters are float32 and named as the
 reference's torch modules (``layer3.12.as3.rubiks3d.shift``, OIHW conv
-weights); the compute dtype is that of the input.
+weights; for the rubiks3d-aq variant ``conv2.0.weight`` is the attention
+shift, ``conv2.1.weight`` the 1x1 conv and ``as3.shift`` the (2, C) shift;
+SE weights are ``se.fc.0.weight`` and ``se.fc.2.weight``); the compute
+dtype is that of the input.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_block import BN_EPS, fold_bn
-from .layers import Rubiks3DWrap
+from .layers import AttentionShift, Rubiks3DWrap, RubiksShift2D, SELayer
+
+VARIANTS = ("rubiks3d", "rubiks3d-aq")
 
 
 def he_fan_out_normal_(weight: torch.Tensor, generator: torch.Generator):
@@ -103,22 +108,41 @@ class StemConv(nn.Module):
 
 
 class RubiksShiftBlock(nn.Module):
-    """Pre-activation block: BN1, ReLU, 1x1 conv, BN2, ReLU, 3D shift (the
-    block's stride), 1x1 conv, plus a shortcut that is a strided 1x1 conv on
-    the activated input when the stride or width changes, else the input."""
+    """Pre-activation block: BN1, ReLU, [rubiks3d-aq: attention temporal
+    shift], 1x1 conv, BN2, ReLU, the shift (3D for rubiks3d, 2D for
+    rubiks3d-aq; it carries the block's stride), [SE], 1x1 conv, plus a
+    shortcut that is a strided 1x1 conv on the activated input when the
+    stride or width changes, else the input. ``use_se`` is False, True
+    (reduction 12) or the reduction."""
 
-    def __init__(self, in_planes, out_planes, stride=1, quantize=False, *,
+    def __init__(self, in_planes, out_planes, stride=1, quantize=False,
+                 variant="rubiks3d", use_se=False, init_shift="uniform", *,
                  generator=None):
         super().__init__()
+        if variant not in VARIANTS:
+            raise NotImplementedError(f"unknown variant {variant!r}")
         self.in_planes, self.out_planes, self.stride = (
             in_planes, out_planes, stride)
+        self.variant = variant
         mid = out_planes
         g = generator
         self.bn1 = BN(in_planes)
-        self.conv2 = Conv1x1(in_planes, mid, generator=g)
+        conv2 = Conv1x1(in_planes, mid, generator=g)
         self.bn2 = BN(mid)
-        self.as3 = Rubiks3DWrap(mid, stride=stride, quantize=quantize,
-                                generator=g)
+        if variant == "rubiks3d":
+            self.conv2 = conv2
+            self.as3 = Rubiks3DWrap(mid, stride=stride, quantize=quantize,
+                                    generator=g)
+        else:
+            self.conv2 = nn.Sequential(AttentionShift(in_planes, generator=g),
+                                       conv2)
+            self.as3 = RubiksShift2D(mid, stride=stride, quantize=quantize,
+                                     init_shift=init_shift, generator=g)
+        if use_se:
+            reduction = 12 if isinstance(use_se, bool) else int(use_se)
+            self.se = SELayer(mid, reduction, generator=g)
+        else:
+            self.se = None
         self.conv3 = Conv1x1(mid, out_planes, generator=g)
         if stride != 1 or in_planes != out_planes:
             self.shortcut = Conv1x1(in_planes, out_planes, stride,
@@ -126,11 +150,23 @@ class RubiksShiftBlock(nn.Module):
         else:
             self.shortcut = None
 
+    @property
+    def conv2_1x1(self):
+        """The 1x1 conv of conv2 (its second half for rubiks3d-aq)."""
+        return self.conv2 if self.variant == "rubiks3d" else self.conv2[1]
+
+    @property
+    def aq_shift(self):
+        """The attention shift of a rubiks3d-aq block, else None."""
+        return None if self.variant == "rubiks3d" else self.conv2[0]
+
     def forward(self, x, plain=False):
         out = torch.relu(self.bn1(x))
         shortcut = x if self.shortcut is None else self.shortcut(out)
         out = torch.relu(self.bn2(self.conv2(out)))
         out = self.as3(out, plain=plain)
+        if self.se is not None:
+            out = self.se(out)
         return self.conv3(out) + shortcut
 
 
@@ -138,7 +174,8 @@ class RubiksNetBackbone(nn.Module):
     """Stem, stages layer0..layer4 (repeats (1, r0, r1, r2, r3), strides
     (1, 2, 2, 2, 2)), bn_last. Returns per-frame features (N, T, 8w)."""
 
-    def __init__(self, width, repeats, quantize=False, *, generator=None):
+    def __init__(self, width, repeats, quantize=False, variant="rubiks3d",
+                 use_se=False, init_shift="uniform", *, generator=None):
         super().__init__()
         self.conv1 = StemConv(width, generator=generator)
         widths = [(width, 1, 1), (width, repeats[0], 2),
@@ -151,7 +188,7 @@ class RubiksNetBackbone(nn.Module):
             for b in range(repeat):
                 blocks.append(RubiksShiftBlock(
                     in_planes, planes, stride if b == 0 else 1, quantize,
-                    generator=generator))
+                    variant, use_se, init_shift, generator=generator))
                 in_planes = planes
             setattr(self, f"layer{stage_idx}", nn.ModuleList(blocks))
         self.bn_last = BN(8 * width)

@@ -1,5 +1,5 @@
 // Device code shared by the port's kernels (shift3d.cu, shift_grad.cu,
-// fused_block.cu, fused_entry.cu): dtype conversions, the per-axis taps and
+// fused_block.cu, fused_entry.cu, se_gate.cuh): dtype conversions, the per-axis taps and
 // corner sum of the one-pass shifts, a tiled GEMM whose operand loads and
 // output stores are functors, and the loaders and stores the fused kernels
 // plug into it.
@@ -54,7 +54,11 @@ struct AxisTaps {
 
 // Taps of a shift by s (already rounded to the compute dtype) reading cells
 // j0 + {0, 1} with weights (1 - r, r), where j0 = base + floor(s) and r is
-// the remainder; quantize reads the one cell j0 + (r >= 0.5).
+// the remainder. quantize 1 (the 3D rule) reads the one cell j0 + (r >= 0.5);
+// quantize 2 (the 2D rule) reads the cell base + s rounded half away from
+// zero, so the coordinate's sign enters the rounding.
+enum Quantize { kFractional = 0, kHalfUp = 1, kHalfAway = 2 };
+
 __device__ __forceinline__ AxisTaps raw_taps(int base, float s,
                                              int quantize) {
   const float f = floorf(s);
@@ -62,7 +66,12 @@ __device__ __forceinline__ AxisTaps raw_taps(int base, float s,
   const int j0 = base + (int)f;
   AxisTaps a;
   if (quantize) {
-    a.idx[0] = j0 + (r >= 0.5f);
+    if (quantize == kHalfAway) {
+      const float v = (float)base + s;
+      a.idx[0] = (int)truncf(v < 0.f ? v - 0.5f : v + 0.5f);
+    } else {
+      a.idx[0] = j0 + (r >= 0.5f);
+    }
     a.w[0] = 1.f;
     a.idx[1] = -1;
     a.w[1] = 0.f;
@@ -303,6 +312,49 @@ struct BnReluLoad {
   }
 };
 
+// Shared state of AqBnReluLoad: each tile row's frame index t.
+struct AqShared {
+  int t[kBM];
+};
+
+// The rubiks3d-aq prologue: with r = relu(scale . x + bias) as a T operand,
+//   A(m, k) = w0[k] r[t-1] + w1[k] r[t] + w2[k] r[t+1]
+// along the T axis of x (N, T, H, W, C), zero boundary frames (frame 0 of a
+// clip never reads the clip before it: t comes from the row's (n, t, h, w)
+// position, not from the flat row index), summed in f32 and rounded to T.
+// aw: (3, C) attention taps.
+template <class T>
+struct AqBnReluLoad {
+  using Shared = AqShared;
+  const T* x;
+  const float* scale;
+  const float* bias;
+  const float* aw;
+  int C, T_, HW;
+  __device__ __forceinline__ void rows(Shared& sh, int64_t m0,
+                                       int64_t M) const {
+    for (int i = threadIdx.x; i < kBM; i += blockDim.x) {
+      const int64_t m = m0 + i < M ? m0 + i : M - 1;
+      sh.t[i] = (int)((m / HW) % T_);
+    }
+  }
+  __device__ __forceinline__ void slab(Shared&, int) const {}
+  __device__ __forceinline__ float act(int64_t m, int k, float s,
+                                       float b) const {
+    return round_to<T>(fmaxf(fmaf(s, to_f32(x[m * C + k]), b), 0.f));
+  }
+  __device__ __forceinline__ float operator()(const Shared& sh, int mm,
+                                              int64_t m, int, int k) const {
+    const float s = __ldg(scale + k), b = __ldg(bias + k);
+    const int t = sh.t[mm];
+    float acc = 0.f;
+    if (t > 0) acc = __ldg(aw + k) * act(m - HW, k, s, b);
+    acc = fmaf(__ldg(aw + C + k), act(m, k, s, b), acc);
+    if (t < T_ - 1) acc = fmaf(__ldg(aw + 2 * C + k), act(m + HW, k, s, b), acc);
+    return round_to<T>(acc);
+  }
+};
+
 // B(k, n) of a row-major (K, N) weight matrix (the 1x1 conv as (in, out)).
 template <class T>
 struct WeightLoad {
@@ -345,13 +397,16 @@ struct ShiftShared {
 // conv_backend._shift_kernel. Only the non-zero tap range of each axis is
 // visited: two taps for a fractional shift, one for a quantized one, the
 // same count in every lane of a warp. Row positions are decomposed once per
-// block and the slab's taps staged once per slab, in shared memory.
+// block and the slab's taps staged once per slab, in shared memory. With a
+// gate (N*T, C) f32 (the SE tiers, se_gate.cuh) the f32 sum is multiplied by
+// gate[n * T + t, k] before it is rounded to T.
 template <class T>
 struct ShiftLoad {
   using Shared = ShiftShared;
   const T* mid;
   const float* taps;
   int T_, H, W, C, Ho, Wo, S, taps_n, K;
+  const float* gate;  // nullptr: no SE
 
   __device__ __forceinline__ void rows(Shared& sh, int64_t m0,
                                        int64_t M) const {
@@ -409,6 +464,7 @@ struct ShiftLoad {
         }
       }
     }
+    if (gate != nullptr) acc *= __ldg(gate + (int64_t)(nt + t) * C + k);
     return round_to<T>(acc);
   }
 };

@@ -2,10 +2,10 @@
 // inference.
 //
 //   a   = relu(bn1(x))                                   (N, T, H, W, Cin)
-//   out = W3 . shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
+//   out = W3 . [SE] shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
 //
-// Replaces rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_run (SE is
-// not handled). The shift at stride (1, 2, 2), pad 0, is the stride-1 shift
+// Replaces rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_run, with
+// its SE gate on the decimated activation. The shift at stride (1, 2, 2), pad 0, is the stride-1 shift
 // sampled at (2h', 2w'); the TPU kernel's W de-interleave and parity-split
 // H were workarounds for Mosaic's lack of strided slices, and a strided
 // read replaces both here.
@@ -22,7 +22,11 @@
 //      k >= mid reads relu(bn1(x)) at (2h', 2w') against Wsc, so the
 //      strided shortcut is a second K range of the same accumulator instead
 //      of an identity residual.
+// With se, two small launches between A and B compute the gate from one
+// pass over mid (se_gate.cuh, the mean over the decimated (H/2, W/2) grid)
+// and B's shift gather multiplies by it; the shortcut range is not gated.
 #include "common.cuh"
+#include "se_gate.cuh"
 
 namespace rubiks {
 
@@ -79,13 +83,16 @@ struct PlainStore {
 template <class T>
 int fused_entry(const void* xv, const float* vt1, const float* vt2,
                 const void* w2v, const void* w3v, const void* wscv,
-                void* midv, void* outv, int N, int T_, int H, int W, int Cin,
-                int Cm, int taps_n, int K, cudaStream_t stream) {
+                const float* se, float* partial, float* gate, void* midv,
+                void* outv, int N, int T_, int H, int W, int Cin, int Cm,
+                int taps_n, int K, int Cr, int slices, cudaStream_t stream) {
   const int Ho = H / 2, Wo = W / 2;
   const int64_t M = (int64_t)N * T_ * H * W;
   const int64_t Mo = (int64_t)N * T_ * Ho * Wo;
   if (Mo == 0) return 0;
   if (taps_n > kMaxTaps || M >= (int64_t(1) << 31))
+    return (int)cudaErrorInvalidValue;
+  if (se != nullptr && (partial == nullptr || gate == nullptr))
     return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(xv);
   T* mid = static_cast<T*>(midv);
@@ -94,12 +101,18 @@ int fused_entry(const void* xv, const float* vt1, const float* vt2,
   const float* s2 = vt2;
   const float* b2 = vt2 + Cm;
   const float* taps = vt2 + 2 * Cm;
-  const cudaError_t err =
+  cudaError_t err =
       launch_gemm<T>(M, Cm, Cin, BnReluLoad<T>{x, s1, b1, Cin},
                   WeightLoad<T>{static_cast<const T*>(w2v), Cm},
                   BnReluStore<T>{mid, s2, b2, Cm}, stream);
   if (err != cudaSuccess) return (int)err;
-  const ShiftLoad<T> shift{mid, taps, T_, H, W, Cm, Ho, Wo, 2, taps_n, K};
+  if (se != nullptr) {
+    err = launch_se_gate<T>(mid, taps, se, partial, gate, N * T_, T_, H, W,
+                            Cm, Ho, Wo, 2, taps_n, K, Cr, slices, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const ShiftLoad<T> shift{mid, taps, T_, H, W, Cm, Ho, Wo, 2, taps_n, K,
+                           se != nullptr ? gate : nullptr};
   return (int)launch_gemm<T>(Mo, Cm, Cm + Cin, EntryLoad<T>{shift, x, s1, b1, Cin},
                           EntryWeightLoad<T>{static_cast<const T*>(w3v),
                                              static_cast<const T*>(wscv), Cm},
@@ -114,20 +127,25 @@ extern "C" {
 // (N, T, H/2, W/2, Cm) contiguous of dtype (0 float32, 1 bfloat16).
 // vt1: (2, Cin) float32 folded bn1; vt2: (2 + 3*taps_n, Cm) float32 folded
 // bn2 then the T, H, W tap weights. w2, wsc: (Cin, Cm), w3: (Cm, Cm), of
-// dtype, (in, out).
+// dtype, (in, out). se: null, or (2, Cm, Cr) float32 (fc1, fc2 transposed)
+// with scratch partial (N*T, slices, Cm) and gate (N*T, Cm) float32,
+// slices = ceil(H / 8).
 int rubiks_fused_entry(const void* x, const float* vt1, const float* vt2,
                        const void* w2, const void* w3, const void* wsc,
+                       const float* se, float* partial, float* gate,
                        void* mid, void* out, int dtype, int N, int T, int H,
-                       int W, int Cin, int Cm, int taps_n, int K,
-                       void* stream) {
+                       int W, int Cin, int Cm, int taps_n, int K, int Cr,
+                       int slices, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == rubiks::kBF16)
-    return rubiks::fused_entry<__nv_bfloat16>(x, vt1, vt2, w2, w3, wsc, mid,
-                                              out, N, T, H, W, Cin, Cm,
-                                              taps_n, K, s);
+    return rubiks::fused_entry<__nv_bfloat16>(x, vt1, vt2, w2, w3, wsc, se,
+                                              partial, gate, mid, out, N, T,
+                                              H, W, Cin, Cm, taps_n, K, Cr,
+                                              slices, s);
   if (dtype == rubiks::kF32)
-    return rubiks::fused_entry<float>(x, vt1, vt2, w2, w3, wsc, mid, out, N,
-                                      T, H, W, Cin, Cm, taps_n, K, s);
+    return rubiks::fused_entry<float>(x, vt1, vt2, w2, w3, wsc, se, partial,
+                                      gate, mid, out, N, T, H, W, Cin, Cm,
+                                      taps_n, K, Cr, slices, s);
   return (int)cudaErrorInvalidValue;
 }
 

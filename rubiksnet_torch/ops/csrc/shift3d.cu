@@ -5,8 +5,11 @@
 // (forward) and, at stride (1, 2, 2), ops/pallas/fused_shift3d.py::
 // rubiks_shift_3d_fused. out[n, t', h', w', c] is the trilinear interpolation
 // of x at (t'*sT - pT + shiftT[c], h'*sH - pH + shiftH[c], w'*sW - pW +
-// shiftW[c]) with zero fill outside x; quantize reads the one corner whose
-// per-axis remainder rounds half up (remainder < 0.5 -> floor).
+// shiftW[c]) with zero fill outside x; quantize 1 reads the one corner whose
+// per-axis remainder rounds half up (remainder < 0.5 -> floor), quantize 2
+// the corner at the coordinate rounded half away from zero. With T = 1 and
+// a zero T row both kernels are the 2D shift (rubiksnet_tpu/ops/shift2d.py,
+// which calls the same TPU kernel so), whose quantize rule is the second.
 //
 // K1-inverse replaces rubiks_shift3d_pallas(inverse=True), which covered
 // stride 1 only, and the XLA inverse shift of the strided entry blocks
@@ -136,7 +139,8 @@ extern "C" {
 
 // x (N, T, H, W, C) and out (N, To, Ho, Wo, C) contiguous, of dtype
 // (0 float32, 1 bfloat16); shift (3, C) float32, already rounded to the
-// compute dtype by the caller.
+// compute dtype by the caller. quantize: 0 fractional, 1 half up (3D), 2
+// half away from zero of the coordinate (2D).
 int rubiks_shift3d_fwd(const void* x, const float* shift, void* out,
                        int dtype, int N, int T, int H, int W, int C, int To,
                        int Ho, int Wo, int st, int sh, int sw, int pt, int ph,

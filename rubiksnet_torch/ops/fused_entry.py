@@ -2,9 +2,13 @@
 (K3).
 
     a   = relu(bn1(x))
-    out = W3 . shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
+    out = W3 . [SE] shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
 
-Counterpart of ``rubiksnet_tpu/ops/pallas/fused_entry.py`` minus SE.
+With ``se`` (the SE tiers) the stride-2 shifted activation is gated per
+(clip, frame, channel) by ``sigmoid(relu(mean_hw . fc1) . fc2)``, the mean
+taken over the decimated (H/2, W/2) grid. Counterpart of
+``rubiksnet_tpu/ops/pallas/fused_entry.py`` (rubiks3d only: the executor
+keeps rubiks3d-aq entries on the module path).
 :func:`fused_entry_run` launches ``csrc/fused_entry.cu`` for a CUDA tensor
 and runs :func:`fused_entry_plain` for a CPU tensor.
 """
@@ -18,6 +22,8 @@ from .fused_block import (
     KERNEL_MAX_TAPS,
     _bn_fold,
     conv1x1_matrix,
+    se_gate,
+    se_slices,
     stack_taps,
     tap_shift,
     taps_from_rows,
@@ -44,7 +50,7 @@ def stack_entry_params(block, dtype, max_shift, quantize=False):
             conv1x1_matrix(block.shortcut, dtype))
 
 
-def fused_entry_plain(x, params, *, max_shift):
+def fused_entry_plain(x, params, se=None, *, max_shift):
     """The entry block in plain PyTorch: the stride-2 shift as the
     stride-1 shift sampled at even rows and columns."""
     vt1, vt2, w2, w3, wsc = params
@@ -53,12 +59,14 @@ def fused_entry_plain(x, params, *, max_shift):
     a = torch.relu(x.float() * vt1[0] + vt1[1]).to(dt)
     mid = torch.relu((a @ w2).float() * vt2[0] + vt2[1]).to(dt)
     v = tap_shift(mid.float(), vt2[2:2 + 3 * taps_n], max_shift)
-    v = v[:, :, ::2, ::2].to(dt)
+    v = v[:, :, ::2, ::2]
+    if se is not None:
+        v = v * se_gate(v, se)[:, :, None, None, :]
     sc = a[:, :, ::2, ::2] @ wsc
-    return ((v @ w3).float() + sc.float()).to(dt)
+    return ((v.to(dt) @ w3).float() + sc.float()).to(dt)
 
 
-def _check_args(x, params, max_shift):
+def _check_args(x, params, se, max_shift):
     vt1, vt2, w2, w3, wsc = params
     if x.ndim != 5:
         raise ValueError(f"x must be (N, T, H, W, C), got {tuple(x.shape)}")
@@ -78,15 +86,20 @@ def _check_args(x, params, max_shift):
         if tuple(arr.shape) != shape or arr.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} {shape}, got "
                              f"{arr.dtype} {tuple(arr.shape)}")
+    if se is not None and (se.ndim != 3 or se.shape[:2] != (2, mid)
+                           or se.dtype != torch.float32):
+        raise ValueError(f"se must be float32 (2, {mid}, Cr), got "
+                         f"{se.dtype} {tuple(se.shape)}")
     return taps_n
 
 
-def fused_entry_kernel(x, params, *, max_shift):
-    """Kernel K3 on CUDA tensors: one C call (two launches)."""
-    taps_n = _check_args(x, params, max_shift)
+def fused_entry_kernel(x, params, se=None, *, max_shift):
+    """Kernel K3 on CUDA tensors: one C call (two launches, and with ``se``
+    two more for the gate)."""
+    taps_n = _check_args(x, params, se, max_shift)
     if taps_n > KERNEL_MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes <= {KERNEL_MAX_TAPS} taps")
-    for arr in (x, *params):
+    for arr in (x, *params) if se is None else (x, *params, se):
         if arr.device != x.device or x.device.type != "cuda":
             raise ValueError("fused_entry_kernel needs x and params on one "
                              f"CUDA device, got {arr.device} and {x.device}")
@@ -99,26 +112,38 @@ def fused_entry_kernel(x, params, *, max_shift):
     mid = torch.empty((n, t, h, w, cmid), dtype=x.dtype, device=x.device)
     out = torch.empty((n, t, h // 2, w // 2, cmid), dtype=x.dtype,
                       device=x.device)
+    cr = slices = 0
+    se_ptr = partial_ptr = gate_ptr = None
+    if se is not None:
+        cr, slices = se.shape[2], se_slices(h)
+        partial = torch.empty((n * t, slices, cmid), dtype=torch.float32,
+                              device=x.device)
+        gate = torch.empty((n * t, cmid), dtype=torch.float32,
+                           device=x.device)
+        se_ptr, partial_ptr, gate_ptr = (se.data_ptr(), partial.data_ptr(),
+                                         gate.data_ptr())
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 8, *[I] * 9, P)
+    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 11,
+                                P)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), vt1.data_ptr(), vt2.data_ptr(), w2.data_ptr(),
-                w3.data_ptr(), wsc.data_ptr(), mid.data_ptr(), out.data_ptr(),
-                code, n, t, h, w, cin, cmid, taps_n, max_shift,
-                _build.stream_of(x))
+                w3.data_ptr(), wsc.data_ptr(), se_ptr, partial_ptr, gate_ptr,
+                mid.data_ptr(), out.data_ptr(), code, n, t, h, w, cin, cmid,
+                taps_n, max_shift, cr, slices, _build.stream_of(x))
     _build.check(rc, "rubiks_fused_entry")
     LAUNCHES.count += 1
     return out
 
 
-def fused_entry_run(x, params, *, max_shift):
+def fused_entry_run(x, params, se=None, *, max_shift):
     """Apply one fused stride-2 entry block to x (N, T, H, W, Cin), H and W
     even; returns (N, T, H/2, W/2, mid). params from
-    :func:`stack_entry_params`. Runs K3 for a CUDA tensor and the plain
-    version for a CPU tensor."""
+    :func:`stack_entry_params`; se: None or (2, mid, Cr) float32, one entry
+    of ``fused_block.stack_se_params``. Runs K3 for a CUDA tensor and the
+    plain version for a CPU tensor."""
     if x.device.type == "cuda":
-        return fused_entry_kernel(x, params, max_shift=max_shift)
+        return fused_entry_kernel(x, params, se, max_shift=max_shift)
     if x.device.type == "cpu":
-        _check_args(x, params, max_shift)
-        return fused_entry_plain(x, params, max_shift=max_shift)
+        _check_args(x, params, se, max_shift)
+        return fused_entry_plain(x, params, se, max_shift=max_shift)
     raise ValueError(f"unsupported device {x.device}")

@@ -201,9 +201,22 @@ def _shift_f32(shift, dtype):
     return shift.to(dtype).to(torch.float32).contiguous()
 
 
+def quantize_code(quantize: bool, quantize_mode: str) -> int:
+    """The kernels' rounding argument: 0 fractional, 1 ``half_up`` (the 3D
+    rule), 2 ``half_away`` (the 2D rule, see shift_core)."""
+    if quantize_mode not in core.QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize_mode {quantize_mode!r}")
+    if not quantize:
+        return 0
+    return 1 + core.QUANTIZE_MODES.index(quantize_mode)
+
+
 def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
-                   quantize=False):
-    """Kernel K1 on a CUDA tensor: one pass, trilinear weights in f32."""
+                   quantize=False, *, quantize_mode="half_up",
+                   counter=None):
+    """Kernel K1 on a CUDA tensor: one pass, trilinear weights in f32.
+    ``counter`` is the launch counter to add to (default K1's own; the 2D
+    shift passes its own)."""
     _check_cuda("shift3d_kernel", x, shift)
     code = _build.dtype_code(x.dtype)
     st, sh, sw = _triple(stride)
@@ -217,17 +230,19 @@ def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
     fn = _build.kernel_function("rubiks_shift3d_fwd", P, P, P, *[I] * 16, P)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), s32.data_ptr(), out.data_ptr(), code, n, t, h,
-                w, c, to, ho, wo, st, sh, sw, pt, ph, pw, int(bool(quantize)),
-                _build.stream_of(x))
+                w, c, to, ho, wo, st, sh, sw, pt, ph, pw,
+                quantize_code(quantize, quantize_mode), _build.stream_of(x))
     _build.check(rc, "rubiks_shift3d_fwd")
-    LAUNCHES.count += 1
+    (LAUNCHES if counter is None else counter).count += 1
     return out
 
 
 def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
-                              padding=(0, 0, 0), quantize=False):
+                              padding=(0, 0, 0), quantize=False, *,
+                              quantize_mode="half_up", counter=None):
     """Kernel K1-inverse on a CUDA tensor: the input gradient in one pass,
-    one thread per input element, stride-gated, weights in f32."""
+    one thread per input element, stride-gated, weights in f32. ``counter``
+    as for :func:`shift3d_kernel`."""
     _check_cuda("shift3d_input_grad_kernel", og, shift)
     code = _build.dtype_code(og.dtype)
     st, sh, sw = _triple(stride)
@@ -245,10 +260,10 @@ def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
     fn = _build.kernel_function("rubiks_shift3d_inv", P, P, P, *[I] * 16, P)
     with torch.cuda.device(og.device):
         rc = fn(og.data_ptr(), s32.data_ptr(), gx.data_ptr(), code, n, t, h,
-                w, c, to, ho, wo, st, sh, sw, pt, ph, pw, int(bool(quantize)),
-                _build.stream_of(og))
+                w, c, to, ho, wo, st, sh, sw, pt, ph, pw,
+                quantize_code(quantize, quantize_mode), _build.stream_of(og))
     _build.check(rc, "rubiks_shift3d_inv")
-    INVERSE_LAUNCHES.count += 1
+    (INVERSE_LAUNCHES if counter is None else counter).count += 1
     return gx
 
 

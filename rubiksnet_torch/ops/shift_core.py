@@ -41,22 +41,49 @@ def gather_axis_zero(x: torch.Tensor, idx: torch.Tensor,
                                                     device=x.device))
 
 
+QUANTIZE_MODES = ("half_up", "half_away")
+
+
+def round_half_away(base: torch.Tensor, shift_c: torch.Tensor):
+    """``base + shift_c`` rounded half away from zero, as int64 (D, C).
+
+    base: integer coordinates (D, 1); shift_c: (C,), already rounded to the
+    compute dtype. The sum is taken in at least float32, so the index grid
+    stays exact for a bfloat16 shift (the CUDA kernels do the same).
+    """
+    acc = torch.promote_types(shift_c.dtype, torch.float32)
+    v = base.to(acc) + shift_c.to(acc)[None, :]
+    return torch.where(v < 0, torch.trunc(v - 0.5),
+                       torch.trunc(v + 0.5)).to(torch.int64)
+
+
+def _check_mode(quantize_mode: str) -> None:
+    if quantize_mode not in QUANTIZE_MODES:
+        raise ValueError(f"quantize_mode must be one of {QUANTIZE_MODES}, "
+                         f"got {quantize_mode!r}")
+
+
 def frac_shift_axis(x: torch.Tensor, shift_c: torch.Tensor, axis: int,
-                    stride: int, padding: int,
-                    quantize: bool) -> torch.Tensor:
+                    stride: int, padding: int, quantize: bool,
+                    quantize_mode: str = "half_up") -> torch.Tensor:
     """Per-channel 1D fractional shift along ``axis``.
 
     Output position o reads input position ``o*stride - padding +
     shift_c`` with linear interpolation between the floor and floor+1 taps
-    and zero fill. Quantize reads one tap: floor when the remainder is below
-    0.5, else floor+1 (the 3D ``half_up`` rule).
+    and zero fill. Quantize reads one tap. ``half_up`` (the 3D rule): floor
+    when the remainder is below 0.5, else floor+1. ``half_away`` (the 2D
+    rule): the coordinate ``base + shift_c`` itself rounded half away from
+    zero, so the index grid enters the rounding (the sign matters).
     """
+    _check_mode(quantize_mode)
     d_out = output_len(x.shape[axis], stride, padding)
     base = (torch.arange(d_out, device=x.device) * stride - padding)[:, None]
     sf = torch.floor(shift_c)
     small = sf.to(torch.int64)[None, :]
     r = (shift_c - sf).to(x.dtype)
     if quantize:
+        if quantize_mode == "half_away":
+            return gather_axis_zero(x, round_half_away(base, shift_c), axis)
         q = torch.where(r < 0.5, small, small + 1)
         return gather_axis_zero(x, base + q, axis)
     g0 = gather_axis_zero(x, base + small, axis)
@@ -77,22 +104,26 @@ def _strided_tap(og: torch.Tensor, j: torch.Tensor, axis: int,
 
 
 def inverse_shift_axis(og: torch.Tensor, shift_c: torch.Tensor, axis: int,
-                       stride: int, padding: int, d_in: int,
-                       quantize: bool) -> torch.Tensor:
+                       stride: int, padding: int, d_in: int, quantize: bool,
+                       quantize_mode: str = "half_up") -> torch.Tensor:
     """Input gradient of :func:`frac_shift_axis` along ``axis``.
 
     Input position i pulls from output position ``(i + padding + s') /
     stride`` for the negated shift ``s' = -shift_c``, where that raw
     coordinate is a multiple of the stride, with linear interpolation on
-    the remainder of ``s'`` (quantize: one tap, remainder < 0.5 rounds
-    down). Returns og's shape with ``d_in`` along ``axis``.
+    the remainder of ``s'`` (quantize: one tap; ``half_up`` rounds a
+    remainder < 0.5 down, ``half_away`` rounds ``i + padding + s'`` half
+    away from zero). Returns og's shape with ``d_in`` along ``axis``.
     """
+    _check_mode(quantize_mode)
     offs = (torch.arange(d_in, device=og.device) + padding)[:, None]
     neg = -shift_c
     sf = torch.floor(neg)
     small = sf.to(torch.int64)[None, :]
     r = (neg - sf).to(og.dtype)
     if quantize:
+        if quantize_mode == "half_away":
+            return _strided_tap(og, round_half_away(offs, neg), axis, stride)
         q = torch.where(r < 0.5, small, small + 1)
         return _strided_tap(og, offs + q, axis, stride)
     g0 = _strided_tap(og, offs + small, axis, stride)

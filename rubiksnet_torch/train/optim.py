@@ -1,7 +1,7 @@
 """SGD with the reference's parameter groups and shift learning rate.
 
 Counterpart of ``rubiksnet_tpu/train/optim.py``. Three groups: ``weight``
-(conv and ``new_fc`` weights, decayed), ``bias`` (biases and BN weight and
+(conv, ``new_fc``, attention-shift and SE dense weights, decayed), ``bias`` (biases and BN weight and
 bias, not decayed) and ``shift`` (the shift parameters at ``lr *
 lr_shift_mult``, not decayed). Parameters are routed by the module that owns
 them, not by name: a BN scale is named ``weight`` in torch but belongs to
@@ -21,7 +21,7 @@ import torch
 
 from ..models.rubiksnet import Linear
 from ..nn.backbone import BN, Conv1x1, StemConv
-from ..nn.layers import RubiksShift3D
+from ..nn.layers import AttentionShift, Dense, RubiksShift2D, RubiksShift3D
 
 GROUPS = ("weight", "bias", "shift")
 
@@ -32,12 +32,14 @@ def param_groups(model: torch.nn.Module) -> dict:
     groups = {g: [] for g in GROUPS}
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, RubiksShift3D) and name == "shift":
+            if isinstance(mod, (RubiksShift3D, RubiksShift2D)) and (
+                    name == "shift"):
                 groups["shift"].append(p)
             elif isinstance(mod, BN) or (isinstance(mod, Linear)
                                          and name == "bias"):
                 groups["bias"].append(p)
-            elif isinstance(mod, (Conv1x1, StemConv, Linear)):
+            elif isinstance(mod, (Conv1x1, StemConv, Linear, AttentionShift,
+                                  Dense)):
                 groups["weight"].append(p)
             else:
                 raise TypeError(

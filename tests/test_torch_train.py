@@ -25,12 +25,13 @@ from rubiksnet_torch.train import (
 )
 from rubiksnet_torch.train import checkpoint
 from rubiksnet_tpu.train import sgd_with_shift_mult as jax_sgd
+from rubiksnet_tpu.train.optim import param_labels
 
 torch.set_num_threads(1)
 
 
 def _tiny(seed=0, classes=4, frames=4):
-    return create_rubiksnet("tiny", classes, frames, max_shift=1,
+    return create_rubiksnet("tiny", classes, frames, max_shift=1, device="cpu",
                             generator=torch.Generator().manual_seed(seed))
 
 
@@ -76,6 +77,36 @@ def test_param_groups():
         model.parameters()))
     with pytest.raises(TypeError, match="no optimizer group"):
         param_groups(torch.nn.Linear(2, 2))
+
+
+@pytest.mark.parametrize("tier,variant", [("tiny", "rubiks3d-aq"),
+                                          ("small", "rubiks3d"),
+                                          ("small", "rubiks3d-aq")])
+def test_param_groups_of_aq_and_se_match_jax_labels(tier, variant):
+    """The 2D shift goes to ``shift``; the attention weights and the SE
+    dense weights to ``weight`` (decayed): the groups rubiksnet_tpu's
+    param_labels gives the same parameters by leaf name."""
+    model = create_rubiksnet(tier, 4, 4, variant, max_shift=1, device="cpu")
+    group_of = {id(p): name for name, ps in param_groups(model).items()
+                for p in ps}
+    assert set(group_of) == {id(p) for p in model.parameters()}
+    paths = _jax_tree(model)
+    labels = param_labels(_nest(paths, lambda p: 0.0))
+    for path, p in paths.items():
+        assert group_of[id(p)] == _get(labels, path), path
+    by_name = {n: group_of[id(p)] for n, p in model.named_parameters()}
+    if variant == "rubiks3d-aq":
+        assert by_name["backbone.layer2.1.as3.shift"] == "shift"
+        assert by_name["backbone.layer2.1.conv2.0.weight"] == "weight"
+        assert by_name["backbone.layer2.1.conv2.1.weight"] == "weight"
+    if tier == "small":
+        assert by_name["backbone.layer2.1.se.fc.0.weight"] == "weight"
+        assert by_name["backbone.layer2.1.se.fc.2.weight"] == "weight"
+    opt = sgd_with_shift_mult(model, 0.05, 0.1)
+    step = make_train_step(model, opt)
+    metrics = step(*_clips(3))
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def _jax_tree(model):
@@ -234,7 +265,7 @@ def test_synthetic_overfit():
     encodes the label, one fixed batch of 8, 40 SGD steps at lr 0.05 (shift
     multiplier 0.1). The loss halves and accuracy reaches 0.75."""
     classes, batch, size, frames = 4, 8, 32, 4
-    model = create_rubiksnet("tiny", classes, frames)
+    model = create_rubiksnet("tiny", classes, frames, device="cpu")
     opt = sgd_with_shift_mult(model, 0.05, 0.1)
     step = make_train_step(model, opt)
     rng = np.random.RandomState(0)
@@ -250,3 +281,24 @@ def test_synthetic_overfit():
     assert np.isfinite(last)
     assert last < 0.5 * first, (first, last)
     assert float(metrics["accuracy"]) >= 0.75, metrics
+
+
+def test_profile_probe_classifies_kernel_names():
+    """utils/profile_step.py sorts device kernels into classes by name, the
+    port's own kernels before the library's."""
+    from rubiksnet_torch.utils import profile_step
+
+    cases = {
+        "void rubiks::shift3d_fwd_kernel<__nv_bfloat16>(...)": "K1 / K1-2D",
+        "void rubiks::shift3d_inv_kernel<float>(...)": "K1-inverse",
+        "void rubiks::se_partial_kernel<float>(...)": "SE gate",
+        "void rubiks::gemm_kernel<float, rubiks::ShiftLoad<float>>": "K2 / K3",
+        "sm90_xmma_gemm_bf16bf16_bf16f32": "library GEMMs",
+        "void at::native::reduce_kernel<512, 1>": "reductions",
+        "void at::native::vectorized_elementwise_kernel<4>": "elementwise",
+        "something_else": "other",
+    }
+    for name, want in cases.items():
+        assert profile_step.classify(name).startswith(want), name
+    if not torch.cuda.is_available():  # no card: no measurement, no CPU run
+        assert profile_step.main(["--tier", "tiny"]) == 1

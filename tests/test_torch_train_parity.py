@@ -1,7 +1,9 @@
 """Port's train step (rubiksnet_torch.train) vs rubiksnet_tpu.train's on
-the tiny tier: 4 frames, 32 px, batch 2, shift max 1, float32 parameters,
-SGD lr 0.05 with the shift multiplier 0.1, from the same weights and BN
-statistics, two steps on the same clips.
+the tiny tier, on tiny with the rubiks3d-aq variant (attention shift, 2D
+shift and its gradient rule) and on the SE tier (small): 4 frames, 32 px,
+batch 2, shift max 1, float32 parameters, SGD lr 0.05 with the shift
+multiplier 0.1, from the same weights and BN statistics, two steps on the
+same clips.
 
 Both sides compute in float64 (parameters, gradients and updates stay
 float32, as in both packages). In float32 the comparison is chaotic rather
@@ -61,10 +63,10 @@ def _momentum(opt_state):
     return merge(traces)
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _two_steps(tier, variant):
     """Two steps of each side from the same state."""
-    bundle = tiny_bundle(seed=0, dtype=jnp.float64)
+    bundle = tiny_bundle(seed=0, dtype=jnp.float64, tier=tier,
+                         variant=variant)
     tx = jax_sgd(LR, SHIFT_MULT)
     state = create_train_state(bundle, tx)
     jstep = jax.jit(jax_train_step(bundle.model, tx))
@@ -77,7 +79,8 @@ def runs():
         jax_losses.append(float(metrics["loss"]))
         jax_states.append(state)
 
-    model = create_rubiksnet("tiny", 11, 4, max_shift=1, dtype=torch.float64)
+    model = create_rubiksnet(tier, 11, 4, variant, max_shift=1,
+                             dtype=torch.float64, device="cpu")
     model.load_state_dict(state_dict_from_jax(
         bundle.variables["params"], bundle.variables["batch_stats"]))
     opt = sgd_with_shift_mult(model, LR, SHIFT_MULT)
@@ -91,6 +94,18 @@ def runs():
             grads = {k: p.grad.clone() for k, p in model.named_parameters()}
     return dict(p0=p0, jax_losses=jax_losses, jax_states=jax_states,
                 model=model, opt=opt, step=step, losses=losses, grads=grads)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _two_steps("tiny", "rubiks3d")
+
+
+@pytest.fixture(scope="module", params=[("tiny", "rubiks3d-aq"),
+                                        ("small", "rubiks3d")],
+                ids=["aq", "se"])
+def option_runs(request):
+    return _two_steps(*request.param)
 
 
 def _close(got, want, what):
@@ -135,3 +150,19 @@ def test_state_after_two_steps_matches(runs):
     opt = runs["opt"]
     for name, p in runs["model"].named_parameters():
         _close(opt.state[p]["momentum_buffer"], trace[name], name)
+
+
+def test_aq_and_se_losses_match(option_runs):
+    test_losses_match(option_runs)
+
+
+def test_aq_and_se_step1_gradients_match(option_runs):
+    """Also holds the 2D shift's gradient rule, the attention weights'
+    gradient and the SE weights' against JAX autodiff of the same ops."""
+    test_step1_gradients_match(option_runs)
+    names = set(option_runs["grads"])
+    assert any(n.endswith(("as3.shift", "se.fc.0.weight")) for n in names)
+
+
+def test_aq_and_se_state_after_two_steps_matches(option_runs):
+    test_state_after_two_steps_matches(option_runs)
