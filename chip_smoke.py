@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse, K4
-shift_grad, K2 fused_block, K3 fused_entry, and the SE gate kernels inside
-K2 and K3) from rubiksnet_torch/ops/csrc, holds each against its plain
-PyTorch version at every shape of its path: RubiksNet-Large (rubiks3d),
-Large with the rubiks3d-aq variant (K1 and K1-inverse in their 2D mode, K2
-with the attention mix) and the SE tier Small (K2 and K3 with the gate).
+shift_grad, K2 fused_block, K3 fused_entry, the SE gate kernels inside K2
+and K3, and the 2D shift's forward and input gradient, shift2d.cu) from
+rubiksnet_torch/ops/csrc, holds each against its plain PyTorch version at
+every shape of its path: RubiksNet-Large (rubiks3d), Large with the
+rubiks3d-aq variant (the 2D shift kernels, K2 with the attention mix) and
+the SE tier Small (K2 and K3 with the gate).
 For each of the three models it checks the logits (fused executor and
 unfused module path against the plain model), counts the kernel launches of
 one fused and one unfused forward, and times serving at batch sizes 1, 8
@@ -25,7 +26,9 @@ on its main path, its error against the plain version, its time beside the
 plain version's, its bound (the larger of bytes moved over the memory rate
 and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
-exists (a depthwise convolution for the shifts).
+exists (a depthwise convolution for the shifts). The 2D shift's two rows
+also carry their device time by the profiler and the time of the route
+they replaced (K1 and K1-inverse on a one-frame view), taken in this run.
 """
 
 from __future__ import annotations
@@ -38,7 +41,11 @@ import time
 import torch
 import torch.nn.functional as F
 
-from rubiksnet_torch.utils import cuda_call_times_ms
+from rubiksnet_torch.utils import (
+    cuda_call_times_ms,
+    cuda_kernel_times,
+    cuda_queued_time_ms,
+)
 
 BATCH_CHECK = 2  # clips per kernel / model check
 FRAMES, SIZE, CLASSES, MAX_SHIFT = 8, 224, 174, 1
@@ -119,12 +126,13 @@ KERNELS = {
                     "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
     "fused_entry": ("rubiksnet_torch/ops/csrc/fused_entry.cu",
                     "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
-    # K1 and K1-inverse on the (N*T, 1, H, W, C) view with a zero T row and
-    # the 2D rounding: the 2D shift of rubiksnet_tpu/ops/shift2d.py:86-100
-    # and :129-146, which calls the same TPU kernel so.
-    "shift2d": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+    # The 2D shift of rubiksnet_tpu/ops/shift2d.py:86-100 and its input
+    # gradient :129-146, which reach the TPU kernel on a one-frame view with
+    # a zero T row; here kernels of their own (rows staged in shared memory,
+    # one channel per thread), rubiks_shift2d_fwd and rubiks_shift2d_inv.
+    "shift2d": ("rubiksnet_torch/ops/csrc/shift2d.cu",
                 "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
-    "shift2d_inverse": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+    "shift2d_inverse": ("rubiksnet_torch/ops/csrc/shift2d.cu",
                         "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
     # K2 with the attention mix (fused_block.py:267 aq_mix), K2 with the SE
     # gate (:215 se_gate, :231 se_conv3_batched; fused_frames.py:459 too) and
@@ -464,11 +472,89 @@ def rand_shift2d(c, gen, device):
     return shift
 
 
+# The 2D shift kernels off the model's shapes, as (label, frames, H, W, C,
+# stride, padding, shift kind): widths that are not a multiple of the
+# 16-byte vector (the tiny tier's 54 and 108), odd extents, one frame,
+# shifts of +-9 (more source rows than the ring holds: the direct route),
+# a tensor whose first channel group takes the direct route and the others
+# the staged one, and negative coordinates (padding) with every shift a
+# multiple of 0.5 (exact ties of both signs under quantize).
+SHIFT2D_CASES = [
+    ("C=54", 16, 28, 28, 54, 1, 0, "mixed"),
+    ("C=54 stride 2", 16, 28, 28, 54, 2, 0, "mixed"),
+    ("C=108", 16, 14, 14, 108, 1, 0, "mixed"),
+    ("C=108 stride 2", 16, 14, 14, 108, 2, 1, "mixed"),
+    ("7x9", 16, 7, 9, 72, 1, 0, "mixed"),
+    ("7x9 stride 2", 16, 7, 9, 72, 2, 0, "mixed"),
+    ("113x57", 3, 113, 57, 72, 1, 0, "mixed"),
+    ("113x57 stride 2", 3, 113, 57, 72, 2, (1, 2), "mixed"),
+    ("one frame", 1, 28, 28, 144, 1, 0, "mixed"),
+    ("one frame stride 2", 1, 28, 28, 144, 2, 0, "mixed"),
+    ("shifts of +-9", 16, 28, 28, 144, 1, 0, "far"),
+    ("shifts of +-9 stride 2", 16, 56, 56, 144, 2, 0, "far"),
+    ("both routes", 16, 14, 14, 288, 1, 0, "far-first-group"),
+    ("both routes stride 2", 16, 28, 28, 288, 2, 0, "far-first-group"),
+    ("ties, negative coordinates", 16, 14, 14, 288, 1, (2, 1), "halves"),
+    ("ties, negative coordinates, stride 2", 16, 28, 28, 288, 2, (2, 1),
+     "halves"),
+]
+
+
+def shift2d_case_shift(kind, c, gen, device):
+    shift = rand_shift2d(c, gen, device)
+    far = 9.0 * (1 - 2 * (torch.arange(c, device=device) % 2))
+    if kind == "far":
+        shift = shift / 2 + far
+    elif kind == "far-first-group":
+        shift[:, :8] = shift[:, :8] / 2 + far[:8]
+    elif kind == "halves":
+        shift = (torch.rand((2, c), generator=gen, device=device) * 10
+                 - 5).round() / 2
+    return shift
+
+
+def check_shift2d_cases(errs, gen, dev):
+    """SHIFT2D_CASES, forward and input gradient, f32 and bf16, fractional
+    and quantized, against the plain versions; each kernel twice on the
+    same inputs, bit-identical."""
+    from rubiksnet_torch.ops import shift2d
+
+    print("[kernels] shift2d / shift2d_inverse off the model's shapes; "
+          "every run repeated bit-identically")
+    for label, n, h, w, c, s, pad, kind in SHIFT2D_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn((n, h, w, c), dt, gen, dev)
+            shift = shift2d_case_shift(kind, c, gen, dev)
+            for q in (False, True):
+                tag = (f"{label} {n}x{h}x{w}x{c} {str(dt)[6:]} "
+                       f"{'quantize' if q else 'fractional'}")
+                got = shift2d.shift2d_kernel(x, shift, s, pad, q)
+                again = shift2d.shift2d_kernel(x, shift, s, pad, q)
+                ref = shift2d.shift2d_plain(x, shift, s, pad, q)
+                judge(f"shift2d {tag}", got, ref, dt, errs["shift2d"])
+                og = randn(got.shape, dt, gen, dev)
+                got_i = shift2d.shift2d_input_grad_kernel(og, shift, x.shape,
+                                                          s, pad, q)
+                again_i = shift2d.shift2d_input_grad_kernel(
+                    og, shift, x.shape, s, pad, q)
+                ref_i = shift2d.shift2d_input_grad_plain(og, shift, x.shape,
+                                                         s, pad, q)
+                judge(f"shift2d_inverse {tag}", got_i, ref_i, dt,
+                      errs["shift2d_inverse"])
+                if not (torch.equal(got, again)
+                        and torch.equal(got_i, again_i)):
+                    fail(f"{tag}: two runs on the same inputs differ")
+                if q and not (torch.equal(got, ref)
+                              and torch.equal(got_i, ref_i)):
+                    fail(f"{tag}: a quantized shift is a copy and must "
+                         f"equal the plain version exactly")
+
+
 def check_new_kernels(errs, gen, cpu_gen, dev):
-    """K1 and K1-inverse in 2D mode, K2 with the attention mix, with the SE
-    gate and with both, and K3 with the SE gate, against their plain
-    versions at the Large-AQ and Small shapes, f32 and bf16. Every SE run
-    is repeated and must agree bit for bit."""
+    """The 2D shift's forward and input-gradient kernels, K2 with the
+    attention mix, with the SE gate and with both, and K3 with the SE gate,
+    against their plain versions at the Large-AQ and Small shapes, f32 and
+    bf16. Every SE run is repeated and must agree bit for bit."""
     from rubiksnet_torch.ops import shift2d
     from rubiksnet_torch.ops.fused_block import (
         fused_block_kernel,
@@ -485,9 +571,9 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
     from rubiksnet_torch.ops.shift3d import shift3d_kernel, shift3d_plain
 
     dtypes = (torch.float32, torch.bfloat16)
-    print("[kernels] K1 / K1-inverse in 2D mode vs the 2D gather forms "
-          "(quantize: half away from zero; and K1's half-up rule on the "
-          "same one-frame view)")
+    print("[kernels] shift2d / shift2d_inverse (shift2d.cu) vs the 2D gather "
+          "forms (quantize: half away from zero; and K1's half-up rule on "
+          "the one-frame view)")
     for h, c, s in SHIFT_SHAPES:
         for dt in dtypes:
             x = randn((BATCH_CHECK * FRAMES, h, h, c), dt, gen, dev)
@@ -496,22 +582,24 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
                 mode = "quantize" if q else "fractional"
                 got = shift2d.shift2d_kernel(x, shift, s, 0, q)
                 ref = shift2d.shift2d_plain(x, shift, s, 0, q)
-                judge(f"K1-2D {h}x{h}x{c} stride {s} {str(dt)[6:]} {mode}",
+                judge(f"shift2d {h}x{h}x{c} stride {s} {str(dt)[6:]} {mode}",
                       got, ref, dt, errs["shift2d"])
                 og = randn(got.shape, dt, gen, dev)
                 got = shift2d.shift2d_input_grad_kernel(og, shift, x.shape,
                                                         s, 0, q)
                 ref = shift2d.shift2d_input_grad_plain(og, shift, x.shape, s,
                                                        0, q)
-                judge(f"K1-inverse-2D {h}x{h}x{c} stride {s} {str(dt)[6:]} "
-                      f"{mode}", got, ref, dt, errs["shift2d_inverse"])
+                judge(f"shift2d_inverse {h}x{h}x{c} stride {s} "
+                      f"{str(dt)[6:]} {mode}", got, ref, dt,
+                      errs["shift2d_inverse"])
             shift3 = torch.cat([torch.zeros_like(shift[:1]), shift])
             got = shift3d_kernel(x[:, None], shift3, (1, s, s), (0, 0, 0),
                                  True)
             ref = shift3d_plain(x[:, None], shift3, (1, s, s), (0, 0, 0),
                                 True)
             judge(f"K1 one frame {h}x{h}x{c} stride {s} {str(dt)[6:]} "
-                  f"quantize half-up", got, ref, dt, errs["shift2d"])
+                  f"quantize half-up", got, ref, dt, errs["shift3d"])
+    check_shift2d_cases(errs, gen, dev)
 
     def twice(label, fn):
         got, again = fn(), fn()
@@ -648,6 +736,37 @@ def channel_last(y):
     return y.permute(0, 2, 3, 4, 1) if y.ndim == 5 else y.permute(0, 2, 3, 1)
 
 
+PROFILER_MISSES = []  # labels whose device time is not the profiler's
+
+
+def profiled_ms(fn, needle, label, iters=5):
+    """(device ms per call of the kernels whose name holds ``needle``, device
+    kernels of any name per call) of ``fn()``, by torch.profiler. The
+    profiler now and then hands back a window with some or all of its
+    device records missing: a window whose records are not a whole number
+    per call is taken again, at most three times. After that the time is
+    taken by CUDA events with the calls queued behind a spinning kernel,
+    the count is unknown (None), and the label is kept for the report."""
+    why = ""
+    for _ in range(3):
+        try:
+            times = cuda_kernel_times(fn, iters=iters)
+        except RuntimeError as err:
+            why = str(err)
+            continue
+        records = sum(n for n, _ in times.values())
+        per_call = records / iters
+        if per_call >= 1 and abs(per_call - round(per_call)) < 1e-6:
+            total = sum(ms for k, (_, ms) in times.items() if needle in k)
+            return total / iters, round(per_call)
+        why = (f"the profiler kept {records:g} kernel records of {iters} "
+               f"calls")
+    print(f"  {label}: {why}; device time by events behind a blocking kernel "
+          f"instead")
+    PROFILER_MISSES.append(label)
+    return cuda_queued_time_ms(fn), None
+
+
 class Timer:
     """Sums, per kernel name, the time of its calls over one forward or
     train step beside the plain version's, the library call's and the
@@ -655,11 +774,17 @@ class Timer:
 
     def __init__(self, names):
         self.rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-                         "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+                         "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                         "device_ms": None, "previous_ms": None,
+                         "previous_device_ms": None,
+                         "library_device_ms": None}
                      for k in names}
 
     def add(self, kind, label, count, kernel_fn, plain_fn, work, dtype,
-            lib_fn=None):
+            lib_fn=None, previous_fn=None):
+        """``previous_fn``: the route this kernel replaced; both then also
+        get their device time from the profiler (kernel time by name), and
+        ``kernel_fn`` must launch exactly one device kernel per call."""
         from rubiksnet_torch.utils import cuda_time_ms
 
         row = self.rows[kind]
@@ -681,6 +806,26 @@ class Timer:
             lib_ms = cuda_time_ms(lib_fn, iters=5)
             row["library_ms"] = (row["library_ms"] or 0.0) + count * lib_ms
             text += f", library (depthwise conv) {lib_ms:.4f} ms"
+        if previous_fn is not None:
+            dev_ms, n_kernels = profiled_ms(kernel_fn, "shift2d_kernel",
+                                            label)
+            if n_kernels not in (1, None):
+                fail(f"{label}: one call launched {n_kernels} device "
+                     f"kernels, not 1")
+            prev_dev_ms, prev_n = profiled_ms(previous_fn, "shift3d_",
+                                              f"{label}, previous route")
+            prev_ms = cuda_time_ms(previous_fn)
+            lib_dev_ms, lib_n = profiled_ms(lib_fn, "", f"{label}, library")
+            for key, v in (("device_ms", dev_ms), ("previous_ms", prev_ms),
+                           ("previous_device_ms", prev_dev_ms),
+                           ("library_device_ms", lib_dev_ms)):
+                row[key] = (row[key] or 0.0) + count * v
+            text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernel "
+                     f"per call by the profiler; previous route (K1 on a "
+                     f"one-frame view) {prev_ms:.4f} ms, on the device "
+                     f"{prev_dev_ms:.4f} ms in {prev_n} kernels per call; "
+                     f"library on the device {lib_dev_ms:.4f} ms in {lib_n} "
+                     f"kernels per call")
         print(f"{text} (x{count} per forward or train step)")
 
     def summary(self, kind, per):
@@ -688,9 +833,15 @@ class Timer:
         by = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.3f} ms")
-        print(f"  {kind}: {row['ms']:.3f} ms per {per}, plain "
-              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-              f"({by}), library {lib}")
+        text = (f"  {kind}: {row['ms']:.3f} ms per {per}, plain "
+                f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                f"({by}), library {lib}")
+        if row["device_ms"] is not None:
+            text += (f", device_ms {row['device_ms']:.3f}, previous_ms "
+                     f"{row['previous_ms']:.3f}, previous route on the "
+                     f"device {row['previous_device_ms']:.3f} ms, library on "
+                     f"the device {row['library_device_ms']:.3f} ms")
+        print(text)
 
 
 def time_kernels(timer, gen, cpu_gen, dev, name, smi):
@@ -801,19 +952,28 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         x4 = x.reshape((-1,) + x_shape[2:])
         og4 = og.reshape((-1,) + tuple(og.shape[2:]))
         shift2 = shift[1:].contiguous()
-        timer.add("shift2d", f"K1-2D {h}x{h}x{c} stride {s}", count,
+        # The previous route: K1 / K1-inverse on the one-frame view, with the
+        # wrapper work it had per call (a zero T row joined to the shift).
+        x5, og5 = x4[:, None], og4[:, None]
+        shift3 = lambda: torch.cat([torch.zeros_like(shift2[:1]), shift2])
+        timer.add("shift2d", f"shift2d {h}x{h}x{c} stride {s}", count,
                   lambda: shift2d.shift2d_kernel(x4, shift2, s),
                   lambda: shift2d.shift2d_plain(x4, shift2, s),
                   shift_work(og.numel(), x.numel(), 2, 4), bf,
-                  library_shift(x4, shift2, s))
-        timer.add("shift2d_inverse", f"K1-inverse-2D {h}x{h}x{c} stride {s}",
+                  library_shift(x4, shift2, s),
+                  lambda: shift3d_kernel(x5, shift3(), stride,
+                                         quantize_mode="half_away"))
+        timer.add("shift2d_inverse", f"shift2d_inverse {h}x{h}x{c} stride {s}",
                   count,
                   lambda: shift2d.shift2d_input_grad_kernel(og4, shift2,
                                                             x4.shape, s),
                   lambda: shift2d.shift2d_input_grad_plain(og4, shift2,
                                                            x4.shape, s),
                   shift_work(x.numel(), og.numel(), 2, 4), bf,
-                  library_shift(og4, shift2, s, inverse=True))
+                  library_shift(og4, shift2, s, inverse=True),
+                  lambda: shift3d_input_grad_kernel(
+                      og5, shift3(), x5.shape, stride,
+                      quantize_mode="half_away"))
         ms = cuda_time_ms(lambda: shift2d.rubiks_shift_2d_shift_grad(
             og4, x4, shift2, s))
         plain2d_grad_ms += count * ms
@@ -825,6 +985,16 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         timer.summary(kind, "train step" if backward else "forward")
     print(f"  2D shift gradient (plain PyTorch, no kernel): "
           f"{plain2d_grad_ms:.3f} ms per Large-AQ train step")
+    # One call of either 2D shift wrapper is one device kernel and nothing
+    # else (no cat, cast or copy), at every shape the profiler recorded.
+    missed = [m for m in PROFILER_MISSES if "," not in m]
+    seen = 2 * len(SHIFT_SHAPES) - len(missed)
+    print(f"[launch] shift2d_kernel and shift2d_input_grad_kernel: 1 device "
+          f"kernel per call by the profiler at {seen} of "
+          f"{2 * len(SHIFT_SHAPES)} timed shapes"
+          + (f" (no profiler records at: {missed})" if missed else ""))
+    if seen == 0:
+        fail("the profiler recorded no call of the 2D shift kernels")
 
 
 # ------------------------------------------------------------ the models
@@ -1158,6 +1328,9 @@ def main() -> int:
             "bound_by": ("bytes" if row["bytes_ms"] >= row["ops_ms"]
                          else "operations"),
             "library_ms": row["library_ms"]})
+        if row["device_ms"] is not None:
+            kernels[-1].update(device_ms=row["device_ms"],
+                               previous_ms=row["previous_ms"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -132,8 +132,8 @@ class RubiksShift2D(nn.Module):
                 f"unrecognized init shift {init_shift!r}")
 
     def forward(self, x, plain=False):
-        """plain=True runs the gather forms on any device; otherwise K1 and
-        K1-inverse in 2D mode on CUDA and the gather forms on the CPU."""
+        """plain=True runs the gather forms on any device; otherwise the
+        kernels of csrc/shift2d.cu on CUDA and the gather forms on the CPU."""
         lead = None
         if x.ndim == 5:
             lead = x.shape[:2]

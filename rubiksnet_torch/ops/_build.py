@@ -134,6 +134,10 @@ def dtype_code(dtype) -> int:
 
 
 def stream_of(tensor) -> int:
+    """The raw handle of PyTorch's current stream on the tensor's device."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # the handle without building a Stream object
+        return raw(tensor.device.index)
     return torch.cuda.current_stream(tensor.device).cuda_stream

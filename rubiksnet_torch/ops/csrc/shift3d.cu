@@ -9,7 +9,9 @@
 // per-axis remainder rounds half up (remainder < 0.5 -> floor), quantize 2
 // the corner at the coordinate rounded half away from zero. With T = 1 and
 // a zero T row both kernels are the 2D shift (rubiksnet_tpu/ops/shift2d.py,
-// which calls the same TPU kernel so), whose quantize rule is the second.
+// which calls the same TPU kernel so), whose quantize rule is the second;
+// the port's 2D shift has kernels of its own (shift2d.cu) and keeps this
+// mode only as the route to time them against.
 //
 // K1-inverse replaces rubiks_shift3d_pallas(inverse=True), which covered
 // stride 1 only, and the XLA inverse shift of the strided entry blocks
@@ -22,17 +24,24 @@
 // reference does (at a remainder of exactly 0.5 that is not the forward's
 // transpose).
 //
-// What bounds both on the card: device-memory bandwidth. Each does 8
-// multiply-adds per element written against up to 8 read, far below the
-// H100's ~20 FLOP per byte of f32 balance. Design: one thread per element
-// written (output for K1, input for the inverse, so no scatter and no
-// atomics), neighbouring threads on neighbouring channels, so the corner
-// reads of a warp fall on few rows (each channel has its own shift, so the
-// corners differ per lane but stay within 2 cells); the weights and indices
-// are computed in f32 per element, which costs nothing next to the memory
-// traffic. The integer part of the shift is unbounded here (the gather
-// form's semantics: shifts move during training), so no max_shift argument
-// exists.
+// What bounds both on the card: the operations they execute, not the bytes
+// they move. Each does 8 multiply-adds per element written against up to 8
+// read, far below the H100's ~20 FLOP per byte of f32 balance, so the
+// function is bound by bytes; but this first form runs at 4-8% of that
+// bound, and at the same element rate (about 90 G elements/s in bf16)
+// whether the tensor streams from device memory or sits in L2. The design is
+// one thread per 2-byte element written (output for K1, input for the
+// inverse, so no scatter and no atomics), neighbouring threads on
+// neighbouring channels, so the corner reads of a warp fall on few rows; the
+// cost is in what every element repeats: four 64-bit divisions to unflatten
+// its index, floor, remainder, range tests (and, in the inverse, a division
+// by the stride per tap) of all three axes, and 2-byte loads and stores.
+// csrc/shift2d.cu is the same function in 2D redesigned around that finding
+// (indices from the grid, taps once per channel, rows staged in shared
+// memory) and runs 3-6 times faster on the device; K1 and K1-inverse in 3D
+// wait for the same treatment. The integer part of the shift is unbounded
+// here (the gather form's semantics: shifts move during training), so no
+// max_shift argument exists.
 #include "common.cuh"
 
 namespace rubiks {

@@ -5,12 +5,14 @@ Counterpart of ``rubiksnet_tpu/ops/shift2d.py`` on channel-last
 
 * forward: bilinear per-channel shift, zero fill, strided output grid;
   quantize rounds the coordinate ``base + shift`` half away from zero (not
-  the 3D op's rule). On a CUDA tensor it is kernel K1
-  (``csrc/shift3d.cu::rubiks_shift3d_fwd``) on the (N, 1, H, W, C) view
-  with a zero T row, as the JAX package runs its TPU kernel; counter
-  ``shift2d``. Plain form: :func:`shift2d_plain`.
-* input gradient: the inverse shift, K1-inverse in the same 2D mode
-  (counter ``shift2d_inverse``) / :func:`shift2d_input_grad_plain`.
+  the 3D op's rule). On a CUDA tensor it is one launch of
+  ``csrc/shift2d.cu::rubiks_shift2d_fwd`` (:func:`shift2d_kernel`, counter
+  ``shift2d``), a kernel of its own: source rows staged in shared memory,
+  one channel per thread, planned by :func:`shift2d_plan`. Plain form:
+  :func:`shift2d_plain`.
+* input gradient: the inverse shift, ``csrc/shift2d.cu::rubiks_shift2d_inv``
+  (the same device body; :func:`shift2d_input_grad_kernel`, counter
+  ``shift2d_inverse``) / :func:`shift2d_input_grad_plain`.
 * raw (2, C) shift gradient: :func:`rubiks_shift_2d_shift_grad`, plain
   PyTorch on every device, as it is an XLA formulation in the JAX package.
   It is not the 3D rule: a remainder within 1e-7 of zero snaps to zero and
@@ -23,11 +25,14 @@ is unit-normalized per channel (:func:`normalize_shift_grad_2d`).
 
 from __future__ import annotations
 
+import collections
+import functools
+
 import torch
 
 from . import _build
 from . import shift_core as core
-from .shift3d import _route, shift3d_input_grad_kernel, shift3d_kernel
+from .shift3d import _route
 
 __all__ = [
     "compute_output_shape_2d",
@@ -40,6 +45,7 @@ __all__ = [
     "shift2d_input_grad_plain",
     "shift2d_kernel",
     "shift2d_plain",
+    "shift2d_plan",
     "LAUNCHES",
     "INVERSE_LAUNCHES",
 ]
@@ -153,35 +159,240 @@ def normalize_shift_grad_2d(shift_grad):
 
 
 # ---------------------------------------------------------- CUDA kernels
+#
+# csrc/shift2d.cu holds the arithmetic. Everything else is here, where the
+# CPU tests reach it: the per-axis coordinate rule both directions share,
+# the source rows a band of destination rows reads, and the plan (route,
+# channel group, rows per band, ring depth, shared memory) that the wrappers
+# pass to the C entry points.
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block can use on the H100
+SMEM_HEAD = 16  # the block's floor range
+MAX_THREADS = 512
+ROUTES = {16: "vector", 4: "word", 2: "scalar"}
+
+# The plan's knobs (settled by measuring on the card, PERF.md): a block
+# stays under SMEM_BUDGET so that two fit an SM; a group has at most
+# MAX_GROUP channels; the ring holds at most MAX_RING source rows; bands
+# are cut until the grid has about TARGET_BLOCKS blocks but keep at least
+# MIN_BAND_ROWS rows; a block has about BLOCK_THREADS threads.
+SMEM_BUDGET = 112 * 1024
+MAX_GROUP = 512
+MAX_RING = 6
+TARGET_BLOCKS = 2112
+MIN_BAND_ROWS = 2
+BLOCK_THREADS = 256
+
+Shift2dPlan = collections.namedtuple(
+    "Shift2dPlan", "route copy_bytes group groups rows bands ring cols "
+                   "threads smem_bytes")
 
 
-def _shift3(shift):
-    """(2, C) -> (3, C) with a zero T row, on the shift's device."""
-    return torch.cat([torch.zeros_like(shift[:1]), shift])
+def axis_rule(stride, padding, inverse):
+    """(mul, div, off) of one axis: destination position p of channel c
+    reads raw coordinates ``q = p * mul + off + floor(s_c) + {0, 1}`` and
+    the source cell ``q // div`` where div divides q. Forward: the shift as
+    it is; input gradient (``inverse``): the negated shift."""
+    return (1, stride, padding) if inverse else (stride, 1, -padding)
+
+
+def ring_rows_needed(span, mul, div):
+    """Source rows live at once while a block walks down its band, for a
+    range ``span = max - min`` of floor(shift) over its channels: the rows
+    of destination row r and those row r + 1 adds."""
+    return (mul + span + 1) // div + 1
+
+
+def ring_lookahead(span, mul, div, ring):
+    """How many destination rows ahead of the one being computed a ring of
+    ``ring`` rows lets the copies run (at least 1 where the block stages:
+    ``ring_rows_needed(span, mul, div) <= ring``)."""
+    return (ring * div - span - 2) // mul
+
+
+def band_source_rows(r, f_min, f_max, rule, d_src):
+    """Inclusive range (lo, hi) of source rows that destination row r reads
+    for floors in [f_min, f_max], clamped to the source; lo > hi: none."""
+    mul, div, off = rule
+    q_lo = r * mul + off + f_min
+    q_hi = r * mul + off + f_max + 1
+    return max(-((-q_lo) // div), 0), min(q_hi // div, d_src - 1)
+
+
+def _ring_pitch(row_bytes):
+    """Bytes from one ring row to the next: the row, rounded up to the 16
+    bytes of a copy."""
+    return (row_bytes + 15) // 16 * 16
+
+
+def _plan_smem(ring, ws, group, itemsize):
+    return SMEM_HEAD + ring * _ring_pitch(ws * group * itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(shape, out_shape, stride, itemsize, inverse, copy_limit, knobs):
+    budget, max_group, max_ring, target, min_rows, block_threads = knobs
+    n, h, w, c = shape
+    _, ho, wo, _ = out_shape
+    if max(h * w * c, ho * wo * c) >= 2**31:
+        raise ValueError(
+            f"one frame of {tuple(shape)} -> {tuple(out_shape)} has 2**31 "
+            f"elements or more: the 2D shift kernels index a frame in 32 "
+            f"bits")
+    (hs, ws), (hd, wd) = ((ho, wo), (h, w)) if inverse else ((h, w), (ho, wo))
+    mul, div, _ = axis_rule(stride[0], 0, inverse)
+    copy_bytes = next(b for b in (16, 4, itemsize)
+                      if b <= max(copy_limit, itemsize)
+                      and (c * itemsize) % b == 0)
+    unit = max(1, copy_bytes // itemsize)
+    need = ring_rows_needed(1, mul, div)  # |shift| < 1: floors -1 and 0
+
+    def ring_of(group):
+        left = budget - _plan_smem(0, ws, group, itemsize)
+        return max(0, min(max_ring,
+                          left // _ring_pitch(ws * group * itemsize)))
+
+    max_group = min(max_group, MAX_THREADS)  # one thread per channel
+    groups_ok = [g for g in range(unit, min(c, max_group) + 1, unit)
+                 if c % g == 0]
+    if not groups_ok or (groups_ok[-1] < 32 and c > max_group):
+        groups_ok = [min(c, max_group // unit * unit)]  # a ragged last group
+    staged = [g for g in groups_ok if ring_of(g) >= need]
+    group = staged[-1] if staged else groups_ok[0]
+    ring = ring_of(group)
+    if ring < need:
+        ring = 0  # no room for a ring: every block reads directly
+    smem = _plan_smem(ring, ws, group, itemsize)
+    groups = -(-c // group)
+    bands = max(1, min(-(-target // max(1, n * groups)),
+                       hd // min_rows if hd >= min_rows else 1))
+    rows = max(1, -(-hd // bands))
+    bands = max(1, -(-hd // rows))
+    cols = max(1, min(max(wd, 1), round(block_threads / group),
+                      MAX_THREADS // group))
+    return Shift2dPlan(ROUTES[copy_bytes], copy_bytes, group, groups, rows,
+                       bands, ring, cols, group * cols, smem)
+
+
+def shift2d_plan(shape, out_shape, stride, dtype, inverse=False,
+                 copy_limit=16):
+    """How the kernel of csrc/shift2d.cu runs the forward x ``shape`` ->
+    ``out_shape`` (N, H, W, C) or, with ``inverse``, its input gradient
+    og ``out_shape`` -> gx ``shape``. A pure function of its arguments.
+
+    A block takes one frame, one band of ``rows`` destination rows and one
+    group of ``group`` channels (``groups`` of them cover C; the last may
+    be ragged), as ``cols`` runs of consecutive columns, one channel per
+    thread. Source rows are staged in a ring of ``ring`` rows (0: every
+    block reads device memory directly; otherwise a block does so only
+    where the range of floor(shift) over its channels needs more rows than
+    the ring has, :func:`ring_rows_needed`). ``copy_bytes`` is the width of
+    a copy between device and shared memory, at most ``copy_limit``: 16
+    (route ``vector``) only where a pixel's ``C * itemsize`` bytes are a
+    multiple of 16, else 4 (``word``), else 2 (``scalar``).
+    """
+    knobs = (SMEM_BUDGET, MAX_GROUP, MAX_RING, TARGET_BLOCKS, MIN_BAND_ROWS,
+             BLOCK_THREADS)
+    return _plan(tuple(int(v) for v in shape),
+                 tuple(int(v) for v in out_shape), _pair(stride),
+                 dtype.itemsize, bool(inverse),
+                 int(copy_limit), knobs)
+
+
+_ENTRY_ARGS = (_build.PTR, _build.PTR, _build.PTR, *[_build.INT] * 18,
+               _build.PTR)
+_ENTRIES = ("rubiks_shift2d_fwd", "rubiks_shift2d_inv")
+_COUNTERS = (LAUNCHES, INVERSE_LAUNCHES)
+
+
+@functools.lru_cache(maxsize=None)
+def _prepare(inverse, src_shape, in_shape, stride, padding, dtype,
+             copy_limit):
+    """What one launch needs beyond its pointers, worked out once per
+    configuration (the arguments as the caller gave them, hashable): the C
+    entry point, the result's shape and the integer arguments (shapes,
+    strides, the plan). ``in_shape``: x's shape for the input gradient,
+    whose ``src_shape`` is og's."""
+    entry = _ENTRIES[inverse]
+    stride, padding = _pair(stride), _pair(padding)
+    src_shape = tuple(int(v) for v in src_shape)
+    if len(src_shape) != 4:
+        raise ValueError(f"{entry}: the tensor must be (N, H, W, C), got "
+                         f"{src_shape}")
+    if inverse:
+        shape, out_shape = tuple(int(v) for v in in_shape), src_shape
+        if len(shape) != 4 or compute_output_shape_2d(
+                shape, stride, padding) != out_shape:
+            raise ValueError(
+                f"og {out_shape} is not the output shape of {shape} at "
+                f"stride {stride} padding {padding}")
+    else:
+        shape = src_shape
+        out_shape = compute_output_shape_2d(shape, stride, padding)
+    n, h, w, c = shape
+    (sh, sw), (ph, pw) = stride, padding
+    if max(h, w) * max(sh, sw) + max(ph, pw, 0) >= 2**30:
+        raise ValueError(f"{entry}: extent of {shape} too large")
+    plan = shift2d_plan(shape, out_shape, stride, dtype, inverse, copy_limit)
+    head = (_build.dtype_code(dtype), n, h, w, c, out_shape[1], out_shape[2],
+            sh, sw, ph, pw)
+    tail = (plan.copy_bytes, plan.group, plan.rows, plan.ring, plan.cols,
+            plan.smem_bytes)
+    return (_build.kernel_function(entry, *_ENTRY_ARGS),
+            shape if inverse else out_shape, head, tail)
+
+
+def _launch(inverse, src, shift, in_shape, stride, padding, quantize):
+    """Check the tensors, allocate the result and launch one kernel: no
+    other device work."""
+    if src.ndim != 4 or shift.shape != (2, src.shape[-1]):
+        raise ValueError(
+            f"{_ENTRIES[inverse]}: shift must be (2, C) for an (N, H, W, C) "
+            f"tensor, got {tuple(shift.shape)} for {tuple(src.shape)}")
+    if shift.dtype != torch.float32:
+        raise TypeError(f"{_ENTRIES[inverse]} takes the float32 shift "
+                        f"parameter, got {shift.dtype}")
+    if not (src.is_contiguous() and shift.is_contiguous()):
+        raise ValueError(f"{_ENTRIES[inverse]} needs contiguous tensors")
+    dev = src.device
+    if dev.type != "cuda" or shift.device != dev:
+        raise ValueError(
+            f"{_ENTRIES[inverse]} needs its tensors on one CUDA device, got "
+            f"{src.device} and {shift.device}")
+    # A copy is no wider than the source is aligned (a view may start
+    # anywhere; a fresh result is aligned).
+    at = src.data_ptr()
+    limit = 16 if at % 16 == 0 else 4 if at % 4 == 0 else 2
+    fn, dst_shape, head, tail = _prepare(inverse, src.shape, in_shape, stride,
+                                         padding, src.dtype, limit)
+    dst = torch.empty(dst_shape, dtype=src.dtype, device=dev)
+    args = (at, shift.data_ptr(), dst.data_ptr(), *head, int(quantize), *tail,
+            _build.stream_of(src))
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
+    if rc != 0:
+        _build.check(rc, _ENTRIES[inverse])
+    _COUNTERS[inverse].count += 1
+    return dst
 
 
 def shift2d_kernel(x, shift, stride=(1, 1), padding=(0, 0), quantize=False):
-    """Kernel K1 in 2D mode on a CUDA tensor (N, H, W, C): the
-    (N, 1, H, W, C) view (no copy of x), a zero T row, half-away
-    rounding."""
-    sh, sw = _pair(stride)
-    ph, pw = _pair(padding)
-    out = shift3d_kernel(x[:, None], _shift3(shift), (1, sh, sw),
-                         (0, ph, pw), quantize, quantize_mode=_MODE,
-                         counter=LAUNCHES)
-    return out[:, 0]
+    """The 2D shift forward on a CUDA tensor (N, H, W, C), contiguous, with
+    the float32 (2, C) shift: one launch of ``rubiks_shift2d_fwd``
+    (csrc/shift2d.cu), planned by :func:`shift2d_plan`."""
+    return _launch(False, x, shift, None, stride, padding, quantize)
 
 
 def shift2d_input_grad_kernel(og, shift, in_shape, stride=(1, 1),
                               padding=(0, 0), quantize=False):
-    """Kernel K1-inverse in 2D mode on a CUDA tensor (N, Ho, Wo, C)."""
-    sh, sw = _pair(stride)
-    ph, pw = _pair(padding)
-    n, h, w, c = (int(v) for v in in_shape)
-    gx = shift3d_input_grad_kernel(
-        og[:, None], _shift3(shift), (n, 1, h, w, c), (1, sh, sw),
-        (0, ph, pw), quantize, quantize_mode=_MODE, counter=INVERSE_LAUNCHES)
-    return gx[:, 0]
+    """The 2D shift's input gradient on a CUDA tensor og (N, Ho, Wo, C): one
+    launch of ``rubiks_shift2d_inv`` (csrc/shift2d.cu)."""
+    if not isinstance(in_shape, tuple):  # a hashable key (Size is a tuple)
+        in_shape = tuple(in_shape)
+    return _launch(True, og, shift, in_shape, stride, padding, quantize)
 
 
 # ------------------------------------------------------------ the op
@@ -199,8 +410,8 @@ def _check_args(x, shift):
 def rubiks_shift_2d_forward(x, shift, stride=(1, 1), padding=(0, 0),
                             quantize=False):
     """Fractional 2D shift of x (N, H, W, C) by shift (2, C), outside
-    autograd. K1 in 2D mode for a CUDA tensor, the gather form for a CPU
-    tensor; raises for any other device."""
+    autograd. The kernel of csrc/shift2d.cu for a CUDA tensor, the gather
+    form for a CPU tensor; raises for any other device."""
     _check_args(x, shift)
     if _route(x, plain=False):
         return shift2d_kernel(x.contiguous(), shift, stride, padding,
@@ -211,8 +422,9 @@ def rubiks_shift_2d_forward(x, shift, stride=(1, 1), padding=(0, 0),
 @torch.no_grad()
 def rubiks_shift_2d_input_grad(og, shift, in_shape, stride=(1, 1),
                                padding=(0, 0), quantize=False):
-    """Gradient of the forward with respect to x for upstream og. K1-inverse
-    in 2D mode for a CUDA tensor, the gather form for a CPU tensor."""
+    """Gradient of the forward with respect to x for upstream og. The
+    kernel of csrc/shift2d.cu for a CUDA tensor, the gather form for a CPU
+    tensor."""
     if _route(og, plain=False):
         return shift2d_input_grad_kernel(og.contiguous(), shift, in_shape,
                                          stride, padding, quantize)
@@ -258,9 +470,9 @@ class _RubiksShift2DFunction(torch.autograd.Function):
 def rubiks_shift_2d(x, shift, stride=1, padding=0, normalize_grad=True,
                     quantize=False, plain=False):
     """The 2D shift as an autograd op (the reference's functional signature
-    on channel-last input). Forward and input gradient run K1 and
-    K1-inverse in 2D mode on a CUDA tensor and the gather forms on a CPU
-    tensor or with ``plain=True``; the shift gradient is plain PyTorch."""
+    on channel-last input). Forward and input gradient run the kernels of
+    csrc/shift2d.cu on a CUDA tensor and the gather forms on a CPU tensor
+    or with ``plain=True``; the shift gradient is plain PyTorch."""
     _check_args(x, shift)
     return _RubiksShift2DFunction.apply(
         x, shift, _pair(stride), _pair(padding), bool(quantize),

@@ -212,11 +212,8 @@ def quantize_code(quantize: bool, quantize_mode: str) -> int:
 
 
 def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
-                   quantize=False, *, quantize_mode="half_up",
-                   counter=None):
-    """Kernel K1 on a CUDA tensor: one pass, trilinear weights in f32.
-    ``counter`` is the launch counter to add to (default K1's own; the 2D
-    shift passes its own)."""
+                   quantize=False, *, quantize_mode="half_up"):
+    """Kernel K1 on a CUDA tensor: one pass, trilinear weights in f32."""
     _check_cuda("shift3d_kernel", x, shift)
     code = _build.dtype_code(x.dtype)
     st, sh, sw = _triple(stride)
@@ -233,16 +230,15 @@ def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
                 w, c, to, ho, wo, st, sh, sw, pt, ph, pw,
                 quantize_code(quantize, quantize_mode), _build.stream_of(x))
     _build.check(rc, "rubiks_shift3d_fwd")
-    (LAUNCHES if counter is None else counter).count += 1
+    LAUNCHES.count += 1
     return out
 
 
 def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
                               padding=(0, 0, 0), quantize=False, *,
-                              quantize_mode="half_up", counter=None):
+                              quantize_mode="half_up"):
     """Kernel K1-inverse on a CUDA tensor: the input gradient in one pass,
-    one thread per input element, stride-gated, weights in f32. ``counter``
-    as for :func:`shift3d_kernel`."""
+    one thread per input element, stride-gated, weights in f32."""
     _check_cuda("shift3d_input_grad_kernel", og, shift)
     code = _build.dtype_code(og.dtype)
     st, sh, sw = _triple(stride)
@@ -263,7 +259,7 @@ def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
                 w, c, to, ho, wo, st, sh, sw, pt, ph, pw,
                 quantize_code(quantize, quantize_mode), _build.stream_of(og))
     _build.check(rc, "rubiks_shift3d_inv")
-    (INVERSE_LAUNCHES if counter is None else counter).count += 1
+    INVERSE_LAUNCHES.count += 1
     return gx
 
 

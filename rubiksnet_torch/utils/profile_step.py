@@ -20,12 +20,13 @@ import torch
 from ..models.fused_infer import FusedExecutor
 from ..models.rubiksnet import TIERS, VARIANTS, create_rubiksnet
 from ..train import make_train_step, sgd_with_shift_mult
-from .benchmark import cuda_call_times_ms, nvidia_smi_line
+from .benchmark import cuda_call_times_ms, cuda_kernel_times, nvidia_smi_line
 
 # (class, substrings of the kernel name), first match wins.
 CLASSES = (
-    ("K1 / K1-2D (shift3d_fwd_kernel)", ("shift3d_fwd_kernel",)),
-    ("K1-inverse / -2D (shift3d_inv_kernel)", ("shift3d_inv_kernel",)),
+    ("2D shift and its input gradient (shift2d_kernel)", ("shift2d_kernel",)),
+    ("K1 (shift3d_fwd_kernel)", ("shift3d_fwd_kernel",)),
+    ("K1-inverse (shift3d_inv_kernel)", ("shift3d_inv_kernel",)),
     ("K4 (shift_grad)", ("shift_grad",)),
     ("SE gate kernels (se_partial, se_gate)", ("se_partial_kernel",
                                                "se_gate_kernel")),
@@ -83,26 +84,13 @@ def main(argv=None) -> int:
     fn = build_step(args, dev)
     ms = sorted(cuda_call_times_ms(fn, iters=5, warmup=3))
     step_ms = ms[len(ms) // 2]
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(args.steps):
-            fn()
-        torch.cuda.synchronize()
     by_class, launches = {}, {}
-    for evt in prof.key_averages():
-        device_us = getattr(evt, "device_time_total", 0) or getattr(
-            evt, "cuda_time_total", 0)
-        if evt.device_type != torch.autograd.DeviceType.CUDA or not device_us:
-            continue
-        label = classify(evt.key)
-        by_class[label] = by_class.get(label, 0.0) + device_us / 1e3
-        launches[label] = launches.get(label, 0) + evt.count
+    for key, (count, total_ms) in cuda_kernel_times(
+            fn, iters=args.steps, warmup=0).items():
+        label = classify(key)
+        by_class[label] = by_class.get(label, 0.0) + total_ms
+        launches[label] = launches.get(label, 0) + count
     busy = sum(by_class.values()) / args.steps
-    if busy <= 0:
-        print("profile_step: the profiler recorded no device time",
-              file=sys.stderr)
-        return 1
     print(f"{args.tier} {args.variant} {args.mode} batch {args.batch} bf16 "
           f"{args.frames}x{args.size}x{args.size}, {nvidia_smi_line()}")
     print(f"unprofiled: median {step_ms:.3f} ms (min {ms[0]:.3f}, max "

@@ -289,8 +289,9 @@ def test_profile_probe_classifies_kernel_names():
     from rubiksnet_torch.utils import profile_step
 
     cases = {
-        "void rubiks::shift3d_fwd_kernel<__nv_bfloat16>(...)": "K1 / K1-2D",
-        "void rubiks::shift3d_inv_kernel<float>(...)": "K1-inverse",
+        "void rubiks::shift3d_fwd_kernel<__nv_bfloat16>(...)": "K1 (",
+        "void rubiks::shift3d_inv_kernel<float>(...)": "K1-inverse (",
+        "void rubiks::shift2d_kernel<__nv_bfloat16, 16>(...)": "2D shift",
         "void rubiks::se_partial_kernel<float>(...)": "SE gate",
         "void rubiks::gemm_kernel<float, rubiks::ShiftLoad<float>>": "K2 / K3",
         "sm90_xmma_gemm_bf16bf16_bf16f32": "library GEMMs",
