@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse, K4
-shift_grad, K2 fused_block, K3 fused_entry, the SE gate kernels inside K2
-and K3, and the 2D shift's forward and input gradient, shift2d.cu) from
-rubiksnet_torch/ops/csrc, holds each against its plain PyTorch version at
-every shape of its path: RubiksNet-Large (rubiks3d), Large with the
-rubiks3d-aq variant (the 2D shift kernels, K2 with the attention mix) and
-the SE tier Small (K2 and K3 with the gate).
+shift_grad, K2 fused_block with its tensor-core launches fused_block_tc.cu,
+K3 fused_entry, the SE gate kernels inside K2 and K3, and the 2D shift's
+forward and input gradient, shift2d.cu) from rubiksnet_torch/ops/csrc, holds
+each against its plain PyTorch version at every shape of its path (K2 also
+off the model's shapes, and in bf16 at every batch size it is timed or served
+at, because its launch plan depends on the batch: a K2 plan that did not pass
+that comparison is not timed): RubiksNet-Large
+(rubiks3d), Large with the rubiks3d-aq variant (the 2D shift kernels, K2
+with the attention mix) and the SE tier Small (K2 and K3 with the gate).
 For each of the three models it checks the logits (fused executor and
 unfused module path against the plain model), counts the kernel launches of
 one fused and one unfused forward, and times serving at batch sizes 1, 8
@@ -26,13 +29,17 @@ on its main path, its error against the plain version, its time beside the
 plain version's, its bound (the larger of bytes moved over the memory rate
 and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
-exists (a depthwise convolution for the shifts). The 2D shift's two rows
-also carry their device time by the profiler and the time of the route
-they replaced (K1 and K1-inverse on a one-frame view), taken in this run.
+exists (a depthwise convolution for the shifts). K1, K1-inverse and K4
+carry their device time by the profiler; the 2D shift's two rows
+and K2's three also theirs and the time
+of the route they replaced (K1 and K1-inverse on a one-frame view; for K2
+in bf16 the SIMT GEMM of common.cuh), taken in this run; K2's also the time
+of a forward's blocks as the models call them, one run per stage.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import sys
@@ -626,11 +633,9 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
                     x, vt, wm, sep, aq=aq, max_shift=MAX_SHIFT))
                 ref = fused_block_plain(x, vt, wm, sep, aq=aq,
                                         max_shift=MAX_SHIFT)
-                kinds = [k for k, on in (("fused_block_aq", aq),
-                                         ("fused_block_se", se)) if on]
                 result = []
                 judge(label, got, ref, dt, result)
-                for k in kinds:
+                for k in block_kinds(aq, se):
                     errs[k].extend(result)
 
     print("[kernels] K3 fused_entry with the SE gate vs plain; bit-identical "
@@ -648,6 +653,113 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
                     x, params, sep, max_shift=MAX_SHIFT))
                 ref = fused_entry_plain(x, params, sep, max_shift=MAX_SHIFT)
                 judge(label, got, ref, dt, errs["fused_entry_se"])
+
+
+def block_kinds(aq, se):
+    """The rows of the kernels line a K2 comparison belongs to."""
+    return [kd for kd, on in (("fused_block_aq", aq),
+                              ("fused_block_se", se)) if on] or ["fused_block"]
+
+
+# K2's launch plan depends on the batch (rows per tile, warps, column
+# chunks, row tiles per block, producer warps). Every plan that is timed or
+# served below is first held against the plain version at its own shape:
+# (shape, aq, se) -> the plan of the comparison that passed.
+CHECKED_PLANS = {}
+
+
+def check_block_served_shapes(errs, gen, cpu_gen, dev):
+    """K2 in bf16 at every stride-1 shape of the main path at every batch
+    size that is timed or served (SERVE_BATCHES and TIME_BATCH), rubiks3d,
+    aq, se and aq+se, a run of 2 blocks, twice bit-identically, against the
+    plain version; and the previous route, which is only timed, at
+    TIME_BATCH."""
+    from rubiksnet_torch.utils import fused_block_probe as probe
+
+    bf = torch.bfloat16
+    batches = sorted(set(SERVE_BATCHES) | {TIME_BATCH})
+    print(f"[kernels] K2 fused_block bf16 at the main path's shapes, batch "
+          f"{batches}: the plans that are timed and served, vs plain; every "
+          f"run repeated bit-identically")
+    for label, n, t, h, w, c, k, kind, blocks in probe.served_cases(batches):
+        for aq, se in probe.VARIANTS:
+            ok, max_abs, text, plan = probe.check_case(
+                label, (n, t, h, w, c), k, kind, blocks, aq, se, bf, gen,
+                cpu_gen, dev)
+            print("  " + text)
+            if not ok:
+                fail(f"K2 {label} aq={aq} se={se} bf16 failed")
+            CHECKED_PLANS[(n, t, h, w, c), aq, se] = plan
+            for kd in block_kinds(aq, se):
+                errs[kd].append(max_abs)
+    for label, n, t, h, w, c, k, kind, blocks in probe.served_cases(
+            (TIME_BATCH,)):
+        for aq, se in probe.VARIANTS[:3]:
+            ok, _, text, _ = probe.check_case(
+                label + ", previous route", (n, t, h, w, c), k, kind, blocks,
+                aq, se, bf, gen, cpu_gen, dev, route="simt")
+            print("  " + text)
+            if not ok:
+                fail(f"K2 {label} aq={aq} se={se} bf16 previous route failed")
+
+
+def checked_plan(shape, aq, se, dev):
+    """The plan a bf16 call at ``shape`` runs under; fails unless that very
+    plan passed its comparison with the plain version at this shape."""
+    from rubiksnet_torch.ops.fused_block import _sm_count, fused_block_plan
+
+    plan = fused_block_plan(shape, torch.bfloat16, sms=_sm_count(dev.index))
+    if CHECKED_PLANS.get((tuple(shape), aq, se)) != plan:
+        fail(f"K2 at {tuple(shape)} aq={aq} se={se} would be timed under a "
+             f"plan that was not held against the plain version: "
+             f"{plan.describe()}")
+    return plan
+
+
+def check_block_cases(errs, gen, cpu_gen, dev):
+    """K2 off the model's shapes (rubiksnet_torch.utils.fused_block_probe
+    CASES: widths 54, 108, 216 and 432, one clip, odd extents, max_shift 3
+    with shifts near +-3 and max_shift 7, quantized, integer and zero
+    shifts, taps with three weights per axis, a run of 3 blocks through the
+    one C call), rubiks3d, aq, se and aq+se, f32 and bf16, each run twice
+    bit-identically; then the device kernels of one bf16 and one f32 call,
+    by name: bf16 must run the tensor-core kernels and f32 the SIMT GEMM,
+    neither the other's."""
+    from rubiksnet_torch.ops.fused_block import fused_block_kernel
+    from rubiksnet_torch.utils import fused_block_probe as probe
+
+    print("[kernels] K2 fused_block off the model's shapes, vs plain; every "
+          "run repeated bit-identically; the plan's route in brackets")
+    for label, n, t, h, w, c, k, kind, blocks in probe.CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            for aq, se in probe.case_variants(kind):
+                ok, max_abs, text, _ = probe.check_case(
+                    label, (n, t, h, w, c), k, kind, blocks, aq, se, dt, gen,
+                    cpu_gen, dev)
+                print("  " + text)
+                if not ok:
+                    fail(f"K2 {label} aq={aq} se={se} {dt} failed")
+                for kd in block_kinds(aq, se):
+                    errs[kd].append(max_abs)
+
+    for dt, want, never in ((torch.bfloat16, "rubiks_tc_kernel",
+                             "gemm_kernel"),
+                            (torch.float32, "gemm_kernel",
+                             "rubiks_tc_kernel")):
+        vt, wm, sep = probe.make_run(288, 2, True, True, dt, 1, "frac",
+                                     cpu_gen, dev)
+        x = randn((BATCH_CHECK, FRAMES, 14, 14, 288), dt, gen, dev)
+        times = cuda_kernel_times(lambda: fused_block_kernel(
+            x, vt, wm, sep, aq=True, max_shift=1), iters=3)
+        names = sorted(times)
+        print(f"[launch] K2-AQ-SE 14x14x288 {str(dt)[6:]}, 2 blocks in one "
+              f"call, device kernels by the profiler: "
+              + "; ".join(f"{nm[:70]} x{times[nm][0] / 3:g}"
+                          for nm in names))
+        if not any(want in nm for nm in names) or any(
+                never in nm for nm in names):
+            fail(f"K2 {dt}: expected {want} kernels and no {never}, got "
+                 f"{names}")
 
 
 # ------------------------------------------------ bounds from the shapes
@@ -781,10 +893,16 @@ class Timer:
                      for k in names}
 
     def add(self, kind, label, count, kernel_fn, plain_fn, work, dtype,
-            lib_fn=None, previous_fn=None):
+            lib_fn=None, previous_fn=None, needles=("shift2d_kernel",
+                                                    "shift3d_"),
+            kernels_per_call=1, previous="K1 on a one-frame view", note="",
+            device=False):
         """``previous_fn``: the route this kernel replaced; both then also
-        get their device time from the profiler (kernel time by name), and
-        ``kernel_fn`` must launch exactly one device kernel per call."""
+        get their device time from the profiler (the kernels whose names
+        hold ``needles[0]`` and ``needles[1]``), and ``kernel_fn`` must
+        launch exactly ``kernels_per_call`` device kernels per call.
+        ``device``: the device time of ``kernel_fn`` alone (every device
+        kernel of a call)."""
         from rubiksnet_torch.utils import cuda_time_ms
 
         row = self.rows[kind]
@@ -806,26 +924,34 @@ class Timer:
             lib_ms = cuda_time_ms(lib_fn, iters=5)
             row["library_ms"] = (row["library_ms"] or 0.0) + count * lib_ms
             text += f", library (depthwise conv) {lib_ms:.4f} ms"
+        if device and previous_fn is None:
+            dev_ms, n_kernels = profiled_ms(kernel_fn, "", label)
+            row["device_ms"] = (row["device_ms"] or 0.0) + count * dev_ms
+            text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernels "
+                     f"per call by the profiler")
         if previous_fn is not None:
-            dev_ms, n_kernels = profiled_ms(kernel_fn, "shift2d_kernel",
-                                            label)
-            if n_kernels not in (1, None):
+            dev_ms, n_kernels = profiled_ms(kernel_fn, needles[0], label)
+            if n_kernels not in (kernels_per_call, None):
                 fail(f"{label}: one call launched {n_kernels} device "
-                     f"kernels, not 1")
-            prev_dev_ms, prev_n = profiled_ms(previous_fn, "shift3d_",
+                     f"kernels, not {kernels_per_call}")
+            prev_dev_ms, prev_n = profiled_ms(previous_fn, needles[1],
                                               f"{label}, previous route")
             prev_ms = cuda_time_ms(previous_fn)
-            lib_dev_ms, lib_n = profiled_ms(lib_fn, "", f"{label}, library")
-            for key, v in (("device_ms", dev_ms), ("previous_ms", prev_ms),
-                           ("previous_device_ms", prev_dev_ms),
-                           ("library_device_ms", lib_dev_ms)):
+            timed = [("device_ms", dev_ms), ("previous_ms", prev_ms),
+                     ("previous_device_ms", prev_dev_ms)]
+            text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernels "
+                     f"per call by the profiler; previous route ({previous}) "
+                     f"{prev_ms:.4f} ms, on the device {prev_dev_ms:.4f} ms "
+                     f"in {prev_n} kernels per call")
+            if lib_fn is not None:
+                lib_dev_ms, lib_n = profiled_ms(lib_fn, "",
+                                                f"{label}, library")
+                timed.append(("library_device_ms", lib_dev_ms))
+                text += (f"; library on the device {lib_dev_ms:.4f} ms in "
+                         f"{lib_n} kernels per call")
+            for key, v in timed:
                 row[key] = (row[key] or 0.0) + count * v
-            text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernel "
-                     f"per call by the profiler; previous route (K1 on a "
-                     f"one-frame view) {prev_ms:.4f} ms, on the device "
-                     f"{prev_dev_ms:.4f} ms in {prev_n} kernels per call; "
-                     f"library on the device {lib_dev_ms:.4f} ms in {lib_n} "
-                     f"kernels per call")
+        text += note
         print(f"{text} (x{count} per forward or train step)")
 
     def summary(self, kind, per):
@@ -837,11 +963,53 @@ class Timer:
                 f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
                 f"({by}), library {lib}")
         if row["device_ms"] is not None:
-            text += (f", device_ms {row['device_ms']:.3f}, previous_ms "
-                     f"{row['previous_ms']:.3f}, previous route on the "
-                     f"device {row['previous_device_ms']:.3f} ms, library on "
-                     f"the device {row['library_device_ms']:.3f} ms")
+            text += f", device_ms {row['device_ms']:.3f}"
+        if row["previous_ms"] is not None:
+            text += (f", previous_ms {row['previous_ms']:.3f}, previous route "
+                     f"on the device {row['previous_device_ms']:.3f} ms")
+        if row["library_device_ms"] is not None:
+            text += (f", library on the device "
+                     f"{row['library_device_ms']:.3f} ms")
         print(text)
+
+
+def time_block_runs(timer, gen, cpu_gen, dev, small_counts):
+    """K2 as the models call it: per stage one run of all its blocks in one C
+    call, by events; consecutive launches overlapped (programmatic dependent
+    launch, the plan's default), not overlapped (the same plan without the
+    launch attribute), and the previous route, in turn; the plan must have
+    passed its comparison at this shape. The sums go to the rows as
+    ``runs_ms`` and ``previous_runs_ms``."""
+    from rubiksnet_torch.ops.fused_block import fused_block_kernel
+    from rubiksnet_torch.utils import cuda_time_ms
+    from rubiksnet_torch.utils import fused_block_probe as probe
+
+    bf, k = torch.bfloat16, MAX_SHIFT
+    print(f"[timing] K2 per stage, one run of the stage's blocks in one call, "
+          f"batch {TIME_BATCH} bf16, by events")
+    for kind, tag, aq, se in (("fused_block", "K2", False, False),
+                              ("fused_block_aq", "K2-AQ", True, False),
+                              ("fused_block_se", "K2-SE", False, True)):
+        sums = {"overlapped": 0.0, "not overlapped": 0.0, "previous": 0.0}
+        for h, c, count in BLOCK_SHAPES:
+            blocks = small_counts[h] if se else count
+            vt, wm, sep = probe.make_run(c, blocks, aq, se, bf, k, "frac",
+                                         cpu_gen, dev)
+            x = randn((TIME_BATCH, FRAMES, h, h, c), bf, gen, dev)
+            plan = checked_plan(x.shape, aq, se, dev)
+            text = f"  {tag} {h}x{h}x{c} run of {blocks}:"
+            for label, kw in (("overlapped", {}),
+                              ("not overlapped", {"overlap": False}),
+                              ("previous", {"route": "simt"})):
+                ms = cuda_time_ms(lambda: fused_block_kernel(
+                    x, vt, wm, sep, aq=aq, max_shift=k, **kw), iters=10)
+                sums[label] += ms
+                text += f" {label} {ms:.4f} ms,"
+            print(f"{text} plan: {plan.describe()}")
+        timer.rows[kind]["runs_ms"] = sums["overlapped"]
+        timer.rows[kind]["previous_runs_ms"] = sums["previous"]
+        print(f"  {tag} per forward, as runs: " + ", ".join(
+            f"{label} {ms:.3f} ms" for label, ms in sums.items()))
 
 
 def time_kernels(timer, gen, cpu_gen, dev, name, smi):
@@ -884,7 +1052,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_kernel(x, shift),
                   lambda: shift3d_plain(x, shift),
                   shift_work(x.numel(), x.numel(), 2, 8), bf,
-                  library_shift(x, shift, 1))
+                  library_shift(x, shift, 1), device=True)
         blocks = {}
         for aq, se in ((False, False), (True, False), (False, True)):
             blk = random_block(c, c, 1, False, cpu_gen, dev,
@@ -901,11 +1069,18 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                 ("fused_block", "K2", False, False, count),
                 ("fused_block_aq", "K2-AQ", True, False, count),
                 ("fused_block_se", "K2-SE", False, True, small_counts[h])):
+            plan = checked_plan(x.shape, aq, se, dev)
             timer.add(kind, f"{tag} {h}x{h}x{c} 1 block", n_calls,
                       run(fused_block_kernel, aq, se),
                       run(fused_block_plain, aq, se),
                       block_work(nb, h, c, 2, rows_aq if aq else rows3, aq,
-                                 se), bf)
+                                 se), bf,
+                      previous_fn=run(functools.partial(
+                          fused_block_kernel, route="simt"), aq, se),
+                      needles=("", ""), kernels_per_call=4 if se else 2,
+                      previous="the SIMT GEMM of common.cuh",
+                      note=f"; plan: {plan.describe()}")
+    time_block_runs(timer, gen, cpu_gen, dev, small_counts)
     for h, cin, cm in ENTRY_SHAPES:
         xm = randn((nb, FRAMES, h, h, cm), bf, gen, dev)
         shift = torch.rand((3, cm), generator=gen, device=dev) * 2 - 1
@@ -913,7 +1088,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_kernel(xm, shift, (1, 2, 2)),
                   lambda: shift3d_plain(xm, shift, (1, 2, 2)),
                   shift_work(xm.numel() // 4, xm.numel(), 2, 8), bf,
-                  library_shift(xm, shift, 2))
+                  library_shift(xm, shift, 2), device=True)
         x = randn((nb, FRAMES, h, h, cin), bf, gen, dev)
         for kind, tag, se in (("fused_entry", "K3", False),
                               ("fused_entry_se", "K3-SE", True)):
@@ -944,11 +1119,11 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_input_grad_plain(og, shift, x_shape,
                                                    stride),
                   shift_work(x.numel(), og.numel(), 2, 8), bf,
-                  library_shift(og, shift, s, inverse=True))
+                  library_shift(og, shift, s, inverse=True), device=True)
         timer.add("shift_grad", f"K4 {h}x{h}x{c} stride {s}", count,
                   lambda: shift3d_shift_grad_kernel(og, x, shift, stride),
                   lambda: shift3d_shift_grad_plain(og, x, shift, stride),
-                  shift_grad_work(og.numel(), x.numel(), 2), bf)
+                  shift_grad_work(og.numel(), x.numel(), 2), bf, device=True)
         x4 = x.reshape((-1,) + x_shape[2:])
         og4 = og.reshape((-1,) + tuple(og.shape[2:]))
         shift2 = shift[1:].contiguous()
@@ -987,7 +1162,8 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
           f"{plain2d_grad_ms:.3f} ms per Large-AQ train step")
     # One call of either 2D shift wrapper is one device kernel and nothing
     # else (no cat, cast or copy), at every shape the profiler recorded.
-    missed = [m for m in PROFILER_MISSES if "," not in m]
+    missed = [m for m in PROFILER_MISSES
+              if "," not in m and m.startswith("shift2d")]
     seen = 2 * len(SHIFT_SHAPES) - len(missed)
     print(f"[launch] shift2d_kernel and shift2d_input_grad_kernel: 1 device "
           f"kernel per call by the profiler at {seen} of "
@@ -1083,11 +1259,19 @@ def main_path(label, model, batch, want_fused, want_unfused):
     return executor, fused, unfused
 
 
-def serve_phase(label, executor, model, gen, dev, name, smi):
+def serve_phase(label, executor, model, gen, dev, name, smi, aq, se):
     """Serving: each call answers one batch; its device time comes from CUDA
-    events around it (median, min and max of SERVE_ITERS calls)."""
+    events around it (median, min and max of SERVE_ITERS calls). Every K2
+    plan of a served batch must have passed its comparison with the plain
+    version at that shape (``aq``, ``se``: the configuration's K2 form)."""
     print(f"[serve] {label} fused executor, bf16, {FRAMES}x{SIZE}x{SIZE}, "
           f"{name} ({smi})")
+    for bs in SERVE_BATCHES:
+        plans = [f"{h}x{h}x{c} " + checked_plan(
+            (bs, FRAMES, h, h, c), aq, se, dev).describe()
+                 for h, c, _ in BLOCK_SHAPES]
+        print(f"  K2 plans at batch {bs}, each checked against plain: "
+              + "; ".join(plans))
 
     def serve(route, fn, bs):
         ms = sorted(cuda_call_times_ms(fn, iters=SERVE_ITERS, warmup=2))
@@ -1255,6 +1439,8 @@ def main() -> int:
                       errs["fused_entry"])
     check_shift_backward(errs, gen, dev)
     check_new_kernels(errs, gen, cpu_gen, dev)
+    check_block_cases(errs, gen, cpu_gen, dev)
+    check_block_served_shapes(errs, gen, cpu_gen, dev)
     torch.cuda.synchronize()
     print(f"[clock] kernel checks done at "
           f"{time.perf_counter() - started:.0f} s")
@@ -1293,7 +1479,8 @@ def main() -> int:
                                              want_u)
         launches.update({k: fused[ctr] for k, ctr in from_f.items()})
         launches.update({k: unfused[ctr] for k, ctr in from_u.items()})
-        serve_phase(label, executor, model, gen, dev, name, smi)
+        serve_phase(label, executor, model, gen, dev, name, smi,
+                    aq=variant == "rubiks3d-aq", se=tier == "small")
         del models, model, executor
         torch.cuda.empty_cache()
         print(f"[clock] {label} done at "
@@ -1329,8 +1516,12 @@ def main() -> int:
                          else "operations"),
             "library_ms": row["library_ms"]})
         if row["device_ms"] is not None:
-            kernels[-1].update(device_ms=row["device_ms"],
-                               previous_ms=row["previous_ms"])
+            kernels[-1].update(device_ms=row["device_ms"])
+        if row["previous_ms"] is not None:
+            kernels[-1].update(previous_ms=row["previous_ms"])
+        if "runs_ms" in row:
+            kernels[-1].update(runs_ms=row["runs_ms"],
+                               previous_runs_ms=row["previous_runs_ms"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,23 @@
 // Device code shared by the port's kernels (shift3d.cu, shift_grad.cu,
-// fused_block.cu, fused_entry.cu, se_gate.cuh): dtype conversions, the per-axis taps and
-// corner sum of the one-pass shifts, a tiled GEMM whose operand loads and
-// output stores are functors, and the loaders and stores the fused kernels
-// plug into it.
+// fused_block.cu, fused_block_tc.cu, fused_entry.cu, se_gate.cuh): dtype
+// conversions, the per-axis taps and corner sum of the one-pass shifts, a
+// tiled GEMM whose operand loads and output stores are functors, and the
+// loaders and stores the fused kernels plug into it.
 //
-// The GEMM is a simple first form: a block keeps its rows' whole A tile in
+// The GEMM here is the simple form: a block keeps its rows' whole A tile in
 // shared memory and runs 64-wide column tiles against it, with 16-deep B
 // slabs loaded one slab ahead; 128 threads each hold a 4x4 f32 accumulator
 // (SIMT FMA in both dtypes). Its A loader is where the fused kernels put
 // their prologues (bn/relu, the shift gather) and its store functor is
 // where they put their epilogues (bn/relu, residual add), so neither
-// intermediate makes an extra pass over device memory. On the H100 the
-// gather and the load latency bound the fused block, not the multiply-adds
-// (bf16 tensor cores measured no faster), so the products stay SIMT;
-// wgmma, TMA and deeper pipelines are later work.
+// intermediate makes an extra pass over device memory. It serves K3
+// (fused_entry.cu) in both dtypes and K2 (fused_block.cu) in float32, where
+// the products must stay full f32. What bounds it on the H100 is a serial
+// chain per block, not arithmetic or bytes: 2-byte loads, two barriers per
+// 16-deep slab of A and of B with nothing in flight across them, the weights
+// re-read by every block through registers, the gather's nested loops. K2 in
+// bfloat16 left it for fused_block_tc.cu (tensor cores, resident weights,
+// 16-byte loads), which took that chain away; K3 is next.
 #pragma once
 
 #include <cuda_bf16.h>

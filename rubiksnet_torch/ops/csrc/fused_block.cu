@@ -1,4 +1,4 @@
-// K2: one stride-1 identity-shortcut RubiksNet block, inference.
+// K2: a run of stride-1 identity-shortcut RubiksNet blocks, inference.
 //
 //   x <- x + W3 . [SE] shift3d(relu(bn2(W2 . [AQ] relu(bn1(x)))))
 //
@@ -7,33 +7,34 @@
 // for the TPU's VMEM: whole clips resident across a run of blocks, or one
 // frame per grid step for 56x56 and larger), with their SE gate and, for
 // fused_block_run, the rubiks3d-aq temporal mix. The Python wrapper calls
-// this once per block of a run.
+// rubiks_fused_block_run once per run; every launch of the run is made
+// here, on the caller's stream.
 //
-// What bounds it on the card: not the two 1x1 GEMMs (2*C^2 multiply-adds
-// per element each, C = 72..576; tensor cores for them measured no faster)
-// but the shift gather in launch B and the latency of the slab loads: about
-// 5 element passes over device memory per block are far below the H100's
-// bandwidth. Design, two launches on the caller's stream:
-//   A: mid = relu(s2 . (relu(s1 . x + b1) @ W2) + b2), the common.cuh GEMM
-//      with a bn1/relu A loader and a bn2/relu store. mid goes to device
-//      memory in x's dtype (bf16 or f32), the buffer the caller passes (it
-//      comes back from L2 for the small stages).
-//   B: out = x + shift3d(mid) @ W3, the same GEMM whose A loader gathers the
-//      shifted mid values with the per-axis tap weights (common.cuh
-//      ShiftLoad: 8 corners per element for a fractional shift, 1 for a
-//      quantized one) once per element, into the block's resident A tile,
-//      and whose store adds the residual. out may alias x: each element of
-//      x is read and written by the same thread, and launch B reads nothing
-//      else of x.
+// Per block, two launches:
+//   A: mid = relu(s2 . (relu(s1 . x + b1) @ W2) + b2). mid goes to device
+//      memory in x's dtype, the buffer the caller passes (it comes back from
+//      L2 for the small stages).
+//   B: out = x + shift3d(mid) @ W3: the operand loader gathers the shifted
+//      mid values with the per-axis tap weights (8 corners per element for a
+//      fractional shift, 1 for a quantized one), and the store adds the
+//      residual. out may alias x: each element of x is read and written by
+//      the same thread, and launch B reads nothing else of x.
 // With aq, launch A's loader mixes the activated input along T with the
-// three attention taps (common.cuh AqBnReluLoad: three reads of x per
-// element, the neighbours from L2) and the T tap row is the identity. With
-// se, two small launches between A and B compute the gate from one pass
-// over mid (se_gate.cuh) and launch B's loader multiplies by it.
-// The GEMM is SIMT FMA with f32 sums in both dtypes. The bn and tap
-// arithmetic is f32 and the GEMM operands are rounded to x's dtype, as in
-// the TPU kernel.
+// three attention taps and the T tap row is the identity. With se, two small
+// launches between A and B compute the gate from one pass over mid
+// (se_gate.cuh) and launch B's loader multiplies by it. The bn and tap
+// arithmetic is f32 and the GEMM operands are rounded to x's dtype, as in the
+// TPU kernel.
+//
+// Two routes. bfloat16, the serving dtype, runs fused_block_tc.cu: tensor-core
+// products, resident weights, 16-byte loads, a gather of one channel per lane;
+// its header says what bounds it. float32 runs the common.cuh GEMM below (SIMT
+// f32 products: tensor cores would make them TF32), which also stays callable
+// for bfloat16 as route 0 so that both can be timed in one process. (Cutting
+// a run into groups of clips, A then B per group so that mid stays in L2,
+// measured slower at every batch: more and smaller launches.)
 #include "common.cuh"
+#include "fused_block_tc.cuh"
 #include "se_gate.cuh"
 
 namespace rubiks {
@@ -93,32 +94,81 @@ int fused_block(const void* xv, const float* vt, const void* w2v,
       ResidualStore<T>{x, out, C}, stream);
 }
 
+// One block on the tensor-core route (bfloat16 only).
+int fused_block_tc(const TcPlan& plan, const void* x, const float* vt,
+                   const void* w2, const void* w3, const float* se,
+                   float* partial, float* gate, void* mid, void* out, int N,
+                   int T_, int H, int W, int C, int taps_n, int K, int aq,
+                   int Cr, int slices, cudaStream_t stream) {
+  if (N == 0) return 0;
+  if (se != nullptr && (partial == nullptr || gate == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const TcShape shape = {N, T_, H, W, C, taps_n, K};
+  cudaError_t err = tc_launch_mid(plan, shape, x, vt, w2, mid, aq, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (se != nullptr) {
+    err = launch_se_gate<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(mid), vt + 4 * C, se, partial, gate,
+        N * T_, T_, H, W, C, H, W, 1, taps_n, K, Cr, slices, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)tc_launch_out(plan, shape, x, mid, vt, w3,
+                            se != nullptr ? gate : nullptr, out, stream);
+}
+
 }  // namespace rubiks
 
 extern "C" {
 
-// One block. x, out (N, T, H, W, C) and mid (same shape) contiguous of dtype
-// (0 float32, 1 bfloat16); out may equal x. vt: (4 + 3*taps_n [+ 3], C)
-// float32 = folded bn1 scale/bias, bn2 scale/bias, the T, H and W tap
-// weights (tap j reads offset j - K) and, when aq is set, the three rows of
-// attention taps. w2, w3: (C, C) (in, out) of dtype. se: null, or (2, C, Cr)
-// float32 (fc1, fc2 transposed) with scratch partial (N*T, slices, C) and
-// gate (N*T, C) float32, slices = ceil(H / 8).
-int rubiks_fused_block(const void* x, const float* vt, const void* w2,
-                       const void* w3, const float* se, float* partial,
-                       float* gate, void* mid, void* out, int dtype, int N,
-                       int T, int H, int W, int C, int taps_n, int K, int aq,
-                       int Cr, int slices, void* stream) {
+// A run of B blocks. x, out (N, T, H, W, C) and mid (same shape) contiguous
+// of dtype (0 float32, 1 bfloat16); block 0 reads x and writes out, the later
+// blocks update out in place; out may equal x. vt: (B, 4 + 3*taps_n
+// [+ 3], C) float32 = per block the folded bn1 scale/bias, bn2 scale/bias,
+// the T, H and W tap weights (tap j reads offset j - K) and, when aq is set,
+// the three rows of attention taps. wm: (B, 2, C, C) of dtype, W2 and W3 as
+// (in, out). se: null, or (B, 2, C, Cr) float32 (fc1, fc2 transposed) with
+// scratch partial (N*T, slices, C) and gate (N*T, C) float32, slices =
+// ceil(H / 8). route: 0 the common.cuh GEMM (either dtype), 1 the
+// tensor-core kernels (bfloat16 only) under the plan pw, wm_, wn_,
+// n_split, grid_x, smem_bytes, overlap of
+// ops/fused_block.py::fused_block_plan.
+int rubiks_fused_block_run(const void* x, const float* vt, const void* wm,
+                           const float* se, float* partial, float* gate,
+                           void* mid, void* out, int dtype, int B, int N,
+                           int T, int H, int W, int C, int taps_n, int K,
+                           int aq, int Cr, int slices, int route, int pw,
+                           int wm_, int wn_, int n_split, int grid_x,
+                           int smem_bytes, int overlap, void* stream) {
+  using namespace rubiks;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == rubiks::kBF16)
-    return rubiks::fused_block<__nv_bfloat16>(x, vt, w2, w3, se, partial,
-                                              gate, mid, out, N, T, H, W, C,
-                                              taps_n, K, aq, Cr, slices, s);
-  if (dtype == rubiks::kF32)
-    return rubiks::fused_block<float>(x, vt, w2, w3, se, partial, gate, mid,
-                                      out, N, T, H, W, C, taps_n, K, aq, Cr,
-                                      slices, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if ((route != 0 && route != 1) || (route == 1 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
+  const TcPlan plan = {pw,      wm_,    wn_,        n_split,
+                       grid_x,  smem_bytes, overlap};
+  const size_t esz = dtype == kBF16 ? 2 : 4;
+  const int rows = 4 + 3 * taps_n + (aq ? 3 : 0);
+  for (int b = 0; b < B; ++b) {
+    const void* src = b == 0 ? x : out;
+    const float* vtb = vt + (size_t)b * rows * C;
+    const char* w2 = static_cast<const char*>(wm) + (size_t)b * 2 * C * C * esz;
+    const char* w3 = w2 + (size_t)C * C * esz;
+    const float* seb = se != nullptr ? se + (size_t)b * 2 * C * Cr : nullptr;
+    int rc;
+    if (route == 1)
+      rc = fused_block_tc(plan, src, vtb, w2, w3, seb, partial, gate, mid, out,
+                          N, T, H, W, C, taps_n, K, aq, Cr, slices, s);
+    else if (dtype == kBF16)
+      rc = fused_block<__nv_bfloat16>(src, vtb, w2, w3, seb, partial, gate,
+                                      mid, out, N, T, H, W, C, taps_n, K, aq,
+                                      Cr, slices, s);
+    else
+      rc = fused_block<float>(src, vtb, w2, w3, seb, partial, gate, mid, out,
+                              N, T, H, W, C, taps_n, K, aq, Cr, slices, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,0 +1,61 @@
+// Host interface of the tensor-core launches of K2 (fused_block_tc.cu), as
+// fused_block.cu calls them.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rubiks {
+
+// The launch plan, computed by ops/fused_block.py::fused_block_plan and
+// checked again here (tc_plan_ok): nothing is chosen on this side.
+struct TcPlan {
+  int pw;          // warps that only load (0: every warp loads and multiplies)
+  int wm, wn;      // multiplying warps along the rows and along the columns:
+                   // a block owns wm * 16 rows and wn * 72 columns
+  int n_split;     // column chunks (grid.y) of wn * 72 columns each
+  int grid_x;      // persistent blocks along the row tiles
+  int smem_bytes;  // dynamic shared memory of a block
+  int overlap;     // a launch may begin (fetch its W) before the one before
+                   // it in the stream has ended
+};
+
+struct TcShape {
+  int N, T, H, W, C;  // x, mid, out: (N, T, H, W, C) bfloat16
+  int taps_n, K;      // taps per axis, tap j reads offset j - K
+};
+
+// Row stride, in elements, of a shared-memory tile `cols` bf16 wide: rows
+// 16 bytes apart modulo 32 so that the eight rows of an ldmatrix hit eight
+// different bank groups.
+__host__ __device__ inline int tc_row_stride(int cols) {
+  int rs = ((cols + 7) & ~7) + 8;
+  if (((rs >> 3) & 1) == 0) rs += 8;
+  return rs;
+}
+
+constexpr int kTcWarpCols = 72;  // columns of one warp: 9 tiles of 8
+constexpr int kTcMaxSmem = 232448;  // bytes a block can use on the H100
+
+// Bytes of dynamic shared memory the plan needs: the A tile (two with loading
+// warps), the W chunk and the loader's per-channel table (8 words a channel).
+inline int tc_smem_bytes(const TcPlan& p, int C) {
+  const int kp = (C + 15) & ~15;
+  return (p.pw > 0 ? 2 : 1) * p.wm * 16 * tc_row_stride(kp) * 2 +
+         kp * tc_row_stride(p.wn * kTcWarpCols) * 2 + 8 * kp * 4;
+}
+
+bool tc_plan_ok(const TcPlan& p, const TcShape& s);
+
+// Launch A: mid = relu(s2 . (A @ W2) + b2), A = relu(s1 . x + b1), with aq
+// mixed along T by the three attention rows that follow the taps in vt.
+cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
+                          const float* vt, const void* w2, void* mid, int aq,
+                          cudaStream_t stream);
+
+// Launch B: out = x + ([gate .] shift3d(mid)) @ W3; out may alias x.
+cudaError_t tc_launch_out(const TcPlan& p, const TcShape& s, const void* x,
+                          const void* mid, const float* vt, const void* w3,
+                          const float* gate, void* out, cudaStream_t stream);
+
+}  // namespace rubiks

@@ -11,11 +11,17 @@ row is the identity. ``se`` (the SE tiers) gates the shifted activation per
 (clip, frame, channel) by ``sigmoid(relu(mean_hw . fc1) . fc2)`` before W3.
 Counterpart of ``rubiksnet_tpu/ops/pallas/fused_block.py`` and
 ``ops/pallas/fused_frames.py`` (the same contract).
-:func:`fused_block_run` launches ``csrc/fused_block.cu`` once per block for a
-CUDA tensor, and runs :func:`fused_block_plain` for a CPU tensor.
+:func:`fused_block_run` makes one call into ``csrc/fused_block.cu`` per run
+for a CUDA tensor (bfloat16: the tensor-core kernels of
+``csrc/fused_block_tc.cu`` under :func:`fused_block_plan`; float32: the SIMT
+GEMM of ``csrc/common.cuh``), and runs :func:`fused_block_plain` for a CPU
+tensor.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -223,9 +229,212 @@ def se_slices(h: int) -> int:
     return -(-h // SE_ROWS)
 
 
-def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift):
-    """Kernel K2 on CUDA tensors: one C call per block (two launches, and
-    with ``se`` two more for the gate)."""
+# ------------------------------------------------------- the launch plan
+
+SM_COUNT = 132          # streaming multiprocessors of the H100
+SMEM_LIMIT = 232448     # bytes of shared memory a block can use
+WARP_COLS = 72          # columns a warp owns: 9 mma tiles of 8
+WARP_ROWS = 16          # rows a warp owns: one mma tile
+MAX_WARPS = 16          # warps per block (512 threads of <= 128 registers)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_row_stride(cols: int) -> int:
+    """Elements from one row of a shared-memory bf16 tile to the next: the
+    width rounded up to 8, plus 8 or 16 so that rows lie an odd number of
+    16-byte units apart (csrc/fused_block_tc.cuh::tc_row_stride)."""
+    rs = _ceil_div(cols, 8) * 8 + 8
+    return rs + 8 if (rs // 8) % 2 == 0 else rs
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """How one block of a run is launched (both GEMM launches share it): the
+    numbers ``rubiks_fused_block_run`` takes. On the "simt" route the C side
+    tiles by itself (csrc/common.cuh::launch_gemm) and the numbers are 0."""
+
+    route: str        # "mma": tensor cores, bf16; "simt": the common.cuh GEMM
+    producers: int = 0   # warps that only load the next tile (0: none)
+    warps_m: int = 0     # multiplying warps of a block along the rows
+    warps_n: int = 0     # and along the columns
+    n_tiles: int = 0     # column chunks (grid.y)
+    grid_x: int = 0      # persistent blocks along the row tiles
+    smem_bytes: int = 0
+    overlap: bool = False  # a launch may begin before the one before it ended
+
+    @property
+    def rows(self) -> int:
+        """Rows of the (N*T*H*W, C) matrix per tile."""
+        return self.warps_m * WARP_ROWS
+
+    @property
+    def chunk_cols(self) -> int:
+        """Columns of W a block holds: all of them when ``n_tiles`` is 1."""
+        return self.warps_n * WARP_COLS
+
+    def describe(self) -> str:
+        if self.route == "simt":
+            return "simt"
+        return (f"mma {'resident' if self.n_tiles == 1 else 'resident-chunks'}"
+                f" rows {self.rows} warps {self.producers}+{self.warps_m}x"
+                f"{self.warps_n} chunks {self.n_tiles}x{self.chunk_cols} grid "
+                f"{self.grid_x} smem {self.smem_bytes}")
+
+
+def _mma_smem(producers: int, warps_m: int, warps_n: int, c: int) -> int:
+    """Shared memory of a block: the operand tile (two with producers), its
+    columns of W, the gather's table of 8 words a channel."""
+    kp = _ceil_div(c, 16) * 16
+    return ((2 if producers else 1) * warps_m * WARP_ROWS
+            * tile_row_stride(kp) * 2
+            + kp * tile_row_stride(warps_n * WARP_COLS) * 2 + 8 * kp * 4)
+
+
+def _mma_defaults(m: int, c: int, sms: int) -> dict:
+    """The block shape the sweeps of utils/fused_block_probe.py found best
+    (PERF.md has the tables), as a rule:
+
+    * ``warps_n``, a power of two, covers the width's 72-column groups
+      where W then fits beside two 16-row tiles, else as many as fit: every
+      further column chunk redoes the operand tile, gather included;
+    * 16 warps that all load, then all multiply (no producers); fewer along
+      the rows while the tile does not fit, or where fewer rows per tile
+      balance the SMs better;
+    * small batches: while the work items (row tiles x column chunks) are
+      fewer than half the SMs, fewer rows per tile, down to 32, then
+      narrower chunks, then 16 rows;
+    * where that leaves fewer than 8 warps, producer warps fill the block up
+      to 16: they build the next tile while the others multiply.
+    """
+    groups = _ceil_div(_ceil_div(c, 8), WARP_COLS // 8)
+    warps_n = 1
+    while (warps_n < groups
+           and _mma_smem(4, 1, 2 * warps_n, c) <= SMEM_LIMIT):
+        warps_n *= 2
+    warps_m = MAX_WARPS // warps_n
+
+    def items():
+        return (_ceil_div(m, warps_m * WARP_ROWS)
+                * _ceil_div(groups, warps_n))
+
+    while warps_m > 1 and _mma_smem(0, warps_m, warps_n, c) > SMEM_LIMIT:
+        warps_m //= 2
+    while 2 * items() < sms and warps_m * warps_n > 1:
+        if warps_m > 2 or warps_n == 1:
+            warps_m //= 2
+        else:
+            warps_n //= 2
+    # Every block has work: among the rows per tile down to half, those that
+    # leave the SMs the shortest critical path (row tiles per block x rows),
+    # the most warps among equals, if that is an eighth shorter. 12,544 rows
+    # on 132 SMs: two tiles of 48 rows, not two of 64.
+    grid_x = max(1, sms // _ceil_div(groups, warps_n))
+    if _ceil_div(m, warps_m * WARP_ROWS) >= grid_x:
+        def path(wm):
+            return _ceil_div(_ceil_div(m, wm * WARP_ROWS), grid_x) * wm
+
+        best = min(range(_ceil_div(warps_m, 2), warps_m + 1),
+                   key=lambda wm: (path(wm), -wm))
+        if 8 * path(best) <= 7 * path(warps_m):  # worth the warps it costs
+            warps_m = best
+    producers = 0
+    if warps_m * warps_n < 8:
+        producers = (MAX_WARPS - warps_m * warps_n) // 4 * 4
+        while producers and _mma_smem(producers, warps_m, warps_n,
+                                      c) > SMEM_LIMIT:
+            if warps_m > 1:
+                warps_m //= 2
+            else:
+                producers = 0
+    return dict(producers=producers, warps_m=warps_m, warps_n=warps_n)
+
+
+def _mma_plan(m: int, c: int, sms: int, knobs) -> BlockPlan:
+    """The tensor-core plan: :func:`_mma_defaults`, with any of ``producers``,
+    ``warps_m``, ``warps_n`` pinned by ``knobs`` (a pinned plan has no
+    producers unless it pins them too) and ``overlap`` (programmatic
+    dependent launch: a launch fetches its weights while the one before it
+    still runs) on unless ``knobs`` switch it off; raises for a setting the
+    kernel cannot run."""
+    knobs = dict(knobs)
+    overlap = bool(knobs.pop("overlap", True))
+    unknown = set(knobs) - {"producers", "warps_m", "warps_n"}
+    if unknown:
+        raise ValueError(f"unknown plan knobs {sorted(unknown)}")
+    shape = {**_mma_defaults(m, c, sms), **({"producers": 0} if knobs else {}),
+             **knobs}
+    producers, warps_m = shape["producers"], shape["warps_m"]
+    warps_n = shape["warps_n"]
+    groups = _ceil_div(_ceil_div(c, 8), WARP_COLS // 8)
+    warps = producers + warps_m * warps_n
+    smem = _mma_smem(producers, warps_m, warps_n, c)
+    if (min(warps_m, warps_n) < 1 or producers < 0 or warps > MAX_WARPS
+            or smem > SMEM_LIMIT or (warps_n > 1 and warps_n >= 2 * groups)):
+        raise ValueError(f"no tensor-core plan for C={c} under {shape}: "
+                         f"{warps} warps (at most {MAX_WARPS}), {smem} bytes "
+                         f"of shared memory (at most {SMEM_LIMIT})")
+    n_split = _ceil_div(groups, warps_n)
+    row_tiles = max(1, _ceil_div(m, warps_m * WARP_ROWS))
+    return BlockPlan(
+        route="mma", producers=producers, warps_m=warps_m, warps_n=warps_n,
+        n_tiles=n_split,
+        grid_x=min(row_tiles,
+                   _ceil_div(sms * blocks_per_sm(smem, warps), n_split)),
+        smem_bytes=smem, overlap=overlap)
+
+
+def blocks_per_sm(smem: int, warps: int) -> int:
+    """Blocks an SM holds at once, by shared memory and by registers (128 a
+    thread)."""
+    return max(1, min(SMEM_LIMIT // (smem + 1024),
+                      65536 // (warps * 32 * 128)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(shape, dtype, sms, route, knobs):
+    n, t, h, w, c = shape
+    if route is None:
+        route = "mma" if dtype == torch.bfloat16 else "simt"
+    if route == "simt":
+        return BlockPlan(route="simt")
+    if route != "mma":
+        raise ValueError(f"unknown route {route!r}")
+    if dtype != torch.bfloat16:
+        raise ValueError("the tensor-core route takes bfloat16 only: "
+                         "float32 products stay full float32")
+    return _mma_plan(n * t * h * w, c, sms, dict(knobs))
+
+
+def fused_block_plan(shape, dtype, *, sms=SM_COUNT, route=None,
+                     **knobs) -> BlockPlan:
+    """The launch plan of one block of a run on x of ``shape`` (N, T, H, W,
+    C): the route (tensor-core products for bfloat16, SIMT for float32 or on
+    request) and, for the tensor cores, whether a block holds all of W or a
+    chunk of its columns, the rows per tile, the warps, the grid and the
+    shared memory. It depends on the shape and the dtype alone: the gather
+    reads directly whatever the taps, and the attention mix and the gate
+    ride on the loaders. ``knobs`` pin ``producers``, ``warps_m`` or
+    ``warps_n``, or switch ``overlap`` off (the probe's sweep)."""
+    if len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0:
+        raise ValueError(f"shape must be (N, T, H, W, C), got {shape}")
+    return _plan(tuple(int(d) for d in shape), dtype, int(sms), route,
+                 tuple(sorted(knobs.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
+                       route=None, **knobs):
+    """Kernel K2 on CUDA tensors: one C call per run, which makes two
+    launches per block (and with ``se`` two more for the gate). ``route``
+    "simt" runs bfloat16 on the previous route (the common.cuh GEMM), for
+    timing it beside the tensor-core kernels; the port never passes it."""
     taps_n = _check_args(x, vt, wm, se, aq, max_shift)
     if taps_n > KERNEL_MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes <= {KERNEL_MAX_TAPS} taps")
@@ -236,8 +445,11 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift):
     if not all(a.is_contiguous() for a in arrays):
         raise ValueError("fused_block_kernel needs contiguous x, vt, wm, se")
     code = _build.dtype_code(x.dtype)
+    plan = fused_block_plan(x.shape, x.dtype, sms=_sm_count(x.device.index),
+                            route=route, **knobs)
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_block", *[P] * 9, *[I] * 11, P)
+    fn = _build.kernel_function("rubiks_fused_block_run", *[P] * 8, *[I] * 20,
+                                P)
     n, t, h, w, c = x.shape
     out = torch.empty_like(x)
     mid = torch.empty_like(x)
@@ -248,22 +460,20 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift):
         partial = torch.empty((n * t, slices, c), dtype=torch.float32,
                               device=x.device)
         gate = torch.empty((n * t, c), dtype=torch.float32, device=x.device)
-    stream = _build.stream_of(x)
-    src = x
+    nb = vt.shape[0]
     with torch.cuda.device(x.device):
-        for b in range(vt.shape[0]):
-            # After the first block the run updates `out` in place.
-            rc = fn(src.data_ptr(), vt[b].data_ptr(), wm[b, 0].data_ptr(),
-                    wm[b, 1].data_ptr(),
-                    se[b].data_ptr() if se is not None else None,
-                    partial.data_ptr() if se is not None else None,
-                    gate.data_ptr() if se is not None else None,
-                    mid.data_ptr(), out.data_ptr(), code, n, t, h, w, c,
-                    taps_n, max_shift, int(bool(aq)), cr, slices, stream)
-            _build.check(rc, "rubiks_fused_block")
-            LAUNCHES.count += 1
-            src = out
-    return out
+        rc = fn(x.data_ptr(), vt.data_ptr(), wm.data_ptr(),
+                se.data_ptr() if se is not None else None,
+                partial.data_ptr() if se is not None else None,
+                gate.data_ptr() if se is not None else None,
+                mid.data_ptr(), out.data_ptr(), code, nb, n, t, h, w, c,
+                taps_n, max_shift, int(bool(aq)), cr, slices,
+                int(plan.route == "mma"), plan.producers, plan.warps_m,
+                plan.warps_n, plan.n_tiles, plan.grid_x, plan.smem_bytes,
+                int(plan.overlap), _build.stream_of(x))
+    _build.check(rc, "rubiks_fused_block_run")
+    LAUNCHES.count += nb
+    return out if nb else x.clone()
 
 
 def fused_block_run(x, vt, wm, se=None, *, aq=False, max_shift):

@@ -30,7 +30,8 @@ CLASSES = (
     ("K4 (shift_grad)", ("shift_grad",)),
     ("SE gate kernels (se_partial, se_gate)", ("se_partial_kernel",
                                                "se_gate_kernel")),
-    ("K2 / K3 GEMMs (gemm_kernel)", ("rubiks",)),
+    ("K2 bf16 launches (rubiks_tc_kernel)", ("rubiks_tc_kernel",)),
+    ("K3 and float32 K2 GEMMs (gemm_kernel)", ("rubiks",)),
     ("library GEMMs (1x1 convs, dense)", ("gemm", "cutlass", "xmma", "gemv",
                                           "cublas")),
     ("library convolution (stem)", ("conv", "cudnn", "nchw", "nhwc")),
