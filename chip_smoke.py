@@ -5,12 +5,13 @@
 
 Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse, K4
 shift_grad, K2 fused_block with its tensor-core launches fused_block_tc.cu,
-K3 fused_entry, the SE gate kernels inside K2 and K3, and the 2D shift's
-forward and input gradient, shift2d.cu) from rubiksnet_torch/ops/csrc, holds
-each against its plain PyTorch version at every shape of its path (K2 also
-off the model's shapes, and in bf16 at every batch size it is timed or served
-at, because its launch plan depends on the batch: a K2 plan that did not pass
-that comparison is not timed): RubiksNet-Large
+K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
+kernels inside K2 and K3, and the 2D shift's forward and input gradient,
+shift2d.cu) from rubiksnet_torch/ops/csrc, holds each against its plain
+PyTorch version at every shape of its path (K2 and K3 also off the model's
+shapes, and in bf16 at every batch size they are timed or served at,
+because their launch plans depend on the batch: a K2 or K3 plan that did
+not pass that comparison is not timed): RubiksNet-Large
 (rubiks3d), Large with the rubiks3d-aq variant (the 2D shift kernels, K2
 with the attention mix) and the SE tier Small (K2 and K3 with the gate).
 For each of the three models it checks the logits (fused executor and
@@ -30,11 +31,11 @@ plain version's, its bound (the larger of bytes moved over the memory rate
 and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
 exists (a depthwise convolution for the shifts). K1, K1-inverse and K4
-carry their device time by the profiler; the 2D shift's two rows
-and K2's three also theirs and the time
-of the route they replaced (K1 and K1-inverse on a one-frame view; for K2
-in bf16 the SIMT GEMM of common.cuh), taken in this run; K2's also the time
-of a forward's blocks as the models call them, one run per stage.
+carry their device time by the profiler; the 2D shift's two rows, K2's
+three and K3's two also theirs and the time of the route they replaced (K1
+and K1-inverse on a one-frame view; for K2 and K3 in bf16 the SIMT GEMM of
+common.cuh), taken in this run; K2's also the time of a forward's blocks as
+the models call them, one run per stage.
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ KERNELS = {
                    "rubiksnet_tpu/ops/pallas/shift_grad_kernel.py:190"),
     "fused_block": ("rubiksnet_torch/ops/csrc/fused_block.cu",
                     "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
-    "fused_entry": ("rubiksnet_torch/ops/csrc/fused_entry.cu",
+    "fused_entry": ("rubiksnet_torch/ops/csrc/fused_entry_tc.cu",
                     "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
     # The 2D shift of rubiksnet_tpu/ops/shift2d.py:86-100 and its input
     # gradient :129-146, which reach the TPU kernel on a one-frame view with
@@ -148,7 +149,7 @@ KERNELS = {
                        "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
     "fused_block_se": ("rubiksnet_torch/ops/csrc/fused_block.cu",
                        "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
-    "fused_entry_se": ("rubiksnet_torch/ops/csrc/fused_entry.cu",
+    "fused_entry_se": ("rubiksnet_torch/ops/csrc/fused_entry_tc.cu",
                        "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
 }
 
@@ -716,6 +717,88 @@ def checked_plan(shape, aq, se, dev):
     return plan
 
 
+# K3's plan depends on the batch as K2's does: (shape, Cm, se) -> the plan of
+# the bf16 comparison that passed there.
+CHECKED_ENTRY_PLANS = {}
+
+
+def check_entry_served_shapes(errs, gen, cpu_gen, dev):
+    """K3 and K3-SE in bf16 on the tensor-core route at every entry shape of
+    the main path at every batch size that is timed or served, twice
+    bit-identically, against the plain version; and the previous route,
+    which is only timed, at TIME_BATCH."""
+    from rubiksnet_torch.utils import fused_entry_probe as probe
+
+    bf = torch.bfloat16
+    batches = sorted(set(SERVE_BATCHES) | {TIME_BATCH})
+    print(f"[kernels] K3 fused_entry bf16 at the main path's shapes, batch "
+          f"{batches}: the plans that are timed and served, vs plain; every "
+          f"run repeated bit-identically")
+    for label, n, t, h, w, cin, cm, k, kind in probe.served_cases(batches):
+        for se in (False, True):
+            ok, max_abs, text, plan = probe.check_case(
+                label, (n, t, h, w, cin), cm, k, kind, se, bf, gen, cpu_gen,
+                dev)
+            print("  " + text)
+            if not ok:
+                fail(f"K3 {label} se={se} bf16 failed")
+            CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, se] = plan
+            errs["fused_entry_se" if se else "fused_entry"].append(max_abs)
+    for label, n, t, h, w, cin, cm, k, kind in probe.served_cases(
+            (TIME_BATCH,)):
+        for se in (False, True):
+            ok, _, text, _ = probe.check_case(
+                label + ", previous route", (n, t, h, w, cin), cm, k, kind,
+                se, bf, gen, cpu_gen, dev, route="simt")
+            print("  " + text)
+            if not ok:
+                fail(f"K3 {label} se={se} bf16 previous route failed")
+
+
+def checked_entry_plan(shape, cm, se, dev):
+    """The plan a bf16 K3 call at ``shape`` runs under; fails unless that
+    very plan passed its comparison with the plain version at this shape."""
+    from rubiksnet_torch.ops.fused_block import _sm_count
+    from rubiksnet_torch.ops.fused_entry import fused_entry_plan
+
+    plan = fused_entry_plan(shape, cm, torch.bfloat16,
+                            sms=_sm_count(dev.index))
+    if CHECKED_ENTRY_PLANS.get((tuple(shape), cm, se)) != plan:
+        fail(f"K3 at {tuple(shape)}->{cm} se={se} would be timed under a "
+             f"plan that was not held against the plain version: "
+             f"{plan.describe()}")
+    return plan
+
+
+def check_entry_cases(errs, gen, cpu_gen, dev):
+    """K3 and K3-SE off the model's shapes
+    (rubiksnet_torch.utils.fused_entry_probe CASES: Cin 54 -> 108,
+    max_shift 3 with shifts near +-3, quantized, integer and zero shifts,
+    one clip, non-square even H x W, taps with three weights per axis), f32
+    and bf16, each run twice bit-identically; then the device kernels of a
+    bf16 and an f32 call, by name."""
+    from rubiksnet_torch.utils import fused_entry_probe as probe
+
+    print("[kernels] K3 fused_entry off the model's shapes, vs plain; every "
+          "run repeated bit-identically; the plan in brackets")
+    for label, n, t, h, w, cin, cm, k, kind in probe.CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            for se in (False, True):
+                ok, max_abs, text, _ = probe.check_case(
+                    label, (n, t, h, w, cin), cm, k, kind, se, dt, gen,
+                    cpu_gen, dev)
+                print("  " + text)
+                if not ok:
+                    fail(f"K3 {label} se={se} {dt} failed")
+                errs["fused_entry_se" if se else "fused_entry"].append(
+                    max_abs)
+    ok, text = probe.route_kernels(gen, cpu_gen, dev)
+    print(f"[launch] {text}")
+    if not ok:
+        fail("K3: bf16 must run rubiks_entry_tc_kernel and f32 gemm_kernel, "
+             "neither the other's")
+
+
 def check_block_cases(errs, gen, cpu_gen, dev):
     """K2 off the model's shapes (rubiksnet_torch.utils.fused_block_probe
     CASES: widths 54, 108, 216 and 432, one clip, odd extents, max_shift 3
@@ -1012,6 +1095,20 @@ def time_block_runs(timer, gen, cpu_gen, dev, small_counts):
             f"{label} {ms:.3f} ms" for label, ms in sums.items()))
 
 
+def entry_parts(fn):
+    """Device ms per call of K3's launch A, launch B and the SE gate's two
+    launches, by torch.profiler's kernel names."""
+    from rubiksnet_torch.utils.fused_entry_probe import launch_of
+
+    times = cuda_kernel_times(fn, iters=5)
+    parts = {}
+    for nm, (_, ms) in times.items():
+        part = launch_of(nm) or "other"
+        parts[part] = parts.get(part, 0.0) + ms / 5
+    return "device by launch " + ", ".join(
+        f"{part} {ms:.4f} ms" for part, ms in sorted(parts.items()))
+
+
 def time_kernels(timer, gen, cpu_gen, dev, name, smi):
     """Kernel times at batch TIME_BATCH, bf16, summed over one forward's or
     one train step's calls at each shape (calls per shape from the model's
@@ -1095,11 +1192,20 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
             blk = random_block(cin, cm, 2, False, cpu_gen, dev, use_se=se)
             params = stack_entry_params(blk, bf, k)
             sep = stack_se_params([blk])[0] if se else None
-            timer.add(kind, f"{tag} {h}x{h}x{cin}->{cm}", 1,
-                      lambda: fused_entry_kernel(x, params, sep,
-                                                 max_shift=k),
+            plan = checked_entry_plan(x.shape, cm, se, dev)
+            # Launches not overlapped: a device duration then holds no wait
+            # for the call before it.
+            new = lambda: fused_entry_kernel(x, params, sep, max_shift=k,
+                                             overlap=False)
+            timer.add(kind, f"{tag} {h}x{h}x{cin}->{cm}", 1, new,
                       lambda: fused_entry_plain(x, params, sep, max_shift=k),
-                      entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, se), bf)
+                      entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, se), bf,
+                      previous_fn=lambda: fused_entry_kernel(
+                          x, params, sep, max_shift=k, route="simt"),
+                      needles=("", ""),
+                      kernels_per_call=2 + (plan.g is not None) + 2 * se,
+                      previous="the SIMT GEMM of common.cuh",
+                      note=f"; {entry_parts(new)}; plan: {plan.describe()}")
     # The shifts' backward kernels, summed over one train step's calls (one
     # input gradient and one shift gradient per shift), and the 2D shift
     # (Large-AQ: 51 per unfused forward and per train step).
@@ -1262,8 +1368,9 @@ def main_path(label, model, batch, want_fused, want_unfused):
 def serve_phase(label, executor, model, gen, dev, name, smi, aq, se):
     """Serving: each call answers one batch; its device time comes from CUDA
     events around it (median, min and max of SERVE_ITERS calls). Every K2
-    plan of a served batch must have passed its comparison with the plain
-    version at that shape (``aq``, ``se``: the configuration's K2 form)."""
+    and K3 plan of a served batch must have passed its comparison with the
+    plain version at that shape (``aq``, ``se``: the configuration's K2 and
+    K3 form; the aq variant runs no K3)."""
     print(f"[serve] {label} fused executor, bf16, {FRAMES}x{SIZE}x{SIZE}, "
           f"{name} ({smi})")
     for bs in SERVE_BATCHES:
@@ -1272,6 +1379,12 @@ def serve_phase(label, executor, model, gen, dev, name, smi, aq, se):
                  for h, c, _ in BLOCK_SHAPES]
         print(f"  K2 plans at batch {bs}, each checked against plain: "
               + "; ".join(plans))
+        if not aq:
+            entries = [f"{h}x{h}x{cin}->{cm} " + checked_entry_plan(
+                (bs, FRAMES, h, h, cin), cm, se, dev).describe()
+                       for h, cin, cm in ENTRY_SHAPES]
+            print(f"  K3 plans at batch {bs}, each checked against plain: "
+                  + "; ".join(entries))
 
     def serve(route, fn, bs):
         ms = sorted(cuda_call_times_ms(fn, iters=SERVE_ITERS, warmup=2))
@@ -1441,6 +1554,8 @@ def main() -> int:
     check_new_kernels(errs, gen, cpu_gen, dev)
     check_block_cases(errs, gen, cpu_gen, dev)
     check_block_served_shapes(errs, gen, cpu_gen, dev)
+    check_entry_cases(errs, gen, cpu_gen, dev)
+    check_entry_served_shapes(errs, gen, cpu_gen, dev)
     torch.cuda.synchronize()
     print(f"[clock] kernel checks done at "
           f"{time.perf_counter() - started:.0f} s")

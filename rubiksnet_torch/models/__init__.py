@@ -7,9 +7,20 @@ from .pretrained import (
     save_pretrained,
     state_dict_from_jax,
 )
-from .rubiksnet import TIERS, RubiksNet, create_rubiksnet, from_ntchw
+from .rubiksnet import (
+    INPUT_MEAN,
+    INPUT_SIZE,
+    INPUT_STD,
+    TIERS,
+    RubiksNet,
+    create_rubiksnet,
+    from_ntchw,
+)
 
 __all__ = [
+    "INPUT_MEAN",
+    "INPUT_SIZE",
+    "INPUT_STD",
     "FusedExecutor",
     "RubiksNet",
     "TIERS",

@@ -13,8 +13,8 @@ same function, different schedule. Routing:
   (``ops/fused_entry.py``), with ``se`` on an SE tier;
 * the entry blocks of rubiks3d-aq, and every rubiks3d-aq block when the
   model quantizes (the 2D shift rounds half away from zero, which has no
-  tap form), stay on the module path: their 2D shift runs on K1 in its 2D
-  mode;
+  tap form), stay on the module path: their 2D shift runs on the 2D shift
+  kernel (``ops/shift2d.py``, ``csrc/shift2d.cu``);
 * the stem conv and the head (bn_last, ReLU, spatial mean, new_fc, mean
   over frames) are plain PyTorch, as they were XLA ops in the JAX package.
 

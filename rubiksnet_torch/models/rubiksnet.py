@@ -22,6 +22,13 @@ TIERS = {
     "large": (72, (3, 8, 36, 3), False),
 }
 
+# ImageNet normalization of the input frames and the crop the models are
+# trained and evaluated at (the reference's models.py:108-109).
+INPUT_MEAN = (0.485, 0.456, 0.406)
+INPUT_STD = (0.229, 0.224, 0.225)
+INPUT_SIZE = 224
+
+
 class Linear(nn.Module):
     """Dense layer, weight (out, in) lecun-normal, bias zero."""
 
@@ -66,6 +73,20 @@ class RubiksNet(nn.Module):
         self.backbone = RubiksNetBackbone(width, repeats, quantize, variant,
                                           use_se, generator=generator)
         self.new_fc = Linear(8 * width, num_classes, generator=generator)
+
+    @property
+    def feature_dim(self):
+        """Width of the per-frame features the head classifies."""
+        return 8 * TIERS[self.tier][0]
+
+    @property
+    def crop_size(self):
+        return INPUT_SIZE
+
+    @property
+    def scale_size(self):
+        """The short side frames are resized to before the crop."""
+        return INPUT_SIZE * 256 // 224
 
     def replace_new_fc(self, num_classes, generator=None):
         """A fresh classification head of ``num_classes`` outputs (lecun-

@@ -177,6 +177,7 @@ class RubiksNetBackbone(nn.Module):
     def __init__(self, width, repeats, quantize=False, variant="rubiks3d",
                  use_se=False, init_shift="uniform", *, generator=None):
         super().__init__()
+        self.width = width
         self.conv1 = StemConv(width, generator=generator)
         widths = [(width, 1, 1), (width, repeats[0], 2),
                   (2 * width, repeats[1], 2), (4 * width, repeats[2], 2),
@@ -192,6 +193,10 @@ class RubiksNetBackbone(nn.Module):
                 in_planes = planes
             setattr(self, f"layer{stage_idx}", nn.ModuleList(blocks))
         self.bn_last = BN(8 * width)
+
+    @property
+    def feature_dim(self):
+        return 8 * self.width
 
     def named_blocks(self):
         """(name, block) in order, names as the JAX package's layerS_B."""

@@ -10,14 +10,14 @@
 // (SIMT FMA in both dtypes). Its A loader is where the fused kernels put
 // their prologues (bn/relu, the shift gather) and its store functor is
 // where they put their epilogues (bn/relu, residual add), so neither
-// intermediate makes an extra pass over device memory. It serves K3
-// (fused_entry.cu) in both dtypes and K2 (fused_block.cu) in float32, where
-// the products must stay full f32. What bounds it on the H100 is a serial
-// chain per block, not arithmetic or bytes: 2-byte loads, two barriers per
-// 16-deep slab of A and of B with nothing in flight across them, the weights
-// re-read by every block through registers, the gather's nested loops. K2 in
-// bfloat16 left it for fused_block_tc.cu (tensor cores, resident weights,
-// 16-byte loads), which took that chain away; K3 is next.
+// intermediate makes an extra pass over device memory. It serves K2
+// (fused_block.cu) and K3 (fused_entry.cu) in float32, where the products
+// must stay full f32. What bounds it on the H100 is a serial chain per block,
+// not arithmetic or bytes: 2-byte loads, two barriers per 16-deep slab of A
+// and of B with nothing in flight across them, the weights re-read by every
+// block through registers, the gather's nested loops. K2 and K3 in bfloat16
+// left it for fused_block_tc.cu and fused_entry_tc.cu (tensor cores,
+// resident weights, 16-byte loads: tc_core.cuh), which took that chain away.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -5,15 +5,12 @@
 //   out = W3 . [SE] shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
 //
 // Replaces rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_run, with
-// its SE gate on the decimated activation. The shift at stride (1, 2, 2), pad 0, is the stride-1 shift
-// sampled at (2h', 2w'); the TPU kernel's W de-interleave and parity-split
-// H were workarounds for Mosaic's lack of strided slices, and a strided
-// read replaces both here.
+// its SE gate on the decimated activation. The shift at stride (1, 2, 2), pad
+// 0, is the stride-1 shift sampled at (2h', 2w'); the TPU kernel's W
+// de-interleave and parity-split H were workarounds for Mosaic's lack of
+// strided slices, and a strided read replaces both here.
 //
-// What bounds it on the card: the GEMMs (Cin*mid multiply-adds per input
-// element for W2, (mid + Cin)*mid per output element for W3 and Wsc) and
-// the full-resolution input and mid passes. Design, two launches on the
-// caller's stream, both the common.cuh GEMM:
+// Two launches on the caller's stream:
 //   A: mid = relu(s2 . (relu(s1 . x + b1) @ W2) + b2) over the full-
 //      resolution grid (every mid cell is read by some shift tap for
 //      K >= 1), stored in x's dtype in the caller's buffer.
@@ -25,7 +22,14 @@
 // With se, two small launches between A and B compute the gate from one
 // pass over mid (se_gate.cuh, the mean over the decimated (H/2, W/2) grid)
 // and B's shift gather multiplies by it; the shortcut range is not gated.
+//
+// Two routes, as K2 has. bfloat16, the serving dtype, runs fused_entry_tc.cu
+// (tensor-core products, resident weights, 16-byte loads; its header says
+// how). float32 runs the common.cuh GEMM below (SIMT f32 products: tensor
+// cores would make them TF32), which also stays callable for bfloat16 as
+// route 0 so that both can be timed in one process.
 #include "common.cuh"
+#include "fused_entry_tc.cuh"
 #include "se_gate.cuh"
 
 namespace rubiks {
@@ -119,6 +123,38 @@ int fused_entry(const void* xv, const float* vt1, const float* vt2,
                           PlainStore<T>{static_cast<T*>(outv), Cm}, stream);
 }
 
+// The entry on the tensor-core route (bfloat16 only): launch A under plan a,
+// the gate, the gather pre-pass where g_rows > 0, launch B under plan b.
+int fused_entry_tc(const TcPlan& a, const TcPlan& b, int g_rows, int g_grid,
+                   int g_smem, const void* x, const float* vt1,
+                   const float* vt2, const void* w2, const void* w3,
+                   const void* wsc, const float* se, float* partial,
+                   float* gate, void* stage, void* mid, void* out, int N,
+                   int T_, int H, int W, int Cin, int Cm, int taps_n, int K,
+                   int Cr, int slices, cudaStream_t stream) {
+  if (N == 0) return 0;
+  if (se != nullptr && (partial == nullptr || gate == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const EntryShape shape = {N, T_, H, W, Cin, Cm, taps_n, K};
+  cudaError_t err = entry_tc_launch_mid(a, shape, x, vt1, vt2, w2, mid, stream);
+  if (err != cudaSuccess) return (int)err;
+  const float* g = se != nullptr ? gate : nullptr;
+  if (se != nullptr) {
+    err = launch_se_gate<__nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(mid), vt2 + 2 * Cm, se, partial,
+        gate, N * T_, T_, H, W, Cm, H / 2, W / 2, 2, taps_n, K, Cr, slices,
+        stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (g_rows > 0) {
+    err = entry_tc_launch_gather(g_rows, g_grid, g_smem, b.overlap, shape, x,
+                                 mid, vt1, vt2, g, stage, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)entry_tc_launch_out(b, shape, x, mid, vt1, vt2, w3, wsc, g,
+                                  g_rows > 0 ? stage : nullptr, out, stream);
+}
+
 }  // namespace rubiks
 
 extern "C" {
@@ -129,23 +165,44 @@ extern "C" {
 // bn2 then the T, H, W tap weights. w2, wsc: (Cin, Cm), w3: (Cm, Cm), of
 // dtype, (in, out). se: null, or (2, Cm, Cr) float32 (fc1, fc2 transposed)
 // with scratch partial (N*T, slices, Cm) and gate (N*T, Cm) float32,
-// slices = ceil(H / 8).
+// slices = ceil(H / 8). route: 0 the common.cuh GEMM (either dtype; plan
+// and stage unused), 1 the tensor-core kernels (bfloat16 only) under plan,
+// 16 ints of ops/fused_entry.py::fused_entry_plan: launch A's (pw, wm, wn,
+// n_split, grid_x, smem_bytes), launch B's, the gather pre-pass's (rows,
+// grid_x, smem_bytes; rows 0: none) and overlap. stage: with the pre-pass,
+// bfloat16 scratch of N*T*(H/2)*(W/2) rows rounded up to both launches'
+// rows per tile, (Cm + Cin rounded up to 16) each.
 int rubiks_fused_entry(const void* x, const float* vt1, const float* vt2,
                        const void* w2, const void* w3, const void* wsc,
                        const float* se, float* partial, float* gate,
                        void* mid, void* out, int dtype, int N, int T, int H,
                        int W, int Cin, int Cm, int taps_n, int K, int Cr,
-                       int slices, void* stream) {
+                       int slices, int route, const int* plan, void* stage,
+                       void* stream) {
+  using namespace rubiks;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == rubiks::kBF16)
-    return rubiks::fused_entry<__nv_bfloat16>(x, vt1, vt2, w2, w3, wsc, se,
-                                              partial, gate, mid, out, N, T,
-                                              H, W, Cin, Cm, taps_n, K, Cr,
-                                              slices, s);
-  if (dtype == rubiks::kF32)
-    return rubiks::fused_entry<float>(x, vt1, vt2, w2, w3, wsc, se, partial,
+  if ((route != 0 && route != 1) || (route == 1 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    if (plan == nullptr) return (int)cudaErrorInvalidValue;
+    const int* pa = plan;
+    const int* pb = plan + 6;
+    const int* pg = plan + 12;
+    const int overlap = plan[15];
+    const TcPlan a = {pa[0], pa[1], pa[2], pa[3], pa[4], pa[5], overlap};
+    const TcPlan b = {pb[0], pb[1], pb[2], pb[3], pb[4], pb[5], overlap};
+    return fused_entry_tc(a, b, pg[0], pg[1], pg[2], x, vt1, vt2, w2, w3, wsc,
+                          se, partial, gate, stage, mid, out, N, T, H, W, Cin,
+                          Cm, taps_n, K, Cr, slices, s);
+  }
+  if (dtype == kBF16)
+    return fused_entry<__nv_bfloat16>(x, vt1, vt2, w2, w3, wsc, se, partial,
                                       gate, mid, out, N, T, H, W, Cin, Cm,
                                       taps_n, K, Cr, slices, s);
+  if (dtype == kF32)
+    return fused_entry<float>(x, vt1, vt2, w2, w3, wsc, se, partial, gate,
+                              mid, out, N, T, H, W, Cin, Cm, taps_n, K, Cr,
+                              slices, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -284,16 +284,21 @@ class BlockPlan:
                 f"{self.grid_x} smem {self.smem_bytes}")
 
 
-def _mma_smem(producers: int, warps_m: int, warps_n: int, c: int) -> int:
+def _mma_smem(producers: int, warps_m: int, warps_n: int, c: int,
+              k: int | None = None, table: int | None = None) -> int:
     """Shared memory of a block: the operand tile (two with producers), its
-    columns of W, the gather's table of 8 words a channel."""
-    kp = _ceil_div(c, 16) * 16
+    columns of W, the gather's table of 8 words a channel. The depth ``k``
+    and the table's channels ``table`` are ``c`` unless given (K3's launches:
+    csrc/fused_entry_tc.cuh::entry_smem_bytes)."""
+    kp = _ceil_div(c if k is None else k, 16) * 16
+    kt = kp if table is None else _ceil_div(table, 16) * 16
     return ((2 if producers else 1) * warps_m * WARP_ROWS
             * tile_row_stride(kp) * 2
-            + kp * tile_row_stride(warps_n * WARP_COLS) * 2 + 8 * kp * 4)
+            + kp * tile_row_stride(warps_n * WARP_COLS) * 2 + 8 * kt * 4)
 
 
-def _mma_defaults(m: int, c: int, sms: int) -> dict:
+def _mma_defaults(m: int, c: int, sms: int, k: int | None = None,
+                  table: int | None = None) -> dict:
     """The block shape the sweeps of utils/fused_block_probe.py found best
     (PERF.md has the tables), as a rule:
 
@@ -308,11 +313,14 @@ def _mma_defaults(m: int, c: int, sms: int) -> dict:
       narrower chunks, then 16 rows;
     * where that leaves fewer than 8 warps, producer warps fill the block up
       to 16: they build the next tile while the others multiply.
+
+    ``k`` and ``table`` as :func:`_mma_smem` takes them (K3's launches).
     """
+    smem = functools.partial(_mma_smem, c=c, k=k, table=table)
     groups = _ceil_div(_ceil_div(c, 8), WARP_COLS // 8)
     warps_n = 1
     while (warps_n < groups
-           and _mma_smem(4, 1, 2 * warps_n, c) <= SMEM_LIMIT):
+           and smem(4, 1, 2 * warps_n) <= SMEM_LIMIT):
         warps_n *= 2
     warps_m = MAX_WARPS // warps_n
 
@@ -320,7 +328,7 @@ def _mma_defaults(m: int, c: int, sms: int) -> dict:
         return (_ceil_div(m, warps_m * WARP_ROWS)
                 * _ceil_div(groups, warps_n))
 
-    while warps_m > 1 and _mma_smem(0, warps_m, warps_n, c) > SMEM_LIMIT:
+    while warps_m > 1 and smem(0, warps_m, warps_n) > SMEM_LIMIT:
         warps_m //= 2
     while 2 * items() < sms and warps_m * warps_n > 1:
         if warps_m > 2 or warps_n == 1:
@@ -343,8 +351,7 @@ def _mma_defaults(m: int, c: int, sms: int) -> dict:
     producers = 0
     if warps_m * warps_n < 8:
         producers = (MAX_WARPS - warps_m * warps_n) // 4 * 4
-        while producers and _mma_smem(producers, warps_m, warps_n,
-                                      c) > SMEM_LIMIT:
+        while producers and smem(producers, warps_m, warps_n) > SMEM_LIMIT:
             if warps_m > 1:
                 warps_m //= 2
             else:
@@ -352,25 +359,27 @@ def _mma_defaults(m: int, c: int, sms: int) -> dict:
     return dict(producers=producers, warps_m=warps_m, warps_n=warps_n)
 
 
-def _mma_plan(m: int, c: int, sms: int, knobs) -> BlockPlan:
+def _mma_plan(m: int, c: int, sms: int, knobs, k: int | None = None,
+              table: int | None = None) -> BlockPlan:
     """The tensor-core plan: :func:`_mma_defaults`, with any of ``producers``,
     ``warps_m``, ``warps_n`` pinned by ``knobs`` (a pinned plan has no
     producers unless it pins them too) and ``overlap`` (programmatic
     dependent launch: a launch fetches its weights while the one before it
     still runs) on unless ``knobs`` switch it off; raises for a setting the
-    kernel cannot run."""
+    kernel cannot run. ``k``, ``table``: as :func:`_mma_smem`."""
     knobs = dict(knobs)
     overlap = bool(knobs.pop("overlap", True))
     unknown = set(knobs) - {"producers", "warps_m", "warps_n"}
     if unknown:
         raise ValueError(f"unknown plan knobs {sorted(unknown)}")
-    shape = {**_mma_defaults(m, c, sms), **({"producers": 0} if knobs else {}),
+    shape = {**_mma_defaults(m, c, sms, k, table),
+             **({"producers": 0} if knobs else {}),
              **knobs}
     producers, warps_m = shape["producers"], shape["warps_m"]
     warps_n = shape["warps_n"]
     groups = _ceil_div(_ceil_div(c, 8), WARP_COLS // 8)
     warps = producers + warps_m * warps_n
-    smem = _mma_smem(producers, warps_m, warps_n, c)
+    smem = _mma_smem(producers, warps_m, warps_n, c, k, table)
     if (min(warps_m, warps_n) < 1 or producers < 0 or warps > MAX_WARPS
             or smem > SMEM_LIMIT or (warps_n > 1 and warps_n >= 2 * groups)):
         raise ValueError(f"no tensor-core plan for C={c} under {shape}: "

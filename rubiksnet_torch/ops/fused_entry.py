@@ -9,18 +9,31 @@ With ``se`` (the SE tiers) the stride-2 shifted activation is gated per
 taken over the decimated (H/2, W/2) grid. Counterpart of
 ``rubiksnet_tpu/ops/pallas/fused_entry.py`` (rubiks3d only: the executor
 keeps rubiks3d-aq entries on the module path).
-:func:`fused_entry_run` launches ``csrc/fused_entry.cu`` for a CUDA tensor
-and runs :func:`fused_entry_plain` for a CPU tensor.
+:func:`fused_entry_run` makes one call into ``csrc/fused_entry.cu`` for a
+CUDA tensor (bfloat16: the tensor-core kernels of ``csrc/fused_entry_tc.cu``
+under :func:`fused_entry_plan`; float32: the SIMT GEMM of
+``csrc/common.cuh``), and runs :func:`fused_entry_plain` for a CPU tensor.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from . import _build
 from .fused_block import (
     KERNEL_MAX_TAPS,
+    SM_COUNT,
+    SMEM_LIMIT,
+    BlockPlan,
     _bn_fold,
+    _mma_defaults,
+    _mma_plan,
+    _mma_smem,
+    _sm_count,
+    blocks_per_sm,
     conv1x1_matrix,
     se_gate,
     se_slices,
@@ -93,9 +106,172 @@ def _check_args(x, params, se, max_shift):
     return taps_n
 
 
-def fused_entry_kernel(x, params, se=None, *, max_shift):
-    """Kernel K3 on CUDA tensors: one C call (two launches, and with ``se``
-    two more for the gate)."""
+# ------------------------------------------------------- the launch plan
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """The gather pre-pass of launch B where its weights are held in column
+    chunks: every warp of a block gathers, ``rows`` output rows a tile, a
+    persistent grid of ``grid_x`` blocks; shared memory holds the table."""
+
+    rows: int
+    grid_x: int
+    smem_bytes: int
+
+    def describe(self) -> str:
+        return (f"gather rows {self.rows} grid {self.grid_x} smem "
+                f"{self.smem_bytes}")
+
+
+@dataclasses.dataclass(frozen=True)
+class EntryPlan:
+    """How one entry block is launched: the route and, on the tensor cores,
+    the plan of launch A (``mid`` over the N*T*H*W input rows, depth Cin)
+    and of launch B (``out`` over the N*T*(H/2)*(W/2) output rows, depth
+    Cm + Cin), each a :class:`~.fused_block.BlockPlan` of the numbers
+    ``rubiks_fused_entry`` takes, and ``g``, the gather pre-pass, where
+    launch B's weights need column chunks: then every chunk would gather its
+    rows again, so the pre-pass gathers them once into a scratch and launch
+    B copies them (and holds no table). On the "simt" route the C side
+    tiles by itself."""
+
+    route: str  # "mma": tensor cores, bf16; "simt": the common.cuh GEMM
+    a: BlockPlan | None = None
+    b: BlockPlan | None = None
+    g: GatherPlan | None = None
+
+    def describe(self) -> str:
+        if self.route == "simt":
+            return "simt"
+        text = f"A [{self.a.describe()}] B [{self.b.describe()}]"
+        return text + (f" [{self.g.describe()}]" if self.g else "")
+
+    def as_ints(self) -> list:
+        """The 16 numbers of ``rubiks_fused_entry``'s plan argument."""
+        launches = [(p.producers, p.warps_m, p.warps_n, p.n_tiles, p.grid_x,
+                     p.smem_bytes) for p in (self.a, self.b)]
+        g = self.g
+        return [*launches[0], *launches[1],
+                *((g.rows, g.grid_x, g.smem_bytes) if g else (0, 0, 0)),
+                int(self.a.overlap)]
+
+
+KNOBS = ("producers", "warps_m", "warps_n")
+GATHER_ROWS = 32  # output rows a tile of the gather pre-pass
+STAGE_PRODUCERS = 12  # loading warps of launch B where it copies staged rows
+
+
+def _rule_a(m, cm, cin, sms):
+    """Launch A's block: K2's rule (fused_block._mma_defaults) at its rows,
+    depth and width, with at most 4 row warps and no producers: 64-row tiles
+    beat 256-row ones at 112 x 112 and 56 x 56 at every batch
+    (utils/fused_entry_probe.py --sweep; PERF.md has the numbers)."""
+    d = _mma_defaults(m, cm, sms, k=cin, table=0)
+    return dict(producers=0, warps_m=min(4, d["warps_m"]),
+                warps_n=d["warps_n"])
+
+
+def _rule_b(m, cm, cin, sms, stage):
+    """Launch B's block. Gathering itself (no column chunks): K2's rule,
+    with at most 4 row warps where a warp holds all the columns (the same
+    sweep at 112 x 112). Copying staged rows: 12 producer warps and 2 row
+    warps where they fit, else 1 (the sweep at 28 x 28: 2 x 2 warps with
+    producers took 0.026 ms for the 0.036 of 4 x 2 without)."""
+    if not stage:
+        d = _mma_defaults(m, cm, sms, k=cm + cin, table=cm)
+        if d["warps_n"] == 1:
+            d = dict(producers=0, warps_m=min(4, d["warps_m"]), warps_n=1)
+        return d
+    wn = _mma_defaults(m, cm, sms, k=cm + cin, table=0)["warps_n"]
+    for wm in (2, 1):
+        if _mma_smem(STAGE_PRODUCERS, wm, wn, cm, cm + cin, 0) <= SMEM_LIMIT:
+            return dict(producers=STAGE_PRODUCERS, warps_m=wm, warps_n=wn)
+    return dict(producers=0, warps_m=1, warps_n=wn)
+
+
+def _one_wave(plan, sms):
+    """A launch with column chunks whose blocks all fit on the SMs at once:
+    K2's rule rounds the blocks per chunk up, and at 8 chunks of one block
+    an SM that left 136 blocks for 132 SMs, 4 of them a second wave."""
+    room = sms * blocks_per_sm(plan.smem_bytes,
+                               plan.producers + plan.warps_m * plan.warps_n)
+    if plan.n_tiles > 1 and plan.grid_x * plan.n_tiles > room:
+        return dataclasses.replace(plan,
+                                   grid_x=max(1, room // plan.n_tiles))
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(shape, cm, dtype, sms, route, knobs):
+    n, t, h, w, cin = shape
+    if route is None:
+        route = "mma" if dtype == torch.bfloat16 else "simt"
+    if route == "simt":
+        return EntryPlan(route="simt")
+    if route != "mma":
+        raise ValueError(f"unknown route {route!r}")
+    if dtype != torch.bfloat16:
+        raise ValueError("the tensor-core route takes bfloat16 only: "
+                         "float32 products stay full float32")
+    knobs = dict(knobs)
+    stage = knobs.pop("stage", None)
+    both = {"overlap": knobs.pop("overlap")} if "overlap" in knobs else {}
+    per = {"a": {}, "b": {}}
+    for key, value in knobs.items():
+        launch, _, name = key.partition("_")
+        if launch not in per or name not in KNOBS:
+            raise ValueError(f"unknown plan knobs {[key]}")
+        per[launch][name] = value
+    m, m_out = n * t * h * w, n * t * (h // 2) * (w // 2)
+    if stage is None:
+        # Staged where the gathering launch B would need column chunks.
+        stage = _mma_plan(m_out, cm, sms, {}, k=cm + cin,
+                          table=cm).n_tiles > 1
+    a = _mma_plan(m, cm, sms, {**_rule_a(m, cm, cin, sms), **per["a"],
+                               **both}, k=cin, table=0)
+    b = _mma_plan(m_out, cm, sms,
+                  {**_rule_b(m_out, cm, cin, sms, stage), **per["b"], **both},
+                  k=cm + cin, table=0 if stage else cm)
+    a, b = _one_wave(a, sms), _one_wave(b, sms)
+    if not stage:
+        return EntryPlan(route="mma", a=a, b=b)
+    g = GatherPlan(rows=GATHER_ROWS,
+                   grid_x=max(1, min(-(-m_out // GATHER_ROWS), sms)),
+                   smem_bytes=32 * (-(-cm // 16) * 16))
+    return EntryPlan(route="mma", a=a, b=b, g=g)
+
+
+def fused_entry_plan(shape, cm, dtype, *, sms=SM_COUNT, route=None,
+                     **knobs) -> EntryPlan:
+    """The launch plan of one entry block on x of ``shape`` (N, T, H, W,
+    Cin) growing to ``cm`` channels: the route (tensor-core products for
+    bfloat16, SIMT for float32 or on request) and, for the tensor cores, per
+    launch whether a block holds all of W or a chunk of its columns, the rows
+    per tile, the warps, the grid and the shared memory, by the rule of
+    :func:`~.fused_block.fused_block_plan` at that launch's rows, depth and
+    width as :func:`_rule_a`, :func:`_rule_b` and :func:`_one_wave` adjust
+    it, and whether launch B's rows are gathered by a pre-pass (where its
+    weights need column chunks). It depends on the shape and the dtype
+    alone. ``knobs`` pin ``a_producers``, ``a_warps_m``, ``a_warps_n``
+    (launch A) or their ``b_`` forms (launch B), ``stage`` (the pre-pass on
+    or off), or switch ``overlap`` off for all launches."""
+    if (len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0
+            or shape[2] % 2 or shape[3] % 2 or cm < 1):
+        raise ValueError(f"shape must be (N, T, H, W, Cin) with H and W "
+                         f"even, and cm >= 1, got {shape}, {cm}")
+    return _plan(tuple(int(d) for d in shape), int(cm), dtype, int(sms),
+                 route, tuple(sorted(knobs.items())))
+
+
+def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
+                       **knobs):
+    """Kernel K3 on CUDA tensors: one C call (two launches, three with the
+    gather pre-pass, and with ``se`` two more for the gate). ``route``
+    "simt" runs bfloat16 on the previous
+    route (the common.cuh GEMM), for timing it beside the tensor-core
+    kernels; the port never passes it. ``knobs``: as
+    :func:`fused_entry_plan` takes them."""
     taps_n = _check_args(x, params, se, max_shift)
     if taps_n > KERNEL_MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes <= {KERNEL_MAX_TAPS} taps")
@@ -109,9 +285,13 @@ def fused_entry_kernel(x, params, se=None, *, max_shift):
     code = _build.dtype_code(x.dtype)
     n, t, h, w, cin = x.shape
     cmid = w2.shape[1]
+    plan = fused_entry_plan(x.shape, cmid, x.dtype,
+                            sms=_sm_count(x.device.index), route=route,
+                            **knobs)
     mid = torch.empty((n, t, h, w, cmid), dtype=x.dtype, device=x.device)
     out = torch.empty((n, t, h // 2, w // 2, cmid), dtype=x.dtype,
                       device=x.device)
+    m_out = n * t * (h // 2) * (w // 2)
     cr = slices = 0
     se_ptr = partial_ptr = gate_ptr = None
     if se is not None:
@@ -122,14 +302,23 @@ def fused_entry_kernel(x, params, se=None, *, max_shift):
                            device=x.device)
         se_ptr, partial_ptr, gate_ptr = (se.data_ptr(), partial.data_ptr(),
                                          gate.data_ptr())
+    ints = stage = None
+    if plan.route == "mma":
+        ints = (_build.INT * 16)(*plan.as_ints())
+        if plan.g is not None:
+            rows = max(-(-m_out // r) * r for r in (plan.g.rows, plan.b.rows))
+            stage = torch.empty((rows, -(-(cmid + cin) // 16) * 16),
+                                dtype=x.dtype, device=x.device)
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 11,
-                                P)
+    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 12,
+                                P, P, P)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), vt1.data_ptr(), vt2.data_ptr(), w2.data_ptr(),
                 w3.data_ptr(), wsc.data_ptr(), se_ptr, partial_ptr, gate_ptr,
                 mid.data_ptr(), out.data_ptr(), code, n, t, h, w, cin, cmid,
-                taps_n, max_shift, cr, slices, _build.stream_of(x))
+                taps_n, max_shift, cr, slices, int(plan.route == "mma"), ints,
+                stage.data_ptr() if stage is not None else None,
+                _build.stream_of(x))
     _build.check(rc, "rubiks_fused_entry")
     LAUNCHES.count += 1
     return out

@@ -80,10 +80,36 @@ def rel_errors(got, ref):
             float(d.norm()) / max(float(ref.norm()), 1e-30))
 
 
+def randomize_block(blk, shift, kind, k, cpu_gen):
+    """In place: BN scale U(0.5, 1.5), bias U(-0.3, 0.3), mean U(-0.2, 0.2),
+    variance U(0.5, 2); ``shift`` (the block's shift parameter) by ``kind``
+    for a tap window of ``k``."""
+    rnd = lambda *shape: torch.rand(*shape, generator=cpu_gen)
+    with torch.no_grad():
+        for mod in blk.modules():
+            if isinstance(mod, BN):
+                n = mod.weight.numel()
+                mod.weight.copy_(rnd(n) + 0.5)
+                mod.bias.copy_(rnd(n) * 0.6 - 0.3)
+                mod.running_mean.copy_(rnd(n) * 0.4 - 0.2)
+                mod.running_var.copy_(rnd(n) * 1.5 + 0.5)
+        c = shift.shape[1]
+        if kind == "far":
+            sign = 1.0 - 2.0 * (torch.arange(c) % 2)
+            shift.copy_(sign * (k - 0.3 * rnd(shift.shape)))
+        elif kind == "integer":
+            shift.copy_((rnd(shift.shape) * (2 * k + 1) - k - 0.5).round()
+                        .clamp(-k, k))
+            shift[:, ::3] = 0.0
+        elif kind == "quantize":
+            shift.copy_(rnd(shift.shape) * (2 * k + 1.4) - k - 0.45)
+        else:
+            shift.copy_((rnd(shift.shape) * 2 - 1) * 0.95 * k)
+
+
 def make_run(c, blocks, aq, se, dtype, max_shift, kind, cpu_gen, dev):
-    """(vt, wm, se) of ``blocks`` random stride-1 blocks on ``dev``: BN scale
-    U(0.5, 1.5), bias U(-0.3, 0.3), mean U(-0.2, 0.2), variance U(0.5, 2),
-    shifts by ``kind``."""
+    """(vt, wm, se) of ``blocks`` random stride-1 blocks on ``dev``
+    (:func:`randomize_block`)."""
     quantize = kind == "quantize"
     k = max_shift
     mods = []
@@ -91,27 +117,8 @@ def make_run(c, blocks, aq, se, dtype, max_shift, kind, cpu_gen, dev):
         blk = RubiksShiftBlock(c, c, 1, quantize,
                                "rubiks3d-aq" if aq else "rubiks3d", se,
                                generator=cpu_gen)
-        rnd = lambda *shape: torch.rand(*shape, generator=cpu_gen)
-        with torch.no_grad():
-            for mod in blk.modules():
-                if isinstance(mod, BN):
-                    n = mod.weight.numel()
-                    mod.weight.copy_(rnd(n) + 0.5)
-                    mod.bias.copy_(rnd(n) * 0.6 - 0.3)
-                    mod.running_mean.copy_(rnd(n) * 0.4 - 0.2)
-                    mod.running_var.copy_(rnd(n) * 1.5 + 0.5)
-            shift = blk.as3.shift if aq else blk.as3.rubiks3d.shift
-            if kind == "far":
-                sign = 1.0 - 2.0 * (torch.arange(c) % 2)
-                shift.copy_(sign * (k - 0.3 * rnd(shift.shape)))
-            elif kind == "integer":
-                shift.copy_((rnd(shift.shape) * (2 * k + 1) - k - 0.5).round()
-                            .clamp(-k, k))
-                shift[:, ::3] = 0.0
-            elif kind == "quantize":
-                shift.copy_(rnd(shift.shape) * (2 * k + 1.4) - k - 0.45)
-            else:
-                shift.copy_((rnd(shift.shape) * 2 - 1) * 0.95 * k)
+        randomize_block(blk, blk.as3.shift if aq else blk.as3.rubiks3d.shift,
+                        kind, k, cpu_gen)
         mods.append(blk.to(dev).eval())
     if aq:
         vt, wm = fb.stack_block_params_aq(mods, dtype, k)
@@ -189,11 +196,11 @@ def check(dev) -> bool:
     return ok
 
 
-def ptxas_report() -> None:
-    """Registers, spills and shared memory of every kernel of the two
-    sources, and the tensor-core instructions in the object."""
+def ptxas_report(sources=("fused_block_tc.cu", "fused_block.cu")) -> None:
+    """Registers, spills and shared memory of every kernel of the sources,
+    and the tensor-core instructions in each object."""
     nvcc = _build._find_nvcc()
-    for name in ("fused_block_tc.cu", "fused_block.cu"):
+    for name in sources:
         with tempfile.TemporaryDirectory() as tmp:
             obj = f"{tmp}/{name}.o"
             t0 = time.perf_counter()

@@ -31,7 +31,9 @@ CLASSES = (
     ("SE gate kernels (se_partial, se_gate)", ("se_partial_kernel",
                                                "se_gate_kernel")),
     ("K2 bf16 launches (rubiks_tc_kernel)", ("rubiks_tc_kernel",)),
-    ("K3 and float32 K2 GEMMs (gemm_kernel)", ("rubiks",)),
+    ("K3 bf16 launches (rubiks_entry_tc_kernel, rubiks_entry_gather_kernel)",
+     ("rubiks_entry",)),
+    ("float32 K2 and K3 GEMMs (gemm_kernel)", ("rubiks",)),
     ("library GEMMs (1x1 convs, dense)", ("gemm", "cutlass", "xmma", "gemv",
                                           "cublas")),
     ("library convolution (stem)", ("conv", "cudnn", "nchw", "nhwc")),

@@ -294,8 +294,11 @@ def test_profile_probe_classifies_kernel_names():
         "void rubiks::shift2d_kernel<__nv_bfloat16, 16>(...)": "2D shift",
         "void rubiks::se_partial_kernel<float>(...)": "SE gate",
         "void rubiks::gemm_kernel<float, rubiks::ShiftLoad<float>>":
-            "K3 and float32 K2",
+            "float32 K2 and K3",
         "void rubiks::rubiks_tc_kernel<2>(rubiks::TcArgs)": "K2 bf16",
+        "void rubiks::rubiks_entry_tc_kernel<4>(rubiks::EntryArgs)": "K3 bf16",
+        "void rubiks::rubiks_entry_gather_kernel(rubiks::EntryArgs)":
+            "K3 bf16",
         "sm90_xmma_gemm_bf16bf16_bf16f32": "library GEMMs",
         "void at::native::reduce_kernel<512, 1>": "reductions",
         "void at::native::vectorized_elementwise_kernel<4>": "elementwise",
