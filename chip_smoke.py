@@ -6,14 +6,19 @@
 Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse, K4
 shift_grad, K2 fused_block with its tensor-core launches fused_block_tc.cu,
 K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
-kernels inside K2 and K3, and the 2D shift's forward and input gradient,
+inside K2 and K3: on the tensor-core route its sums in launch A, tc_se.cuh,
+and one gate launch, se_gate_tc.cu, on the SIMT route se_gate.cuh's two
+launches; and the 2D shift's forward and input gradient,
 shift2d.cu) from rubiksnet_torch/ops/csrc, holds each against its plain
 PyTorch version at every shape of its path (K2 and K3 also off the model's
 shapes, and in bf16 at every batch size they are timed or served at,
 because their launch plans depend on the batch: a K2 or K3 plan that did
 not pass that comparison is not timed): RubiksNet-Large
 (rubiks3d), Large with the rubiks3d-aq variant (the 2D shift kernels, K2
-with the attention mix) and the SE tier Small (K2 and K3 with the gate).
+with the attention mix) and the SE tier Small (K2 and K3 with the gate;
+every SE comparison also holds the gate alone against the plain gate of the
+kernel's own mid, and Small with the rubiks3d-aq variant is checked in f32
+and bf16 at a small size).
 For each of the three models it checks the logits (fused executor and
 unfused module path against the plain model), counts the kernel launches of
 one fused and one unfused forward, and times serving at batch sizes 1, 8
@@ -35,7 +40,9 @@ carry their device time by the profiler; the 2D shift's two rows, K2's
 three and K3's two also theirs and the time of the route they replaced (K1
 and K1-inverse on a one-frame view; for K2 and K3 in bf16 the SIMT GEMM of
 common.cuh), taken in this run; K2's also the time of a forward's blocks as
-the models call them, one run per stage.
+the models call them, one run per stage. The SE gate's row (se_gate) carries
+its device time over Small's 17 SE blocks beside what its sums add to
+launch A and the previous route's two gate launches in the same call.
 """
 
 from __future__ import annotations
@@ -151,6 +158,11 @@ KERNELS = {
                        "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
     "fused_entry_se": ("rubiksnet_torch/ops/csrc/fused_entry_tc.cu",
                        "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
+    # The SE gate of the tensor-core route (fused_block.py:215 se_gate,
+    # :231 se_conv3_batched; fused_entry.py:198 gate_from_mean): its sums in
+    # launch A (tc_se.cuh), then one launch per SE block.
+    "se_gate": ("rubiksnet_torch/ops/csrc/se_gate_tc.cu",
+                "rubiksnet_tpu/ops/pallas/fused_block.py:215"),
 }
 
 
@@ -436,7 +448,7 @@ def train_phase(dev, gen, name, smi):
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
     want = {"shift3d": 51, "shift3d_inverse": 51, "shift_grad": 51,
-            "fused_block": 0, "fused_entry": 0, "shift2d": 0,
+            "fused_block": 0, "fused_entry": 0, "se_gate": 0, "shift2d": 0,
             "shift2d_inverse": 0}
     loss = float(metrics["loss"])
     print(f"[train] (c) launches of one Large bf16 train step, batch "
@@ -670,11 +682,12 @@ CHECKED_PLANS = {}
 
 
 def check_block_served_shapes(errs, gen, cpu_gen, dev):
-    """K2 in bf16 at every stride-1 shape of the main path at every batch
-    size that is timed or served (SERVE_BATCHES and TIME_BATCH), rubiks3d,
-    aq, se and aq+se, a run of 2 blocks, twice bit-identically, against the
-    plain version; and the previous route, which is only timed, at
-    TIME_BATCH."""
+    """K2 in bf16 at every stride-1 shape of the main path (Large's and
+    Small's) at every batch size that is timed or served (SERVE_BATCHES and
+    TIME_BATCH), rubiks3d, aq, se and aq+se, a run of 2 blocks, twice
+    bit-identically, against the plain version, with se also the gate alone
+    against the plain gate of the kernel's mid (its error to the se_gate
+    row); and the previous route, which is only timed, at TIME_BATCH."""
     from rubiksnet_torch.utils import fused_block_probe as probe
 
     bf = torch.bfloat16
@@ -686,7 +699,7 @@ def check_block_served_shapes(errs, gen, cpu_gen, dev):
         for aq, se in probe.VARIANTS:
             ok, max_abs, text, plan = probe.check_case(
                 label, (n, t, h, w, c), k, kind, blocks, aq, se, bf, gen,
-                cpu_gen, dev)
+                cpu_gen, dev, gate_errs=errs["se_gate"])
             print("  " + text)
             if not ok:
                 fail(f"K2 {label} aq={aq} se={se} bf16 failed")
@@ -724,9 +737,10 @@ CHECKED_ENTRY_PLANS = {}
 
 def check_entry_served_shapes(errs, gen, cpu_gen, dev):
     """K3 and K3-SE in bf16 on the tensor-core route at every entry shape of
-    the main path at every batch size that is timed or served, twice
-    bit-identically, against the plain version; and the previous route,
-    which is only timed, at TIME_BATCH."""
+    the main path (Large's and Small's) at every batch size that is timed or
+    served, twice bit-identically, against the plain version, K3-SE's gate
+    also alone (as K2's); and the previous route, which is only timed, at
+    TIME_BATCH."""
     from rubiksnet_torch.utils import fused_entry_probe as probe
 
     bf = torch.bfloat16
@@ -738,7 +752,7 @@ def check_entry_served_shapes(errs, gen, cpu_gen, dev):
         for se in (False, True):
             ok, max_abs, text, plan = probe.check_case(
                 label, (n, t, h, w, cin), cm, k, kind, se, bf, gen, cpu_gen,
-                dev)
+                dev, gate_errs=errs["se_gate"])
             print("  " + text)
             if not ok:
                 fail(f"K3 {label} se={se} bf16 failed")
@@ -786,7 +800,9 @@ def check_entry_cases(errs, gen, cpu_gen, dev):
             for se in (False, True):
                 ok, max_abs, text, _ = probe.check_case(
                     label, (n, t, h, w, cin), cm, k, kind, se, dt, gen,
-                    cpu_gen, dev)
+                    cpu_gen, dev, gate_errs=(errs["se_gate"]
+                                             if dt == torch.bfloat16
+                                             else None))
                 print("  " + text)
                 if not ok:
                     fail(f"K3 {label} se={se} {dt} failed")
@@ -818,7 +834,9 @@ def check_block_cases(errs, gen, cpu_gen, dev):
             for aq, se in probe.case_variants(kind):
                 ok, max_abs, text, _ = probe.check_case(
                     label, (n, t, h, w, c), k, kind, blocks, aq, se, dt, gen,
-                    cpu_gen, dev)
+                    cpu_gen, dev, gate_errs=(errs["se_gate"]
+                                             if dt == torch.bfloat16
+                                             else None))
                 print("  " + text)
                 if not ok:
                     fail(f"K2 {label} aq={aq} se={se} {dt} failed")
@@ -1174,7 +1192,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                                  se), bf,
                       previous_fn=run(functools.partial(
                           fused_block_kernel, route="simt"), aq, se),
-                      needles=("", ""), kernels_per_call=4 if se else 2,
+                      needles=("", ""), kernels_per_call=3 if se else 2,
                       previous="the SIMT GEMM of common.cuh",
                       note=f"; plan: {plan.describe()}")
     time_block_runs(timer, gen, cpu_gen, dev, small_counts)
@@ -1203,7 +1221,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                       previous_fn=lambda: fused_entry_kernel(
                           x, params, sep, max_shift=k, route="simt"),
                       needles=("", ""),
-                      kernels_per_call=2 + (plan.g is not None) + 2 * se,
+                      kernels_per_call=2 + (plan.g is not None) + se,
                       previous="the SIMT GEMM of common.cuh",
                       note=f"; {entry_parts(new)}; plan: {plan.describe()}")
     # The shifts' backward kernels, summed over one train step's calls (one
@@ -1260,6 +1278,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         plain2d_grad_ms += count * ms
         print(f"  2D shift gradient (plain PyTorch, no kernel) {h}x{h}x{c} "
               f"stride {s}: {ms:.4f} ms (x{count} per train step)")
+    time_gate(timer, gen, cpu_gen, dev)
     for kind in timer.rows:
         backward = kind in ("shift3d_inverse", "shift_grad",
                             "shift2d_inverse")
@@ -1277,6 +1296,119 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
           + (f" (no profiler records at: {missed})" if missed else ""))
     if seen == 0:
         fail("the profiler recorded no call of the 2D shift kernels")
+
+
+def se_partial_pairs(plan, shape):
+    """The (row tile, frame slot) pairs launch A writes for mid of ``shape``
+    under ``plan``: each tile's frames."""
+    n, t, h, w, _ = shape
+    m, hw, bm = n * t * h * w, h * w, plan.rows
+    first = torch.arange(-(-m // bm)) * bm
+    last = torch.clamp(first + bm, max=m) - 1
+    return int((last // hw - first // hw + 1).sum())
+
+
+def time_gate(timer, gen, cpu_gen, dev):
+    """The SE gate per SE block of Small at batch TIME_BATCH, bf16, and
+    summed over one Small forward (the se_gate row): device ms by the
+    profiler, launches not overlapped, of the gate launch, of launch A with
+    the gate's sums and without them (what the sums add to it), and of the
+    previous route's two gate launches (se_gate.cuh) in the same call; the
+    plain gate of the same mid (se_gate of its shift) by events. The row's
+    time is the gate launch plus what the sums add to launch A, the same
+    function as the previous route's pass over mid and gate launch. Bound:
+    the partials launch A writes, fc1, fc2 and the T taps read once and the
+    gate written; one multiply-add per element of mid, the fc products and
+    the taps (the previous route's: one read of mid)."""
+    from rubiksnet_torch.ops import fused_block as fb
+    from rubiksnet_torch.ops import fused_entry as fe
+    from rubiksnet_torch.utils import cuda_time_ms
+    from rubiksnet_torch.utils import fused_block_probe as k2probe
+    from rubiksnet_torch.utils import fused_entry_probe as k3probe
+
+    bf, nb, k = torch.bfloat16, TIME_BATCH, MAX_SHIFT
+    print(f"[timing] the SE gate per SE block of Small, batch {nb} bf16, "
+          f"device ms by the profiler, launches not overlapped")
+    small_counts = {h: n for h, _, n in SMALL_BLOCK_SHAPES}
+    cases = ([("K2-SE", h, c, c, small_counts[h])
+              for h, c, _ in SMALL_BLOCK_SHAPES]
+             + [("K3-SE", h, cin, cm, 1) for h, cin, cm in ENTRY_SHAPES])
+    tot = dict.fromkeys(("new", "added", "old", "plain", "bytes", "ops",
+                         "old_bytes"), 0.0)
+    for tag, h, cin, cm, count in cases:
+        scratch = {}
+        if tag == "K2-SE":
+            vt, wm, sep = k2probe.make_run(cm, 1, False, True, bf, k, "frac",
+                                           cpu_gen, dev)
+            x = randn((nb, FRAMES, h, h, cm), bf, gen, dev)
+            plan = checked_plan(x.shape, False, True, dev)
+
+            def call(route=None, se=sep):
+                return fb.fused_block_kernel(x, vt, wm, se, max_shift=k,
+                                             route=route, overlap=False,
+                                             scratch=scratch)
+            taps, se1, stride = vt[0, 4:], sep[0], 1
+            a_se, a_bare = "rubiks_tc_kernel<5>", "rubiks_tc_kernel<0>"
+        else:
+            params, sep = k3probe.make_entry(cin, cm, True, bf, k, "frac",
+                                             cpu_gen, dev)
+            x = randn((nb, FRAMES, h, h, cin), bf, gen, dev)
+            plan = checked_entry_plan(x.shape, cm, True, dev).a
+
+            def call(route=None, se=sep):
+                return fe.fused_entry_kernel(x, params, se, max_shift=k,
+                                             route=route, overlap=False,
+                                             scratch=scratch)
+            taps, se1, stride = params[1][2:], sep, 2
+            a_se = "rubiks_entry_tc_kernel<7>"
+            a_bare = "rubiks_entry_tc_kernel<3>"
+        label = f"{tag} {h}x{h}x{cin}->{cm}"
+        new = profiled_ms(call, "se_gate_tc_kernel", f"{label} gate")[0]
+        added = (profiled_ms(call, a_se, f"{label} A with sums")[0]
+                 - profiled_ms(lambda: call(se=None), a_bare,
+                               f"{label} A")[0])
+        old = (profiled_ms(lambda: call("simt"), "se_partial_kernel",
+                           f"{label} previous pass")[0]
+               + profiled_ms(lambda: call("simt"), "se_gate_kernel",
+                             f"{label} previous gate")[0])
+        call()
+        mid = scratch["mid"]
+        plain = cuda_time_ms(lambda: fb.se_gate(fb.tap_shift(
+            mid.float(), taps, k)[:, :, ::stride, ::stride], se1))
+        shape = (nb, FRAMES, h, h, cm)
+        frames, cr = nb * FRAMES, se1.shape[-1]
+        pairs = se_partial_pairs(plan, shape)
+        nbytes = 4 * (pairs * cm + 2 * cm * cr + taps.shape[0] // 3 * cm
+                      + frames * cm)
+        ops = (2 * mid.numel() + pairs * cm
+               + frames * (4 * cm * cr + 4 * cm))
+        for key, v in (("new", new), ("added", added), ("old", old),
+                       ("plain", plain), ("bytes", nbytes), ("ops", ops),
+                       ("old_bytes", mid.numel() * 2)):
+            tot[key] += count * v
+        bound = max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_F32)
+        print(f"  {label} (x{count} per Small forward): gate launch {new:.4f}"
+              f" ms, launch A with the sums {added:+.4f} ms against without;"
+              f" previous route's two launches {old:.4f} ms; plain "
+              f"{plain:.4f} ms; bound {bound:.4f} ms, previous route's "
+              f"{1e3 * mid.numel() * 2 / HBM_BYTES_PER_S:.4f}; plan "
+              f"{plan.describe()}")
+    # Every time of this row is the device's (the gate launches inside K2's
+    # and K3's calls, so events cannot time them apart).
+    row = timer.rows["se_gate"]
+    whole = tot["new"] + tot["added"]
+    row.update(ms=whole, plain_ms=tot["plain"], device_ms=whole,
+               previous_ms=tot["old"], previous_device_ms=tot["old"],
+               bytes_ms=1e3 * tot["bytes"] / HBM_BYTES_PER_S,
+               ops_ms=1e3 * tot["ops"] / PEAK_F32)
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    row["launch_a_added_ms"] = tot["added"]
+    print(f"  SE gate over Small's 17 SE blocks: gate launches "
+          f"{tot['new']:.4f} ms + launch A's sums {tot['added']:.4f} ms = "
+          f"{whole:.4f} ms; previous route {tot['old']:.4f} ms (bound "
+          f"{1e3 * tot['old_bytes'] / HBM_BYTES_PER_S:.4f}); bound "
+          f"{row['bound_ms']:.4f} ms (bytes {row['bytes_ms']:.4f}, "
+          f"operations {row['ops_ms']:.4f}); plain {tot['plain']:.4f} ms")
 
 
 # ------------------------------------------------------------ the models
@@ -1343,7 +1475,7 @@ def main_path(label, model, batch, want_fused, want_unfused):
 
     executor = FusedExecutor(model)
     zero = dict.fromkeys(("shift3d", "shift3d_inverse", "shift_grad",
-                          "fused_block", "fused_entry", "shift2d",
+                          "fused_block", "fused_entry", "se_gate", "shift2d",
                           "shift2d_inverse"), 0)
     with torch.no_grad():
         fused_logits, fused = counted(lambda: executor(batch))
@@ -1405,26 +1537,32 @@ def serve_phase(label, executor, model, gen, dev, name, smi, aq, se):
 
 def small_aq_check(dev, gen):
     """The SE tier with the rubiks3d-aq variant (both options through one K2
-    call) at a small size: 4 frames, 64 px, float32."""
+    call) at a small size, 4 frames, 64 px: float32 (the SIMT route, the
+    gate of se_gate.cuh) and bfloat16 (the tensor-core route: launch A-AQ
+    with the gate's sums, one gate launch a block)."""
     from rubiksnet_torch.models.fused_infer import FusedExecutor
     from rubiksnet_torch.models.rubiksnet import create_rubiksnet
 
-    m = create_rubiksnet("small", CLASSES, 4, "rubiks3d-aq",
-                         max_shift=MAX_SHIFT, device="cpu",
-                         generator=torch.Generator().manual_seed(0))
-    m = randomize_bn(m, torch.Generator().manual_seed(1)).to(dev)
     video = torch.randn((2, 4, 64, 64, 3), generator=gen, device=dev)
-    with torch.no_grad():
-        ref = m(video, plain=True)
-        got, counts = counted(lambda: FusedExecutor(m)(video))
-    _, _, rel = errors(got, ref)
-    ok = (rel <= TOL_MODEL_F32 and counts["fused_block"] == 13
-          and counts["shift2d"] == 4 and counts["fused_entry"] == 0)
-    print(f"[model] Small rubiks3d-aq (SE and AQ together), 4x64x64, f32: "
-          f"fused vs plain logits rel_l2={rel:.3e} [<= {TOL_MODEL_F32}], "
-          f"launches {counts} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        fail("Small rubiks3d-aq fused forward failed")
+    for dt, tol, gates in ((torch.float32, TOL_MODEL_F32, 0),
+                           (torch.bfloat16, TOL_MODEL_BF16, 13)):
+        m = create_rubiksnet("small", CLASSES, 4, "rubiks3d-aq",
+                             max_shift=MAX_SHIFT, dtype=dt, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        m = randomize_bn(m, torch.Generator().manual_seed(1)).to(dev)
+        with torch.no_grad():
+            ref = m(video, plain=True)
+            got, counts = counted(lambda: FusedExecutor(m)(video))
+        _, _, rel = errors(got, ref)
+        ok = (rel <= tol and counts["fused_block"] == 13
+              and counts["shift2d"] == 4 and counts["fused_entry"] == 0
+              and counts["se_gate"] == gates
+              and bool(torch.isfinite(got.float()).all()))
+        print(f"[model] Small rubiks3d-aq (SE and AQ together), 4x64x64, "
+              f"{str(dt)[6:]}: fused vs plain logits rel_l2={rel:.3e} "
+              f"[<= {tol}], launches {counts} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"Small rubiks3d-aq fused forward failed in {dt}")
 
 
 def train_config(label, tier, variant, want, dev, gen, name, smi):
@@ -1582,8 +1720,10 @@ def main() -> int:
          {"fused_block": 47, "shift2d": 4}, {"shift2d": 51},
          {"fused_block_aq": "fused_block"}, {"shift2d": "shift2d"}),
         ("Small rubiks3d (SE)", "small", "rubiks3d",
-         {"fused_block": 13, "fused_entry": 4}, {"shift3d": 17},
-         {"fused_block_se": "fused_block", "fused_entry_se": "fused_entry"},
+         {"fused_block": 13, "fused_entry": 4, "se_gate": 17},
+         {"shift3d": 17},
+         {"fused_block_se": "fused_block", "fused_entry_se": "fused_entry",
+          "se_gate": "se_gate"},
          {}),
     )
     for label, tier, variant, want_f, want_u, from_f, from_u in configs:
@@ -1637,6 +1777,8 @@ def main() -> int:
         if "runs_ms" in row:
             kernels[-1].update(runs_ms=row["runs_ms"],
                                previous_runs_ms=row["previous_runs_ms"])
+        if "launch_a_added_ms" in row:
+            kernels[-1].update(launch_a_added_ms=row["launch_a_added_ms"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,12 +41,13 @@ __all__ = [
 
 def launch_counters():
     """The launch counters of K1 (shift3d), K1-inverse (shift3d_inverse),
-    K4 (shift_grad), K2 (fused_block), K3 (fused_entry) and the 2D shift's
-    forward and input-gradient kernels (shift2d, shift2d_inverse), by
-    name."""
+    K4 (shift_grad), K2 (fused_block), K3 (fused_entry), the SE gate of
+    their tensor-core route (se_gate) and the 2D shift's forward and
+    input-gradient kernels (shift2d, shift2d_inverse), by name."""
     from . import fused_block, fused_entry, shift2d, shift3d
 
     return {c.name: c for c in (shift3d.LAUNCHES, shift3d.INVERSE_LAUNCHES,
                                 shift3d.SHIFT_GRAD_LAUNCHES,
                                 fused_block.LAUNCHES, fused_entry.LAUNCHES,
+                                fused_block.SE_GATE_LAUNCHES,
                                 shift2d.LAUNCHES, shift2d.INVERSE_LAUNCHES)}

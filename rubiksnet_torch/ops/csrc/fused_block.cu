@@ -20,11 +20,13 @@
 //      residual. out may alias x: each element of x is read and written by
 //      the same thread, and launch B reads nothing else of x.
 // With aq, launch A's loader mixes the activated input along T with the
-// three attention taps and the T tap row is the identity. With se, two small
-// launches between A and B compute the gate from one pass over mid
-// (se_gate.cuh) and launch B's loader multiplies by it. The bn and tap
-// arithmetic is f32 and the GEMM operands are rounded to x's dtype, as in the
-// TPU kernel.
+// three attention taps and the T tap row is the identity. With se, launch
+// B's loader multiplies by the gate: on the tensor-core route launch A sums
+// its weighted values per frame as it stores mid (tc_se.cuh) and one launch
+// makes the gate from those sums (se_gate_tc.cu); on the SIMT route two
+// small launches compute it from one pass over mid (se_gate.cuh). The bn and
+// tap arithmetic is f32 and the GEMM operands are rounded to x's dtype, as in
+// the TPU kernel.
 //
 // Two routes. bfloat16, the serving dtype, runs fused_block_tc.cu: tensor-core
 // products, resident weights, 16-byte loads, a gather of one channel per lane;
@@ -94,22 +96,27 @@ int fused_block(const void* xv, const float* vt, const void* w2v,
       ResidualStore<T>{x, out, C}, stream);
 }
 
-// One block on the tensor-core route (bfloat16 only).
+// One block on the tensor-core route (bfloat16 only). With se, launch A
+// also leaves the gate's per-frame sums in partial (tc_se.cuh), and one
+// launch turns them into the gate (se_gate_tc.cu).
 int fused_block_tc(const TcPlan& plan, const void* x, const float* vt,
                    const void* w2, const void* w3, const float* se,
                    float* partial, float* gate, void* mid, void* out, int N,
                    int T_, int H, int W, int C, int taps_n, int K, int aq,
-                   int Cr, int slices, cudaStream_t stream) {
+                   int Cr, int slots, cudaStream_t stream) {
   if (N == 0) return 0;
   if (se != nullptr && (partial == nullptr || gate == nullptr))
     return (int)cudaErrorInvalidValue;
   const TcShape shape = {N, T_, H, W, C, taps_n, K};
-  cudaError_t err = tc_launch_mid(plan, shape, x, vt, w2, mid, aq, stream);
+  cudaError_t err =
+      tc_launch_mid(plan, shape, x, vt, w2, mid, aq,
+                    se != nullptr ? partial : nullptr, slots, stream);
   if (err != cudaSuccess) return (int)err;
   if (se != nullptr) {
-    err = launch_se_gate<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(mid), vt + 4 * C, se, partial, gate,
-        N * T_, T_, H, W, C, H, W, 1, taps_n, K, Cr, slices, stream);
+    err = se_gate_tc_launch(partial, vt + 4 * C, se, gate, N * T_, T_, H * W,
+                            plan.wm * 16, slots, C, Cr, taps_n, K,
+                            1.f / ((float)H * (float)W), plan.overlap,
+                            stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)tc_launch_out(plan, shape, x, mid, vt, w3,
@@ -127,10 +134,12 @@ extern "C" {
 // the T, H and W tap weights (tap j reads offset j - K) and, when aq is set,
 // the three rows of attention taps. wm: (B, 2, C, C) of dtype, W2 and W3 as
 // (in, out). se: null, or (B, 2, C, Cr) float32 (fc1, fc2 transposed) with
-// scratch partial (N*T, slices, C) and gate (N*T, C) float32, slices =
-// ceil(H / 8). route: 0 the common.cuh GEMM (either dtype), 1 the
-// tensor-core kernels (bfloat16 only) under the plan pw, wm_, wn_,
-// n_split, grid_x, smem_bytes, overlap of
+// scratch partial and gate (N*T, C) float32; partial is (N*T, slices, C),
+// slices = ceil(H / 8), on route 0 (se_gate.cuh's pass over mid) and (row
+// tiles, slices, C), slices = tc_se_slots(wm_ * 16, H * W), on route 1
+// (launch A's sums, tc_se.cuh). route: 0 the common.cuh GEMM (either
+// dtype), 1 the tensor-core kernels (bfloat16 only) under the plan pw, wm_,
+// wn_, n_split, grid_x, smem_bytes, overlap of
 // ops/fused_block.py::fused_block_plan.
 int rubiks_fused_block_run(const void* x, const float* vt, const void* wm,
                            const float* se, float* partial, float* gate,

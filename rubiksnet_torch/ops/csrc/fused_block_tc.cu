@@ -4,8 +4,10 @@
 //   A: mid = relu(s2 . ([AQ] relu(s1 . x + b1) @ W2) + b2)
 //   B: out = x + ([gate .] shift3d(mid)) @ W3
 //
-// in its rubiks3d and rubiks3d-aq forms (and under the SE gate, whose own two
-// launches sit between A and B unchanged). It replaces, for bf16, the
+// in its rubiks3d and rubiks3d-aq forms, and under the SE gate: launch A then
+// also sums the gate's weighted values of mid per frame as it stores them
+// (tc_se.cuh), and one launch between A and B makes the gate from those sums
+// (se_gate_tc.cu). It replaces, for bf16, the
 // common.cuh GEMM those launches ran on before, and with it
 // rubiksnet_tpu/ops/pallas/fused_block.py::fused_block_run (aq_mix, the SE
 // multiply) and ops/pallas/fused_frames.py::fused_frames_run. float32 stays on
@@ -78,7 +80,7 @@ struct TcArgs {
   bf16* dst;          // A: mid. B: out
   const bf16* w;      // (C, C) as (in, out)
   const float* vt;    // rows s1, b1, s2, b2, 3 * taps_n taps, [3 attention]
-  const float* gate;  // B: nullptr or (N*T, C)
+  const float* gate;  // B: nullptr or (N*T, C). A with SE: the partials
   int64_t M;
   int T, H, W, C, taps_n, K;
   int Kp;          // C rounded up to 16
@@ -246,9 +248,11 @@ __device__ __forceinline__ void build_tile(const TcArgs& p, bf16* As,
   if (MODE == kTcOut) {
     build_shift_tile(p, As, m0, table, tid, nthreads);
   } else if (p.vec) {
-    build_act_tile_vec<MODE == kTcMidAq>(p, As, m0, tid, nthreads);
+    build_act_tile_vec<MODE == kTcMidAq || MODE == kTcMidAqSe>(p, As, m0, tid,
+                                                             nthreads);
   } else {
-    build_act_tile_scalar<MODE == kTcMidAq>(p, As, m0, tid, nthreads);
+    build_act_tile_scalar<MODE == kTcMidAq || MODE == kTcMidAqSe>(
+        p, As, m0, tid, nthreads);
   }
 }
 
@@ -257,7 +261,11 @@ __device__ __forceinline__ void build_tile(const TcArgs& p, bf16* As,
 // W chunk (Kp x wn * 72) and the table. With pw > 0 the first pw warps only
 // load: they build tile i + 1 in one buffer while the other warps multiply
 // tile i from the other, one barrier per tile. With pw = 0 every warp builds
-// the tile, then every warp multiplies it.
+// the tile, then every warp multiplies it. The SE forms of launch A also
+// build the gate's weight tables in the prologue and, once a tile's row
+// warps have left their sums in shared memory (after the barrier that ends
+// the tile, or with producers one among the multiplying warps), write the
+// tile's partials (tc_se.cuh).
 template <int MODE>
 __global__ void __launch_bounds__(kTcMaxThreads, 1)
     rubiks_tc_kernel(const TcArgs p) {
@@ -277,6 +285,7 @@ __global__ void __launch_bounds__(kTcMaxThreads, 1)
   asm volatile("griddepcontrol.launch_dependents;");
   load_w_rows(p, Ws, n0, p.w, 0, p.C, p.Kp);
   if (MODE == kTcOut) build_tap_table(p, table);
+  if constexpr (tc_se_mode(MODE)) tc_se_build_tables<1>(p, n0);
   asm volatile("griddepcontrol.wait;" ::: "memory");
   __syncthreads();
 
@@ -289,6 +298,8 @@ __global__ void __launch_bounds__(kTcMaxThreads, 1)
       __syncthreads();
       multiply_tile<MODE>(p, As, Ws, m0, n0, wm_i, wn_i, lane);
       __syncthreads();  // the A tile is free again
+      if constexpr (tc_se_mode(MODE))
+        tc_se_store_partials<1>(p, m0, n0, tid, blockDim.x);
     }
   } else {
     const bool loads = warp < p.pw;
@@ -310,6 +321,12 @@ __global__ void __launch_bounds__(kTcMaxThreads, 1)
       } else {
         multiply_tile<MODE>(p, bufs[it & 1], Ws, (int64_t)tile * p.bm, n0,
                                 wm_i, wn_i, lane);
+        if constexpr (tc_se_mode(MODE)) {
+          const int nmul = blockDim.x - nload;
+          asm volatile("bar.sync 1, %0;" ::"r"(nmul) : "memory");
+          tc_se_store_partials<1>(p, (int64_t)tile * p.bm, n0, tid - nload,
+                                  nmul);
+        }
       }
       __syncthreads();
     }
@@ -369,8 +386,8 @@ cudaError_t tc_launch_kernel(const TcPlan& pl, const TcArgs& a,
 }
 
 template <int MODE>
-cudaError_t tc_launch(const TcPlan& pl, const TcShape& s, TcArgs a,
-                      cudaStream_t stream) {
+cudaError_t tc_launch(TcPlan pl, const TcShape& s, TcArgs a,
+                      cudaStream_t stream, int se_slots = 0) {
   if (!tc_plan_ok(pl, s)) return cudaErrorInvalidValue;
   a.M = (int64_t)s.N * s.T * s.H * s.W;
   if (a.M == 0) return cudaSuccess;
@@ -391,12 +408,22 @@ cudaError_t tc_launch(const TcPlan& pl, const TcShape& s, TcArgs a,
       reinterpret_cast<uintptr_t>(a.dst) | reinterpret_cast<uintptr_t>(a.w) |
       reinterpret_cast<uintptr_t>(a.vt);
   a.vec = (s.C % 8 == 0) && (bits & 15) == 0;
+  if (tc_se_mode(MODE)) {
+    // The SE region takes the place of launch B's table, and more room
+    // where it needs it.
+    if (a.gate == nullptr || se_slots != tc_se_slots(a.bm, s.H * s.W))
+      return cudaErrorInvalidValue;
+    const int end = a.t_off + tc_se_bytes(s.taps_n, s.K, 1, pl.wm, pl.wn,
+                                          se_slots);
+    if (end > kTcMaxSmem) return cudaErrorInvalidValue;
+    if (end > pl.smem_bytes) pl.smem_bytes = end;
+  }
   return tc_launch_kernel<MODE>(pl, a, stream);
 }
 
 cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
                           const float* vt, const void* w2, void* mid, int aq,
-                          cudaStream_t stream) {
+                          float* partial, int slots, cudaStream_t stream) {
   TcArgs a = {};
   a.x = static_cast<const bf16*>(x);
   a.mid = nullptr;
@@ -404,6 +431,11 @@ cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
   a.w = static_cast<const bf16*>(w2);
   a.vt = vt;
   a.gate = nullptr;
+  if (partial != nullptr) {
+    a.gate = partial;
+    return aq ? tc_launch<kTcMidAqSe>(p, s, a, stream, slots)
+              : tc_launch<kTcMidSe>(p, s, a, stream, slots);
+  }
   return aq ? tc_launch<kTcMidAq>(p, s, a, stream)
             : tc_launch<kTcMid>(p, s, a, stream);
 }

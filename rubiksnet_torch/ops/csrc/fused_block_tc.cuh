@@ -49,13 +49,26 @@ bool tc_plan_ok(const TcPlan& p, const TcShape& s);
 
 // Launch A: mid = relu(s2 . (A @ W2) + b2), A = relu(s1 . x + b1), with aq
 // mixed along T by the three attention rows that follow the taps in vt.
+// partial: nullptr, or the SE gate's per-frame weighted sums of mid, (row
+// tiles, slots, C) float32 with slots = tc_se_slots(wm * 16, H * W)
+// (tc_se.cuh).
 cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
                           const float* vt, const void* w2, void* mid, int aq,
-                          cudaStream_t stream);
+                          float* partial, int slots, cudaStream_t stream);
 
 // Launch B: out = x + ([gate .] shift3d(mid)) @ W3; out may alias x.
 cudaError_t tc_launch_out(const TcPlan& p, const TcShape& s, const void* x,
                           const void* mid, const float* vt, const void* w3,
                           const float* gate, void* out, cudaStream_t stream);
+
+// The SE gate (N*T = frames, C) float32 from launch A's partials
+// (se_gate_tc.cu): taps_t the T tap row (taps_n, C), se (2, C, Cr) fc1 and
+// fc2 transposed, hw the rows of a frame and bm the rows of a tile of
+// launch A, inv_count 1 / (Ho * Wo). overlap: programmatic dependent launch.
+cudaError_t se_gate_tc_launch(const float* partial, const float* taps_t,
+                              const float* se, float* gate, int frames, int T,
+                              int hw, int bm, int slots, int C, int Cr,
+                              int taps_n, int K, float inv_count, int overlap,
+                              cudaStream_t stream);
 
 }  // namespace rubiks

@@ -19,9 +19,11 @@
 //      k >= mid reads relu(bn1(x)) at (2h', 2w') against Wsc, so the
 //      strided shortcut is a second K range of the same accumulator instead
 //      of an identity residual.
-// With se, two small launches between A and B compute the gate from one
-// pass over mid (se_gate.cuh, the mean over the decimated (H/2, W/2) grid)
-// and B's shift gather multiplies by it; the shortcut range is not gated.
+// With se, B's shift gather multiplies by the gate (the mean over the
+// decimated (H/2, W/2) grid); the shortcut range is not gated. On the
+// tensor-core route launch A sums the gate's weighted values per frame
+// (tc_se.cuh) and one launch makes the gate (se_gate_tc.cu); on the SIMT
+// route two small launches compute it from one pass over mid (se_gate.cuh).
 //
 // Two routes, as K2 has. bfloat16, the serving dtype, runs fused_entry_tc.cu
 // (tensor-core products, resident weights, 16-byte loads; its header says
@@ -123,8 +125,10 @@ int fused_entry(const void* xv, const float* vt1, const float* vt2,
                           PlainStore<T>{static_cast<T*>(outv), Cm}, stream);
 }
 
-// The entry on the tensor-core route (bfloat16 only): launch A under plan a,
-// the gate, the gather pre-pass where g_rows > 0, launch B under plan b.
+// The entry on the tensor-core route (bfloat16 only): launch A under plan a
+// (with se, leaving the gate's per-frame sums in partial, tc_se.cuh), the
+// gate (se_gate_tc.cu), the gather pre-pass where g_rows > 0, launch B under
+// plan b.
 int fused_entry_tc(const TcPlan& a, const TcPlan& b, int g_rows, int g_grid,
                    int g_smem, const void* x, const float* vt1,
                    const float* vt2, const void* w2, const void* w3,
@@ -136,14 +140,16 @@ int fused_entry_tc(const TcPlan& a, const TcPlan& b, int g_rows, int g_grid,
   if (se != nullptr && (partial == nullptr || gate == nullptr))
     return (int)cudaErrorInvalidValue;
   const EntryShape shape = {N, T_, H, W, Cin, Cm, taps_n, K};
-  cudaError_t err = entry_tc_launch_mid(a, shape, x, vt1, vt2, w2, mid, stream);
+  cudaError_t err =
+      entry_tc_launch_mid(a, shape, x, vt1, vt2, w2, mid,
+                          se != nullptr ? partial : nullptr, slices, stream);
   if (err != cudaSuccess) return (int)err;
   const float* g = se != nullptr ? gate : nullptr;
   if (se != nullptr) {
-    err = launch_se_gate<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(mid), vt2 + 2 * Cm, se, partial,
-        gate, N * T_, T_, H, W, Cm, H / 2, W / 2, 2, taps_n, K, Cr, slices,
-        stream);
+    err = se_gate_tc_launch(partial, vt2 + 2 * Cm, se, gate, N * T_, T_,
+                            H * W, a.wm * 16, slices, Cm, Cr, taps_n, K,
+                            1.f / ((float)(H / 2) * (float)(W / 2)),
+                            a.overlap, stream);
     if (err != cudaSuccess) return (int)err;
   }
   if (g_rows > 0) {
@@ -164,9 +170,12 @@ extern "C" {
 // vt1: (2, Cin) float32 folded bn1; vt2: (2 + 3*taps_n, Cm) float32 folded
 // bn2 then the T, H, W tap weights. w2, wsc: (Cin, Cm), w3: (Cm, Cm), of
 // dtype, (in, out). se: null, or (2, Cm, Cr) float32 (fc1, fc2 transposed)
-// with scratch partial (N*T, slices, Cm) and gate (N*T, Cm) float32,
-// slices = ceil(H / 8). route: 0 the common.cuh GEMM (either dtype; plan
-// and stage unused), 1 the tensor-core kernels (bfloat16 only) under plan,
+// with scratch partial and gate (N*T, Cm) float32; partial is (N*T, slices,
+// Cm), slices = ceil(H / 8), on route 0 (se_gate.cuh's pass over mid) and
+// (launch A's row tiles, slices, Cm), slices = tc_se_slots(A's wm * 16,
+// H * W), on route 1 (tc_se.cuh). route: 0 the common.cuh GEMM (either
+// dtype; plan and stage unused), 1 the tensor-core kernels (bfloat16 only)
+// under plan,
 // 16 ints of ops/fused_entry.py::fused_entry_plan: launch A's (pw, wm, wn,
 // n_split, grid_x, smem_bytes), launch B's, the gather pre-pass's (rows,
 // grid_x, smem_bytes; rows 0: none) and overlap. stage: with the pre-pass,

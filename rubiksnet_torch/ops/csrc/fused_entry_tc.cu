@@ -5,8 +5,9 @@
 //   B: out = ([gate .] shift3d_s2(mid)) @ W3
 //            + relu(s1 . x + b1)[:, :, ::2, ::2] @ Wsc     (N, T, H/2, W/2, Cm)
 //
-// in its rubiks3d form and under the SE gate (whose own two launches sit
-// between A and B unchanged, se_gate.cuh). It replaces, for bf16, the
+// in its rubiks3d form and under the SE gate (launch A then also sums the
+// gate's weighted values of mid per frame, tc_se.cuh, and one launch between
+// A and B makes the gate from them, se_gate_tc.cu). It replaces, for bf16, the
 // common.cuh GEMM those launches ran on before, and with it
 // rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_run (gate_from_mean
 // for the SE tier). float32 stays on the common.cuh GEMM (SIMT f32 products,
@@ -65,7 +66,7 @@ struct EntryArgs {
   const bf16* wsc;    // B: the shortcut (Cin, C)
   const float* vt1;   // rows s1, b1, Cin wide
   const float* vt2;   // rows s2, b2, 3 * taps_n taps, C wide
-  const float* gate;  // B: nullptr or (N*T, C)
+  const float* gate;  // B: nullptr or (N*T, C). A with SE: the partials
   bf16* stage;        // B: nullptr, or the gather pre-pass's rows (Kp each)
   int64_t M;          // rows: A N*T*H*W, B N*T*Ho*Wo
   int T, H, W, Ho, Wo, Cin, C, taps_n, K;
@@ -320,7 +321,9 @@ __device__ __forceinline__ void build_entry_operand(const EntryArgs& p,
 // table. With pw > 0 the first pw warps only load: they build tile i + 1 in
 // one buffer while the other warps multiply tile i from the other, one
 // barrier per tile. With pw = 0 every warp builds the tile, then every warp
-// multiplies it. build(As, m0, tid, nthreads) fills one A tile.
+// multiplies it. build(As, m0, tid, nthreads) fills one A tile. The SE form
+// of launch A writes each tile's partials of the gate once its row warps'
+// sums are in shared memory (tc_se.cuh), as K2's kernel does.
 template <int MODE, class Build>
 __device__ __forceinline__ void entry_tiles(const EntryArgs& p,
                                             unsigned char* smem,
@@ -337,6 +340,8 @@ __device__ __forceinline__ void entry_tiles(const EntryArgs& p,
       __syncthreads();
       multiply_tile<MODE>(p, As, Ws, m0, n0, wm_i, wn_i, lane);
       __syncthreads();  // the A tile is free again
+      if constexpr (tc_se_mode(MODE))
+        tc_se_store_partials<2>(p, m0, n0, tid, blockDim.x);
     }
   } else {
     const bool loads = warp < p.pw;
@@ -357,6 +362,12 @@ __device__ __forceinline__ void entry_tiles(const EntryArgs& p,
       } else {
         multiply_tile<MODE>(p, bufs[it & 1], Ws, (int64_t)tile * p.bm, n0,
                             wm_i, wn_i, lane);
+        if constexpr (tc_se_mode(MODE)) {
+          const int nmul = blockDim.x - nload;
+          asm volatile("bar.sync 1, %0;" ::"r"(nmul) : "memory");
+          tc_se_store_partials<2>(p, (int64_t)tile * p.bm, n0, tid - nload,
+                                  nmul);
+        }
       }
       __syncthreads();
     }
@@ -395,8 +406,9 @@ __global__ void __launch_bounds__(kTcMaxThreads, 1)
   // before this one still runs (programmatic dependent launch); the first
   // read of an activation (x, mid, the gate) waits for it to finish.
   asm volatile("griddepcontrol.launch_dependents;");
-  if (MODE == kTcEntryMid) {
+  if (MODE == kTcEntryMid || MODE == kTcEntryMidSe) {
     load_w_rows(p, Ws, n0, p.w, 0, p.Cin, p.Kp);
+    if constexpr (tc_se_mode(MODE)) tc_se_build_tables<2>(p, n0);
   } else {
     load_w_rows(p, Ws, n0, p.w, 0, p.C, p.C);
     load_w_rows(p, Ws, n0, p.wsc, p.C, p.Cin, p.Kp);
@@ -507,13 +519,13 @@ cudaError_t entry_launch_kernel(void (*kernel)(EntryArgs), bool (&raised)[64],
 
 template <int MODE>
 cudaError_t entry_launch(const TcPlan& pl, const EntryShape& s, EntryArgs a,
-                         cudaStream_t stream) {
-  const int depth = MODE == kTcEntryMid ? s.Cin : s.Cm + s.Cin;
-  const int table_c = MODE == kTcEntryMid || a.stage != nullptr ? 0 : s.Cm;
+                         cudaStream_t stream, int se_slots = 0) {
+  constexpr bool kA = MODE == kTcEntryMid || MODE == kTcEntryMidSe;
+  const int depth = kA ? s.Cin : s.Cm + s.Cin;
+  const int table_c = kA || a.stage != nullptr ? 0 : s.Cm;
   if (!entry_plan_ok(pl, s, depth, table_c)) return cudaErrorInvalidValue;
-  const int64_t rows = MODE == kTcEntryMid
-                           ? (int64_t)s.N * s.T * s.H * s.W
-                           : (int64_t)s.N * s.T * (s.H / 2) * (s.W / 2);
+  const int64_t rows = kA ? (int64_t)s.N * s.T * s.H * s.W
+                          : (int64_t)s.N * s.T * (s.H / 2) * (s.W / 2);
   if (rows == 0) return cudaSuccess;
   entry_fill(a, s, rows, depth, table_c, pl.wm * 16);
   a.a_rs = tc_row_stride(a.Kp);
@@ -523,11 +535,22 @@ cudaError_t entry_launch(const TcPlan& pl, const EntryShape& s, EntryArgs a,
   a.a_bytes = a.bm * a.a_rs * 2;
   a.w_off = a.a_bytes * (pl.pw > 0 ? 2 : 1);
   a.t_off = a.w_off + a.Kp * a.w_rs * 2;
+  int smem = pl.smem_bytes;
+  if (tc_se_mode(MODE)) {
+    // The SE region follows the W chunk (launch A has no table), as in
+    // fused_block_tc.cu's tc_launch.
+    if (a.gate == nullptr || se_slots != tc_se_slots(a.bm, s.H * s.W))
+      return cudaErrorInvalidValue;
+    const int end = a.t_off + tc_se_bytes(s.taps_n, s.K, 2, pl.wm, pl.wn,
+                                          se_slots);
+    if (end > kTcMaxSmem) return cudaErrorInvalidValue;
+    if (end > smem) smem = end;
+  }
   static bool raised[64] = {};
   return entry_launch_kernel(
       rubiks_entry_tc_kernel<MODE>, raised,
       (unsigned)(pl.grid_x < a.row_tiles ? pl.grid_x : a.row_tiles),
-      (unsigned)pl.n_split, (unsigned)(pl.pw + pl.wm * pl.wn), pl.smem_bytes,
+      (unsigned)pl.n_split, (unsigned)(pl.pw + pl.wm * pl.wn), smem,
       pl.overlap, a, stream);
 }
 
@@ -536,6 +559,7 @@ cudaError_t entry_launch(const TcPlan& pl, const EntryShape& s, EntryArgs a,
 cudaError_t entry_tc_launch_mid(const TcPlan& p, const EntryShape& s,
                                 const void* x, const float* vt1,
                                 const float* vt2, const void* w2, void* mid,
+                                float* partial, int slots,
                                 cudaStream_t stream) {
   EntryArgs a = {};
   a.x = static_cast<const bf16*>(x);
@@ -543,6 +567,10 @@ cudaError_t entry_tc_launch_mid(const TcPlan& p, const EntryShape& s,
   a.w = static_cast<const bf16*>(w2);
   a.vt1 = vt1;
   a.vt2 = vt2;
+  if (partial != nullptr) {
+    a.gate = partial;
+    return entry_launch<kTcEntryMidSe>(p, s, a, stream, slots);
+  }
   return entry_launch<kTcEntryMid>(p, s, a, stream);
 }
 

@@ -30,10 +30,13 @@ inline int entry_smem_bytes(const TcPlan& p, int depth, int table_c) {
 
 // Launch A: mid = relu(s2 . (relu(s1 . x + b1) @ W2) + b2) over the full-
 // resolution grid. vt1: (2, Cin) s1, b1; vt2: (2 + 3 * taps_n, Cm) s2, b2 and
-// the taps; W2 (Cin, Cm).
+// the taps; W2 (Cin, Cm). partial: nullptr, or the SE gate's per-frame
+// weighted sums of mid for the stride-2 shift, (row tiles, slots, Cm) float32
+// with slots = tc_se_slots(wm * 16, H * W) (tc_se.cuh).
 cudaError_t entry_tc_launch_mid(const TcPlan& p, const EntryShape& s,
                                 const void* x, const float* vt1,
                                 const float* vt2, const void* w2, void* mid,
+                                float* partial, int slots,
                                 cudaStream_t stream);
 
 // Where launch B holds its weights in column chunks, the gather pre-pass: the

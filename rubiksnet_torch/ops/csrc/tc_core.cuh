@@ -17,14 +17,16 @@
 //   tab()       channels of the tap table (its row stride in shared memory)
 // and P's fields C (the output width: mid's and out's row stride), Kp (the
 // depth of the A tile, padded to 16), M, bm, a_rs, w_rs, wn, x, mid, dst, w,
-// gate, T, H, W, taps_n, K, vec. Every accessor is an inline expression, so
-// K2's kernels compile as they did before K3 came.
+// gate, T, H, W, taps_n, K, vec, t_off (the SE forms of launch A, tc_se.cuh).
+// Every accessor is an inline expression, so K2's kernels compile as they did
+// before K3 came.
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 #include "fused_block_tc.cuh"
+#include "tc_se.cuh"
 
 namespace rubiks {
 
@@ -32,14 +34,22 @@ using bf16 = __nv_bfloat16;
 
 // Launch modes. K2: A (mid), A with the attention mix, B (out = x + ...).
 // K3: A (mid from x of another width), B (out, the shortcut a second K
-// range of the same accumulator, no residual).
+// range of the same accumulator, no residual). The SE forms of the A
+// launches also sum the gate's weighted values per frame (tc_se.cuh).
 enum TcMode {
   kTcMid = 0,
   kTcMidAq = 1,
   kTcOut = 2,
   kTcEntryMid = 3,
-  kTcEntryOut = 4
+  kTcEntryOut = 4,
+  kTcMidSe = 5,
+  kTcMidAqSe = 6,
+  kTcEntryMidSe = 7
 };
+
+__host__ __device__ constexpr bool tc_se_mode(int mode) {
+  return mode == kTcMidSe || mode == kTcMidAqSe || mode == kTcEntryMidSe;
+}
 
 constexpr int kTcNT = kTcWarpCols / 8;  // column tiles of a warp
 constexpr int kTcMaxThreads = 512;
@@ -459,6 +469,151 @@ __device__ __forceinline__ void multiply_steps(const P& p, const bf16* a_ptr,
   }
 }
 
+// Four column sums s of the eight row lanes g of a quad position, reduced
+// over those lanes in a fixed order (xor 16, 8, 4): each lane ends with the
+// sum of one column, (g & 4 ? 2 : 0) + (g & 2 ? 1 : 0), which the lanes
+// with g even hold. Four shuffles, not twelve.
+__device__ __forceinline__ float tc_se_reduce4(const float (&s)[4], int g) {
+  const bool hi = g & 4, mid = g & 2;
+  const float r0 = __shfl_xor_sync(0xffffffffu, hi ? s[0] : s[2], 16);
+  const float r1 = __shfl_xor_sync(0xffffffffu, hi ? s[1] : s[3], 16);
+  const float k0 = (hi ? s[2] : s[0]) + r0, k1 = (hi ? s[3] : s[1]) + r1;
+  float v = (mid ? k1 : k0) +
+            __shfl_xor_sync(0xffffffffu, mid ? k0 : k1, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// The same for two column sums: the lanes with (g & 3) == 0 hold column
+// (g & 4 ? 1 : 0).
+__device__ __forceinline__ float tc_se_reduce2(const float (&s)[2], int g) {
+  const bool hi = g & 4;
+  float v = (hi ? s[1] : s[0]) +
+            __shfl_xor_sync(0xffffffffu, hi ? s[0] : s[1], 16);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// The SE forms' store of a warp whose 16 rows lie in one frame (TWO: in two
+// frames), C a multiple of 4: multiply_tile's store of mid (bn2, relu, four
+// columns a thread), and with it each stored value, rounded as stored,
+// times its channel's aH[h] * aW[w] from the tables (tc_se.cuh), summed over
+// the thread's rows of a frame, then over the eight row lanes
+// (tc_se_reduce4) into the warp's row of the shared sums for that frame. A
+// pair of column tiles at a time, both rows, so that four sums a frame are
+// live, not eighteen. Stride S: 1 (K2), 2 (K3).
+template <int S, bool TWO, class P>
+__device__ __forceinline__ void store_tile_se(const P& p,
+                                              const float (&acc)[kTcNT][4],
+                                              int64_t m0, int n0, int col0,
+                                              int nt_valid, int wm_i,
+                                              int lane) {
+  constexpr int NF = TWO ? 2 : 1;
+  const TcSeGeom geo = tc_se_geom<S>(p);
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool odd = t4 & 1;
+  const int nbase = n0 + col0;
+  const int n4 = nbase + (odd ? 8 : 0) + 2 * (t4 & ~1);  // + 16 * pair
+  const int n9 = nbase + 64 + 2 * t4;
+  const int r_lo = (int)m0 + wm_i * 16;
+  const int hw = p.H * p.W;
+  const int fa = r_lo / hw;
+  // The thread's two rows: where they are stored, their weights indexed by
+  // the absolute column, and (TWO) whether they lie in the second frame.
+  bf16* dst[2];
+  const float* wh[2];
+  const float* ww[2];
+  bool live[2], second[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = r_lo + g + 8 * half;
+    live[half] = m < p.M;
+    const int q = live[half] ? m / p.W : 0;
+    const int w = live[half] ? m - q * p.W : 0;
+    second[half] = TWO && live[half] && m >= (fa + 1) * hw;
+    dst[half] = p.dst + (int64_t)m * p.C;
+    wh[half] = geo.base + tc_se_entry<S>(geo, q % p.H, p.H) * geo.ncp - n0;
+    ww[half] = geo.base +
+               (geo.entries + tc_se_entry<S>(geo, w, p.W)) * geo.ncp - n0;
+  }
+  // The warp's row of the shared sums for frame fa, indexed by the column.
+  float* red = geo.base +
+               (2 * geo.entries + wm_i * geo.slots + fa - (int)m0 / hw) *
+                   geo.ncp - n0;
+  const int c4 = (g & 4 ? 2 : 0) + (g & 2 ? 1 : 0);  // tc_se_reduce4's
+#pragma unroll
+  for (int np = 0; np < kTcNT / 2; ++np) {
+    const int n = n4 + 16 * np;
+    const bool cols = 2 * np < nt_valid && n < p.C;
+    float sum[NF][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[f][i] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // Every lane takes part in the exchange, whatever it stores.
+      const float a0 = acc[2 * np][2 * half], a1 = acc[2 * np][2 * half + 1];
+      const float b0 = acc[2 * np + 1][2 * half];
+      const float b1 = acc[2 * np + 1][2 * half + 1];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+      if (!live[half] || !cols) continue;
+      const float4 sc = __ldg(reinterpret_cast<const float4*>(p.s2() + n));
+      const float4 bi = __ldg(reinterpret_cast<const float4*>(p.b2() + n));
+      const uint2 o = make_uint2(
+          pack2(fmaxf(fmaf(sc.x, odd ? r0 : a0, bi.x), 0.f),
+                fmaxf(fmaf(sc.y, odd ? r1 : a1, bi.y), 0.f)),
+          pack2(fmaxf(fmaf(sc.z, odd ? b0 : r0, bi.z), 0.f),
+                fmaxf(fmaf(sc.w, odd ? b1 : r1, bi.w), 0.f)));
+      *reinterpret_cast<uint2*>(dst[half] + n) = o;
+      const float4 fh = *reinterpret_cast<const float4*>(wh[half] + n);
+      const float4 fw = *reinterpret_cast<const float4*>(ww[half] + n);
+      const float v[4] = {__uint_as_float(o.x << 16) * fh.x,
+                          __uint_as_float(o.x & 0xffff0000u) * fh.y,
+                          __uint_as_float(o.y << 16) * fh.z,
+                          __uint_as_float(o.y & 0xffff0000u) * fh.w};
+      const float wv[4] = {fw.x, fw.y, fw.z, fw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (TWO && second[half])
+          sum[NF - 1][i] = fmaf(v[i], wv[i], sum[NF - 1][i]);
+        else
+          sum[0][i] = fmaf(v[i], wv[i], sum[0][i]);
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float v = tc_se_reduce4(sum[f], g);
+      if ((g & 1) == 0 && cols) red[f * geo.ncp + n + c4] = v;
+    }
+  }
+  const bool cols9 = kTcNT - 1 < nt_valid && n9 < p.C;  // n9 + 1 < C too
+  float sum9[NF][2];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) sum9[f][0] = sum9[f][1] = 0.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!live[half] || !cols9) continue;
+    const unsigned o = pack2(
+        fmaxf(fmaf(__ldg(p.s2() + n9), acc[kTcNT - 1][2 * half],
+                   __ldg(p.b2() + n9)), 0.f),
+        fmaxf(fmaf(__ldg(p.s2() + n9 + 1), acc[kTcNT - 1][2 * half + 1],
+                   __ldg(p.b2() + n9 + 1)), 0.f));
+    *reinterpret_cast<unsigned*>(dst[half] + n9) = o;
+    const float2 fh = *reinterpret_cast<const float2*>(wh[half] + n9);
+    const float2 fw = *reinterpret_cast<const float2*>(ww[half] + n9);
+    const int f = TWO && second[half] ? NF - 1 : 0;
+    sum9[f][0] = fmaf(__uint_as_float(o << 16) * fh.x, fw.x, sum9[f][0]);
+    sum9[f][1] = fmaf(__uint_as_float(o & 0xffff0000u) * fh.y, fw.y,
+                      sum9[f][1]);
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const float v = tc_se_reduce2(sum9[f], g);
+    if ((g & 3) == 0 && cols9) red[f * geo.ncp + n9 + (g >> 2)] = v;
+  }
+}
+
 // The products of one tile against the resident W chunk, and the store:
 // warp (wm_i, wn_i) of the multiplying warps owns 16 rows x 72 columns.
 // (Two 16-row tiles a warp, which halve the fetches of W per product, measured
@@ -527,6 +682,22 @@ __device__ __forceinline__ void multiply_tile(const P& p, const bf16* As,
   else
     multiply_steps<false>(p, a_ptr, b_ptr, b_half, nt_valid, acc);
 
+  if constexpr (tc_se_mode(MODE)) {
+    // The SE forms: a warp whose rows lie in one or two frames stores and
+    // sums in one pass; any other takes the store below and the general
+    // sums.
+    constexpr int S = MODE == kTcEntryMidSe ? 2 : 1;
+    const int frames = quads ? tc_se_frames(p, m0, wm_i) : 0;
+    if (frames == 1) {
+      store_tile_se<S, false>(p, acc, m0, n0, col0, nt_valid, wm_i, lane);
+      return;
+    }
+    if (frames == 2) {
+      store_tile_se<S, true>(p, acc, m0, n0, col0, nt_valid, wm_i, lane);
+      return;
+    }
+  }
+
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int64_t m = m0 + a_row0 + g + half * 8;
@@ -564,6 +735,9 @@ __device__ __forceinline__ void multiply_tile(const P& p, const bf16* As,
       }
     }
   }
+  if constexpr (tc_se_mode(MODE))
+    tc_se_warp_sums<MODE == kTcEntryMidSe ? 2 : 1>(p, acc, m0, n0, col0,
+                                                   nt_valid, wm_i, lane);
 }
 
 }  // namespace rubiks

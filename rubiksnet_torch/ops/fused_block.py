@@ -13,9 +13,10 @@ Counterpart of ``rubiksnet_tpu/ops/pallas/fused_block.py`` and
 ``ops/pallas/fused_frames.py`` (the same contract).
 :func:`fused_block_run` makes one call into ``csrc/fused_block.cu`` per run
 for a CUDA tensor (bfloat16: the tensor-core kernels of
-``csrc/fused_block_tc.cu`` under :func:`fused_block_plan`; float32: the SIMT
-GEMM of ``csrc/common.cuh``), and runs :func:`fused_block_plain` for a CPU
-tensor.
+``csrc/fused_block_tc.cu`` under :func:`fused_block_plan`, the gate's sums
+in launch A and one gate launch, ``csrc/se_gate_tc.cu``; float32: the SIMT
+GEMM of ``csrc/common.cuh`` and the two gate launches of
+``csrc/se_gate.cuh``), and runs :func:`fused_block_plain` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ BN_EPS = 1e-5
 KERNEL_MAX_TAPS = 16  # taps per axis the CUDA kernels stage (max_shift <= 7)
 
 LAUNCHES = _build.LaunchCounter("fused_block")
+# The SE gate launch of the tensor-core route (csrc/se_gate_tc.cu), one per
+# SE block of K2 and K3.
+SE_GATE_LAUNCHES = _build.LaunchCounter("se_gate")
 
 
 def fold_bn(gamma, beta, mean, var, eps=BN_EPS):
@@ -224,9 +228,22 @@ SE_ROWS = 8  # rows of H one block of the SE reduction's first pass sums
 
 
 def se_slices(h: int) -> int:
-    """Row slices per frame of the SE reduction's first pass. It depends on
-    the shape only, so the summation order is fixed."""
+    """Row slices per frame of the SE reduction's first pass (the "simt"
+    route). It depends on the shape only, so the summation order is fixed."""
     return -(-h // SE_ROWS)
+
+
+def se_partial_shape(plan, shape):
+    """(row tiles, frame slots, C) of the SE gate's partials on the
+    tensor-core route: launch A (under ``plan``, a :class:`BlockPlan`: K2's,
+    or K3's ``plan.a``) leaves, per row tile of ``plan.rows`` rows of the
+    (N*T*H*W, C) ``mid`` of ``shape`` (N, T, H, W, C), one weighted sum per
+    frame the tile can touch and channel (csrc/tc_se.cuh::tc_se_slots). The
+    C side sizes and checks the shared memory of the sums."""
+    n, t, h, w, c = shape
+    hw = h * w
+    return (max(1, _ceil_div(n * t * hw, plan.rows)),
+            (plan.rows + hw - 2) // hw + 1, c)
 
 
 # ------------------------------------------------------- the launch plan
@@ -439,11 +456,15 @@ def _sm_count(index) -> int:
 
 
 def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
-                       route=None, **knobs):
+                       route=None, scratch=None, **knobs):
     """Kernel K2 on CUDA tensors: one C call per run, which makes two
-    launches per block (and with ``se`` two more for the gate). ``route``
-    "simt" runs bfloat16 on the previous route (the common.cuh GEMM), for
-    timing it beside the tensor-core kernels; the port never passes it."""
+    launches per block (and with ``se`` one more for the gate on the
+    tensor-core route, two on the SIMT route). ``route`` "simt" runs
+    bfloat16 on the previous route (the common.cuh GEMM and se_gate.cuh),
+    for timing it beside the tensor-core kernels; the port never passes
+    it. ``scratch``: None, or a dict that receives the run's ``mid``,
+    ``partial`` and ``gate`` (as the last block left them), to check the
+    gate on its own."""
     taps_n = _check_args(x, vt, wm, se, aq, max_shift)
     if taps_n > KERNEL_MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes <= {KERNEL_MAX_TAPS} taps")
@@ -465,9 +486,15 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
     cr = slices = 0
     partial = gate = None
     if se is not None:
-        cr, slices = se.shape[3], se_slices(h)
-        partial = torch.empty((n * t, slices, c), dtype=torch.float32,
-                              device=x.device)
+        cr = se.shape[3]
+        if plan.route == "mma":
+            partial = torch.empty(se_partial_shape(plan, x.shape),
+                                  dtype=torch.float32, device=x.device)
+            slices = partial.shape[1]
+        else:
+            slices = se_slices(h)
+            partial = torch.empty((n * t, slices, c), dtype=torch.float32,
+                                  device=x.device)
         gate = torch.empty((n * t, c), dtype=torch.float32, device=x.device)
     nb = vt.shape[0]
     with torch.cuda.device(x.device):
@@ -482,6 +509,10 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
                 int(plan.overlap), _build.stream_of(x))
     _build.check(rc, "rubiks_fused_block_run")
     LAUNCHES.count += nb
+    if se is not None and plan.route == "mma":
+        SE_GATE_LAUNCHES.count += nb
+    if scratch is not None:
+        scratch.update(mid=mid, partial=partial, gate=gate)
     return out if nb else x.clone()
 
 

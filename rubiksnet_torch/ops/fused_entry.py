@@ -11,8 +11,10 @@ taken over the decimated (H/2, W/2) grid. Counterpart of
 keeps rubiks3d-aq entries on the module path).
 :func:`fused_entry_run` makes one call into ``csrc/fused_entry.cu`` for a
 CUDA tensor (bfloat16: the tensor-core kernels of ``csrc/fused_entry_tc.cu``
-under :func:`fused_entry_plan`; float32: the SIMT GEMM of
-``csrc/common.cuh``), and runs :func:`fused_entry_plain` for a CPU tensor.
+under :func:`fused_entry_plan`, the gate's sums in launch A and one gate
+launch, ``csrc/se_gate_tc.cu``; float32: the SIMT GEMM of
+``csrc/common.cuh`` and the gate of ``csrc/se_gate.cuh``), and runs
+:func:`fused_entry_plain` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from . import _build
 from .fused_block import (
     KERNEL_MAX_TAPS,
+    SE_GATE_LAUNCHES,
     SM_COUNT,
     SMEM_LIMIT,
     BlockPlan,
@@ -36,6 +39,7 @@ from .fused_block import (
     blocks_per_sm,
     conv1x1_matrix,
     se_gate,
+    se_partial_shape,
     se_slices,
     stack_taps,
     tap_shift,
@@ -265,12 +269,14 @@ def fused_entry_plan(shape, cm, dtype, *, sms=SM_COUNT, route=None,
 
 
 def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
-                       **knobs):
+                       scratch=None, **knobs):
     """Kernel K3 on CUDA tensors: one C call (two launches, three with the
-    gather pre-pass, and with ``se`` two more for the gate). ``route``
-    "simt" runs bfloat16 on the previous
-    route (the common.cuh GEMM), for timing it beside the tensor-core
-    kernels; the port never passes it. ``knobs``: as
+    gather pre-pass, and with ``se`` one more for the gate on the
+    tensor-core route, two on the SIMT route). ``route`` "simt" runs
+    bfloat16 on the previous route (the common.cuh GEMM and se_gate.cuh),
+    for timing it beside the tensor-core kernels; the port never passes
+    it. ``scratch``: None, or a dict that receives ``mid``, ``partial`` and
+    ``gate``, to check the gate on its own. ``knobs``: as
     :func:`fused_entry_plan` takes them."""
     taps_n = _check_args(x, params, se, max_shift)
     if taps_n > KERNEL_MAX_TAPS:
@@ -293,11 +299,18 @@ def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
                       device=x.device)
     m_out = n * t * (h // 2) * (w // 2)
     cr = slices = 0
-    se_ptr = partial_ptr = gate_ptr = None
+    se_ptr = partial_ptr = gate_ptr = partial = gate = None
     if se is not None:
-        cr, slices = se.shape[2], se_slices(h)
-        partial = torch.empty((n * t, slices, cmid), dtype=torch.float32,
-                              device=x.device)
+        cr = se.shape[2]
+        if plan.route == "mma":
+            partial = torch.empty(
+                se_partial_shape(plan.a, (n, t, h, w, cmid)),
+                dtype=torch.float32, device=x.device)
+            slices = partial.shape[1]
+        else:
+            slices = se_slices(h)
+            partial = torch.empty((n * t, slices, cmid), dtype=torch.float32,
+                                  device=x.device)
         gate = torch.empty((n * t, cmid), dtype=torch.float32,
                            device=x.device)
         se_ptr, partial_ptr, gate_ptr = (se.data_ptr(), partial.data_ptr(),
@@ -321,6 +334,10 @@ def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
                 _build.stream_of(x))
     _build.check(rc, "rubiks_fused_entry")
     LAUNCHES.count += 1
+    if se is not None and plan.route == "mma":
+        SE_GATE_LAUNCHES.count += 1
+    if scratch is not None:
+        scratch.update(mid=mid, partial=partial, gate=gate)
     return out
 
 

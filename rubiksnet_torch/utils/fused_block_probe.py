@@ -4,6 +4,8 @@ of the plan's knobs.
 
     python3 -m rubiksnet_torch.utils.fused_block_probe --ptxas --check
     python3 -m rubiksnet_torch.utils.fused_block_probe --host --sweep
+    python3 -m rubiksnet_torch.utils.fused_block_probe --se --ptxas --check \
+        --sweep
 
 ``--ptxas`` compiles both sources once more with ``-Xptxas -v`` and prints
 each kernel's registers, spills and shared memory, and the tensor-core
@@ -23,8 +25,13 @@ consecutive launches. ``--sweep`` times one block, bfloat16 at batch 8 (or
 ``torch.profiler`` and time per call by CUDA events, for rubiks3d and aq,
 beside the previous route, with the launches not overlapped so that a
 kernel's duration holds no wait for the one before it; every setting is held
-against the plain version before it is timed. Needs a CUDA card; prints its
-name and power limit.
+against the plain version before it is timed. ``--se`` turns the three to
+the SE forms: ``--ptxas`` also compiles the gate launch
+(``se_gate_tc.cu``) and names each kernel's launch (K2's A with the gate's
+sums, ``rubiks_tc_kernel<5>`` and ``<6>`` with aq, beside the unchanged
+``<0>``, ``<1>``, ``<2>``), ``--check`` runs the se and aq+se variants only,
+``--sweep`` times K2-SE and K2-AQ-SE (launch A with the sums, the gate,
+launch B). Needs a CUDA card; prints its name and power limit.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ SERVE_BATCHES = (1, 8, 32)  # clips per call of the served and timed points
 # Large at 224 px: (H, C, blocks per forward).
 MODEL_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 7), (14, 288, 35),
                 (7, 576, 2)]
+# Blocks per forward of Small (the SE tier) at the same shapes.
+SMALL_COUNTS = {112: 1, 56: 2, 28: 3, 14: 5, 7: 2}
 VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
 # Off the model's shapes: (label, N, T, H, W, C, max_shift, shift kind,
 # blocks). Kinds: "frac" U(-0.95 K, 0.95 K); "far" within 0.3 of +-K;
@@ -70,6 +79,9 @@ CASES = [
 ]
 TOL_F32_REL_MAX = 1e-4  # f32: summation order only
 TOL_BF16_REL_L2 = 1e-2  # bf16: the plain version rounds more often
+# The SE gate alone, (frames, C) values in (0, 1), against the plain gate of
+# the kernel's own mid: both sum the same float32 terms in another order.
+TOL_GATE = 1e-5
 
 
 def rel_errors(got, ref):
@@ -132,16 +144,34 @@ def make_run(c, blocks, aq, se, dtype, max_shift, kind, cpu_gen, dev):
     return vt, wm, (fb.stack_se_params(mods) if se else None)
 
 
+def gate_error(scratch, taps, se, max_shift, stride, first_gate):
+    """(max |gate - plain gate| of the kernel's own mid, whether the gate
+    equals ``first_gate`` bit for bit) of a kernel call that left its mid
+    and gate in ``scratch``; the plain gate is ``se_gate`` of the shift of
+    mid, sampled at ``stride``."""
+    mid = scratch["mid"]
+    v = fb.tap_shift(mid.float(), taps, max_shift)[:, :, ::stride, ::stride]
+    ref = fb.se_gate(v, se).reshape(scratch["gate"].shape)
+    return (float((scratch["gate"] - ref).abs().max()),
+            torch.equal(scratch["gate"], first_gate))
+
+
 def check_case(label, shape, max_shift, kind, blocks, aq, se, dtype, gen,
-               cpu_gen, dev, route=None):
+               cpu_gen, dev, route=None, gate_errs=None):
     """One comparison of the kernel with the plain version, the kernel run
-    twice. Returns (ok, max_abs, text, the plan the kernel ran under)."""
+    twice; with ``se`` also the last block's gate against the plain gate of
+    its mid (appended to ``gate_errs`` where given), bit-identical on the
+    rerun. Returns (ok, max_abs, text, the plan the kernel ran under)."""
     vt, wm, sep = make_run(shape[-1], blocks, aq, se, dtype, max_shift, kind,
                            cpu_gen, dev)
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     kw = dict(aq=aq, max_shift=max_shift)
-    got = fb.fused_block_kernel(x, vt, wm, sep, route=route, **kw)
-    again = fb.fused_block_kernel(x, vt, wm, sep, route=route, **kw)
+    scratch = {}
+    got = fb.fused_block_kernel(x, vt, wm, sep, route=route, scratch=scratch,
+                                **kw)
+    first_gate = scratch["gate"].clone() if se else None
+    again = fb.fused_block_kernel(x, vt, wm, sep, route=route,
+                                  scratch=scratch, **kw)
     ref = fb.fused_block_plain(x, vt, wm, sep, **kw)
     torch.cuda.synchronize()
     max_abs, rel_max, rel_l2 = rel_errors(got, ref)
@@ -157,8 +187,17 @@ def check_case(label, shape, max_shift, kind, blocks, aq, se, dtype, gen,
     tag = f"K2{'-AQ' if aq else ''}{'-SE' if se else ''}"
     text = (f"{tag} {label} {tuple(shape)} {str(dtype)[6:]}: max_abs="
             f"{max_abs:.3e} rel_max={rel_max:.3e} rel_l2={rel_l2:.3e} "
-            f"[{what}] rerun {'bit-identical' if same else 'DIFFERS'} "
-            f"[{plan.describe()}] {'ok' if ok else 'FAIL'}")
+            f"[{what}] rerun {'bit-identical' if same else 'DIFFERS'}")
+    if se:
+        tn = fb.taps_from_rows(vt.shape[1], 4, aq)
+        err, same_gate = gate_error(scratch, vt[-1, 4:4 + 3 * tn], sep[-1],
+                                    max_shift, 1, first_gate)
+        ok = ok and err <= TOL_GATE and same_gate
+        text += (f", gate max_abs={err:.2e} [<={TOL_GATE}] rerun "
+                 f"{'bit-identical' if same_gate else 'DIFFERS'}")
+        if gate_errs is not None:
+            gate_errs.append(err)
+    text += f" [{plan.describe()}] {'ok' if ok else 'FAIL'}"
     return ok, max_abs, text, plan
 
 
@@ -176,7 +215,7 @@ def served_cases(batches=SERVE_BATCHES):
             for n in batches for h, c, _ in MODEL_SHAPES]
 
 
-def check(dev) -> bool:
+def check(dev, se_only=False) -> bool:
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     ok = True
@@ -188,6 +227,8 @@ def check(dev) -> bool:
     for (label, n, t, h, w, c, k, kind, blocks), dtypes in cases:
         for dt in dtypes:
             for aq, se in case_variants(kind):
+                if se_only and not se:
+                    continue
                 good, _, text, _ = check_case(label, (n, t, h, w, c), k, kind,
                                               blocks, aq, se, dt, gen,
                                               cpu_gen, dev)
@@ -196,9 +237,28 @@ def check(dev) -> bool:
     return ok
 
 
+# The launch each tensor-core kernel instantiation is, by its mangled name
+# (the mode of csrc/tc_core.cuh::TcMode).
+LAUNCH_NAMES = {
+    "rubiks_tc_kernelILi0E": "K2 A", "rubiks_tc_kernelILi1E": "K2 A-AQ",
+    "rubiks_tc_kernelILi2E": "K2 B", "rubiks_tc_kernelILi5E": "K2 A-SE",
+    "rubiks_tc_kernelILi6E": "K2 A-AQ-SE",
+    "rubiks_entry_tc_kernelILi3E": "K3 A",
+    "rubiks_entry_tc_kernelILi4E": "K3 B",
+    "rubiks_entry_tc_kernelILi7E": "K3 A-SE",
+    "rubiks_entry_gather_kernel": "K3 gather pre-pass",
+    "se_gate_tc_kernel": "the SE gate (tensor-core route)",
+}
+
+
+def launch_name(mangled: str) -> str:
+    return next((v for k, v in LAUNCH_NAMES.items() if k in mangled), "")
+
+
 def ptxas_report(sources=("fused_block_tc.cu", "fused_block.cu")) -> None:
     """Registers, spills and shared memory of every kernel of the sources,
-    and the tensor-core instructions in each object."""
+    each tensor-core launch named, and the tensor-core instructions in each
+    object."""
     nvcc = _build._find_nvcc()
     for name in sources:
         with tempfile.TemporaryDirectory() as tmp:
@@ -212,8 +272,10 @@ def ptxas_report(sources=("fused_block_tc.cu", "fused_block.cu")) -> None:
             lines = (proc.stdout + proc.stderr).splitlines()
             for i, line in enumerate(lines):
                 if "Compiling entry function" in line:
-                    print("  " + line.split("'")[1][:70], "|", " ".join(
-                        lines[i + 1: i + 4]).replace("ptxas info    :", ""))
+                    mangled = line.split("'")[1]
+                    print("  " + mangled[:70], f"[{launch_name(mangled)}]",
+                          "|", " ".join(lines[i + 1: i + 4]).replace(
+                              "ptxas info    :", ""))
             if proc.returncode != 0:
                 print(proc.stderr)
                 raise RuntimeError("nvcc failed")
@@ -298,8 +360,10 @@ def device_ms(fn, needles, iters=5):
     return total / iters, sum(n for n, _ in times.values()) / iters, by_name
 
 
-# Kernel names of K2's GEMM launches by route, as the profiler shows them.
-NEEDLES = {"mma": ("rubiks_tc_kernel",), "simt": ("gemm_kernel",)}
+# Kernel names of K2's launches by route, as the profiler shows them (with
+# the SE gate's).
+NEEDLES = {"mma": ("rubiks_tc_kernel", "se_gate_tc_kernel"),
+           "simt": ("gemm_kernel", "se_partial_kernel", "se_gate_kernel")}
 
 def _pinned(producers, warps_m, warps_n):
     return {"producers": producers, "warps_m": warps_m, "warps_n": warps_n}
@@ -317,19 +381,21 @@ SETTINGS = [{}] + [_pinned(*k) for k in (
         {"route": "simt"}, {}]
 
 
-def sweep(dev, batch) -> bool:
-    """Times every setting, each held against the plain version first."""
+def sweep(dev, batch, se=False) -> bool:
+    """Times every setting, each held against the plain version first;
+    with ``se`` the SE forms."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
     totals = {}
     ok = True
     for h, c, count in MODEL_SHAPES:
+        count = SMALL_COUNTS[h] if se else count
         shape = (batch, FRAMES, h, h, c)
         x = torch.randn(shape, generator=gen, device=dev).to(bf)
         for aq in (False, True):
-            vt, wm, _ = make_run(c, 1, aq, False, bf, 1, "frac", cpu_gen, dev)
-            ref = fb.fused_block_plain(x, vt, wm, aq=aq, max_shift=1)
+            vt, wm, sep = make_run(c, 1, aq, se, bf, 1, "frac", cpu_gen, dev)
+            ref = fb.fused_block_plain(x, vt, wm, sep, aq=aq, max_shift=1)
             for i, setting in enumerate(SETTINGS):
                 knobs = dict(setting)
                 route = knobs.pop("route", None)
@@ -339,11 +405,16 @@ def sweep(dev, batch) -> bool:
                 except ValueError:
                     continue  # the setting does not fit this width
                 fn = lambda: fb.fused_block_kernel(
-                    x, vt, wm, aq=aq, max_shift=1, route=route,
+                    x, vt, wm, sep, aq=aq, max_shift=1, route=route,
                     overlap=False, **knobs)
-                rel_l2 = rel_errors(fn(), ref)[2]
+                try:
+                    got = fn()
+                except ValueError:
+                    continue  # the gate's sums do not fit beside it
+                rel_l2 = rel_errors(got, ref)[2]
+                tag = f"K2{'-AQ' if aq else ''}{'-SE' if se else ''}"
                 if not rel_l2 <= TOL_BF16_REL_L2:
-                    print(f"  K2{'-AQ' if aq else ''} {h}x{h}x{c} batch "
+                    print(f"  {tag} {h}x{h}x{c} batch "
                           f"{batch} {setting} [{plan.describe()}]: rel_l2="
                           f"{rel_l2:.3e} against the plain version FAIL")
                     ok = False
@@ -354,17 +425,19 @@ def sweep(dev, batch) -> bool:
                 t[0] += count * dev_ms
                 t[1] += count * evt
                 t[2] += count
-                print(f"  K2{'-AQ' if aq else ''} {h}x{h}x{c} batch {batch} "
+                print(f"  {tag} {h}x{h}x{c} batch {batch} "
                       f"{setting or 'defaults'} [{plan.describe()}]: rel_l2 "
                       f"{rel_l2:.1e} ok, device "
                       f"{dev_ms:.4f} ms ({n:.0f} kernels/call: "
                       + ", ".join(f"{v:.4f}" for v in by_name.values())
                       + f") events {evt:.4f} ms")
-    print("[sweep] summed over the launches of one Large forward the setting "
-          "fits (of 47): device ms, events ms")
+    print(f"[sweep] summed over the launches of one "
+          f"{'Small' if se else 'Large'} forward the setting fits (of "
+          f"{13 if se else 47}): device ms, events ms")
     for (aq, i), (d, e, n) in sorted(totals.items()):
-        print(f"  K2{'-AQ' if aq else ''} {SETTINGS[i] or 'defaults'}: "
-              f"{d:.3f}, {e:.3f} over {n} launches")
+        print(f"  K2{'-AQ' if aq else ''}{'-SE' if se else ''} "
+              f"{SETTINGS[i] or 'defaults'}: {d:.3f}, {e:.3f} over {n} "
+              f"launches")
     return ok
 
 
@@ -375,6 +448,7 @@ def main(argv=None) -> int:
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--se", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fused_block_probe: no CUDA device", file=sys.stderr)
@@ -382,15 +456,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     print(f"[device] {nvidia_smi_line()}; torch {torch.__version__}")
     if args.ptxas:
-        ptxas_report()
+        ptxas_report(("fused_block_tc.cu", "fused_block.cu")
+                     + (("se_gate_tc.cu",) if args.se else ()))
     if args.check:
-        if not check(dev):
+        if not check(dev, args.se):
             print("fused_block_probe: a comparison failed", file=sys.stderr)
             return 1
     if args.host:
         host(dev)
     if args.sweep:
-        if not sweep(dev, args.batch):
+        if not sweep(dev, args.batch, args.se):
             print("fused_block_probe: a swept setting disagrees with the "
                   "plain version", file=sys.stderr)
             return 1

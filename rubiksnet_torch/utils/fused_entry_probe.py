@@ -4,6 +4,8 @@ of the plan's knobs.
 
     python3 -m rubiksnet_torch.utils.fused_entry_probe --ptxas --check
     python3 -m rubiksnet_torch.utils.fused_entry_probe --host --sweep
+    python3 -m rubiksnet_torch.utils.fused_entry_probe --se --ptxas --check \
+        --sweep
 
 ``--ptxas`` compiles K2's and K3's sources once more with ``-Xptxas -v``
 and prints each kernel's registers, spills and shared memory, and the
@@ -22,7 +24,12 @@ four shapes under pinned ``producers``, ``warps_m``, ``warps_n`` of either
 launch: device time of launch A and launch B by ``torch.profiler``, with
 the launches not overlapped, beside the plan's own choice and the previous
 route; every setting is held against the plain version before it is timed.
-Needs a CUDA card; prints its name and power limit.
+``--se`` turns the three to the SE forms: ``--ptxas`` also compiles the gate
+launch (``se_gate_tc.cu``; launch A with the gate's sums is
+``rubiks_entry_tc_kernel<7>``, beside the unchanged ``<3>`` and ``<4>``),
+``--check`` runs K3-SE only, ``--sweep`` times K3-SE (launch A with the
+sums, the gate, the pre-pass, launch B). Needs a CUDA card; prints its name
+and power limit.
 """
 
 from __future__ import annotations
@@ -60,15 +67,18 @@ CASES = [
 
 def launch_of(name: str) -> str | None:
     """Which part of K3 a device kernel of the profiler is: "A" and "B" (the
-    tensor-core launches, rubiks_entry_tc_kernel<3> and <4>), "G" (launch
-    B's gather pre-pass), "gate" (the SE gate's two) or "simt" (the previous
-    route's GEMM)."""
+    tensor-core launches, rubiks_entry_tc_kernel<3> or, with the gate's
+    sums, <7>, and <4>), "G" (launch B's gather pre-pass), "gate" (the SE
+    gate: one launch on the tensor-core route, two on the SIMT route) or
+    "simt" (the previous route's GEMM)."""
     if "rubiks_entry_gather_kernel" in name:
         return "G"
     at = name.find("rubiks_entry_tc_kernel")
     if at >= 0:
-        return "A" if "3>" in name[at:at + 32] else "B"
-    if "se_partial_kernel" in name or "se_gate_kernel" in name:
+        mode = name[at:at + 32]
+        return "A" if "3>" in mode or "7>" in mode else "B"
+    if any(k in name for k in ("se_partial_kernel", "se_gate_kernel",
+                               "se_gate_tc_kernel")):
         return "gate"
     return "simt" if "gemm_kernel" in name else None
 
@@ -90,15 +100,21 @@ def make_entry(cin, cm, se, dtype, max_shift, kind, cpu_gen, dev):
 
 
 def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
-               dev, route=None):
-    """One comparison of K3 with the plain version, the kernel run twice.
+               dev, route=None, gate_errs=None):
+    """One comparison of K3 with the plain version, the kernel run twice;
+    with ``se`` also the gate against the plain gate of the kernel's mid
+    (appended to ``gate_errs`` where given), bit-identical on the rerun.
     Returns (ok, max_abs, text, the plan the kernel ran under)."""
     params, sep = make_entry(shape[-1], cm, se, dtype, max_shift, kind,
                              cpu_gen, dev)
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     kw = dict(max_shift=max_shift)
-    got = fe.fused_entry_kernel(x, params, sep, route=route, **kw)
-    again = fe.fused_entry_kernel(x, params, sep, route=route, **kw)
+    scratch = {}
+    got = fe.fused_entry_kernel(x, params, sep, route=route, scratch=scratch,
+                                **kw)
+    first_gate = scratch["gate"].clone() if se else None
+    again = fe.fused_entry_kernel(x, params, sep, route=route,
+                                  scratch=scratch, **kw)
     ref = fe.fused_entry_plain(x, params, sep, **kw)
     torch.cuda.synchronize()
     max_abs, rel_max, rel_l2 = k2.rel_errors(got, ref)
@@ -116,8 +132,16 @@ def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
     text = (f"K3{'-SE' if se else ''} {label} {tuple(shape)}->{cm} "
             f"{str(dtype)[6:]}: max_abs={max_abs:.3e} rel_max={rel_max:.3e} "
             f"rel_l2={rel_l2:.3e} [{what}] rerun "
-            f"{'bit-identical' if same else 'DIFFERS'} [{plan.describe()}] "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{'bit-identical' if same else 'DIFFERS'}")
+    if se:
+        err, same_gate = k2.gate_error(scratch, params[1][2:], sep,
+                                       max_shift, 2, first_gate)
+        ok = ok and err <= k2.TOL_GATE and same_gate
+        text += (f", gate max_abs={err:.2e} [<={k2.TOL_GATE}] rerun "
+                 f"{'bit-identical' if same_gate else 'DIFFERS'}")
+        if gate_errs is not None:
+            gate_errs.append(err)
+    text += f" [{plan.describe()}] {'ok' if ok else 'FAIL'}"
     return ok, max_abs, text, plan
 
 
@@ -156,7 +180,7 @@ def route_kernels(gen, cpu_gen, dev):
     return ok, "\n  ".join(texts)
 
 
-def check(dev) -> bool:
+def check(dev, se_only=False) -> bool:
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     ok = True
@@ -166,7 +190,7 @@ def check(dev) -> bool:
     runs += [(case, bf, "simt") for case in model_cases()]
     runs += [(case, bf, None) for case in served_cases()]
     for (label, n, t, h, w, cin, cm, k, kind), dt, route in runs:
-        for se in (False, True):
+        for se in (True,) if se_only else (False, True):
             good, _, text, _ = check_case(label, (n, t, h, w, cin), cm, k,
                                           kind, se, dt, gen, cpu_gen, dev,
                                           route)
@@ -213,8 +237,9 @@ SETTINGS = [{}] + [_pinned(launch, *k) for launch in ("a", "b") for k in (
                                {"route": "simt"}, {}]
 
 
-def sweep(dev, batch) -> bool:
-    """Times every setting, each held against the plain version first."""
+def sweep(dev, batch, se=False) -> bool:
+    """Times every setting, each held against the plain version first;
+    with ``se`` K3-SE."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -223,8 +248,8 @@ def sweep(dev, batch) -> bool:
     for h, cin, cm in ENTRY_SHAPES:
         shape = (batch, FRAMES, h, h, cin)
         x = torch.randn(shape, generator=gen, device=dev).to(bf)
-        params, _ = make_entry(cin, cm, False, bf, 1, "frac", cpu_gen, dev)
-        ref = fe.fused_entry_plain(x, params, max_shift=1)
+        params, sep = make_entry(cin, cm, se, bf, 1, "frac", cpu_gen, dev)
+        ref = fe.fused_entry_plain(x, params, sep, max_shift=1)
         for i, setting in enumerate(SETTINGS):
             knobs = dict(setting)
             route = knobs.pop("route", None)
@@ -235,10 +260,15 @@ def sweep(dev, batch) -> bool:
             except ValueError:
                 continue  # the setting does not fit this width
             over = {} if route == "simt" else {"overlap": False}
-            fn = lambda: fe.fused_entry_kernel(x, params, max_shift=1,
+            fn = lambda: fe.fused_entry_kernel(x, params, sep, max_shift=1,
                                                route=route, **over, **knobs)
-            rel_l2 = k2.rel_errors(fn(), ref)[2]
-            label = (f"K3 {h}x{h}x{cin}->{cm} batch {batch} "
+            try:
+                got = fn()
+            except ValueError:
+                continue  # the gate's sums do not fit beside this setting
+            rel_l2 = k2.rel_errors(got, ref)[2]
+            label = (f"K3{'-SE' if se else ''} {h}x{h}x{cin}->{cm} batch "
+                     f"{batch} "
                      f"{setting or 'defaults'} [{plan.describe()}]")
             if not rel_l2 <= k2.TOL_BF16_REL_L2:
                 print(f"  {label}: rel_l2={rel_l2:.3e} against the plain "
@@ -248,7 +278,7 @@ def sweep(dev, batch) -> bool:
             times = cuda_kernel_times(fn, iters=5)
             by = {part: sum(ms for nm, (_, ms) in times.items()
                             if launch_of(nm) == part) / 5
-                  for part in ("A", "B", "G", "simt")}
+                  for part in ("A", "B", "G", "gate", "simt")}
             dev_ms = sum(ms for _, ms in times.values()) / 5
             evt = cuda_time_ms(fn, iters=20)
             t = totals.setdefault(i, [0.0, 0.0, 0.0, 0.0, 0])
@@ -258,8 +288,9 @@ def sweep(dev, batch) -> bool:
             t[3] += evt
             t[4] += 1
             print(f"  {label}: rel_l2 {rel_l2:.1e} ok, device A {by['A']:.4f}"
-                  f" G {by['G']:.4f} B {by['B']:.4f} SIMT {by['simt']:.4f}, "
-                  f"all {dev_ms:.4f} ms, events {evt:.4f} ms")
+                  f" gate {by['gate']:.4f} G {by['G']:.4f} B {by['B']:.4f} "
+                  f"SIMT {by['simt']:.4f}, all {dev_ms:.4f} ms, events "
+                  f"{evt:.4f} ms")
     print("[sweep] summed over the entry shapes the setting fits (of 4): "
           "device ms A, B, all; events ms")
     for i, (a, b, d, e, n) in sorted(totals.items()):
@@ -275,6 +306,7 @@ def main(argv=None) -> int:
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--se", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fused_entry_probe: no CUDA device", file=sys.stderr)
@@ -283,15 +315,16 @@ def main(argv=None) -> int:
     print(f"[device] {nvidia_smi_line()}; torch {torch.__version__}")
     if args.ptxas:
         k2.ptxas_report(("fused_block_tc.cu", "fused_entry_tc.cu",
-                         "fused_entry.cu"))
+                         "fused_entry.cu")
+                        + (("se_gate_tc.cu",) if args.se else ()))
     if args.check:
-        if not check(dev):
+        if not check(dev, args.se):
             print("fused_entry_probe: a comparison failed", file=sys.stderr)
             return 1
     if args.host:
         host(dev)
     if args.sweep:
-        if not sweep(dev, args.batch):
+        if not sweep(dev, args.batch, args.se):
             print("fused_entry_probe: a swept setting disagrees with the "
                   "plain version", file=sys.stderr)
             return 1

@@ -28,8 +28,8 @@ CLASSES = (
     ("K1 (shift3d_fwd_kernel)", ("shift3d_fwd_kernel",)),
     ("K1-inverse (shift3d_inv_kernel)", ("shift3d_inv_kernel",)),
     ("K4 (shift_grad)", ("shift_grad",)),
-    ("SE gate kernels (se_partial, se_gate)", ("se_partial_kernel",
-                                               "se_gate_kernel")),
+    ("SE gate (se_gate_tc_kernel; SIMT route: se_partial, se_gate)",
+     ("se_gate_tc_kernel", "se_partial_kernel", "se_gate_kernel")),
     ("K2 bf16 launches (rubiks_tc_kernel)", ("rubiks_tc_kernel",)),
     ("K3 bf16 launches (rubiks_entry_tc_kernel, rubiks_entry_gather_kernel)",
      ("rubiks_entry",)),

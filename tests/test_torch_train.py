@@ -293,6 +293,8 @@ def test_profile_probe_classifies_kernel_names():
         "void rubiks::shift3d_inv_kernel<float>(...)": "K1-inverse (",
         "void rubiks::shift2d_kernel<__nv_bfloat16, 16>(...)": "2D shift",
         "void rubiks::se_partial_kernel<float>(...)": "SE gate",
+        "rubiks::(anonymous namespace)::se_gate_tc_kernel(...)": "SE gate",
+        "void rubiks::rubiks_tc_kernel<5>(rubiks::TcArgs)": "K2 bf16",
         "void rubiks::gemm_kernel<float, rubiks::ShiftLoad<float>>":
             "float32 K2 and K3",
         "void rubiks::rubiks_tc_kernel<2>(rubiks::TcArgs)": "K2 bf16",
