@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse, K4
-shift_grad, K2 fused_block with its tensor-core launches fused_block_tc.cu,
+Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse and K4
+shift_grad with their redesign shift3d_bwd.cu, K2 fused_block with its tensor-core launches fused_block_tc.cu,
 K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
 inside K2 and K3: on the tensor-core route its sums in launch A, tc_se.cuh,
 and one gate launch, se_gate_tc.cu, on the SIMT route se_gate.cuh's two
@@ -35,12 +35,13 @@ on its main path, its error against the plain version, its time beside the
 plain version's, its bound (the larger of bytes moved over the memory rate
 and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
-exists (a depthwise convolution for the shifts). K1, K1-inverse and K4
-carry their device time by the profiler; the 2D shift's two rows, K2's
-three and K3's two also theirs and the time of the route they replaced (K1
-and K1-inverse on a one-frame view; for K2 and K3 in bf16 the SIMT GEMM of
-common.cuh), taken in this run; K2's also the time of a forward's blocks as
-the models call them, one run per stage. The SE gate's row (se_gate) carries
+exists (a depthwise convolution for the shifts). K1 carries its device
+time by the profiler; the 2D shift's two rows, K2's three, K3's two,
+K1-inverse's and K4's also theirs and the time of the route they replaced
+(K1 and K1-inverse on a one-frame view; for K2 and K3 in bf16 the SIMT GEMM
+of common.cuh; for K1-inverse and K4 their first forms, shift3d.cu and
+shift_grad.cu), taken in this run; K2's also the time of a forward's blocks
+as the models call them, one run per stage. The SE gate's row (se_gate) carries
 its device time over Small's 17 SE blocks beside what its sums add to
 launch A and the previous route's two gate launches in the same call.
 """
@@ -133,9 +134,12 @@ FLOPS_PER_CORNER = 4  # weight product and multiply-add per corner read
 KERNELS = {
     "shift3d": ("rubiksnet_torch/ops/csrc/shift3d.cu",
                 "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
-    "shift3d_inverse": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+    # The 3D shift's backward on its staged route (one device body, two
+    # kernels); the first forms (shift3d.cu's inverse, shift_grad.cu) are
+    # timed beside them as the previous route.
+    "shift3d_inverse": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
                         "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
-    "shift_grad": ("rubiksnet_torch/ops/csrc/shift_grad.cu",
+    "shift_grad": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
                    "rubiksnet_tpu/ops/pallas/shift_grad_kernel.py:190"),
     "fused_block": ("rubiksnet_torch/ops/csrc/fused_block.cu",
                     "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
@@ -243,10 +247,93 @@ SHIFT_SHAPES = [(h, c, 1) for h, c, _ in BLOCK_SHAPES] + [
     (h, cm, 2) for h, _, cm in ENTRY_SHAPES]
 
 
+# The staged backward's plan depends on the batch: bands, rows per band
+# and units follow N (at 112x112x72 the input gradient's band is 3 rows at
+# batch 2 and 11 at batch 8), and with the rows how often a band's ring of
+# staged rows wraps. Every staged call after check_shift_backward runs
+# under a plan that passed there at its own configuration, or fails the
+# run before its kernel launches (BwdPlanGuard).
+BWD_BATCHES = sorted({BATCH_CHECK, TIME_BATCH, *TRAIN_BATCHES})
+TINY = dict(classes=4, batch=8, size=32, frames=4)  # (a)'s overfit
+
+
+class BwdPlanGuard:
+    """Holds every launch of the staged K1-inverse and K4 to the plans that
+    passed their comparison with the plain version. It wraps
+    ``ops/shift3d.py::_bwd_prepare``, which both wrappers call for the plan
+    of each launch: while ``recording`` it notes each call's configuration
+    and plan (``take`` keeps them once the comparison passed); once
+    ``armed``, a configuration and plan not kept fails the run. A
+    configuration is checked once, then found in a set (about a
+    microsecond of host time a call)."""
+
+    def __init__(self):
+        from rubiksnet_torch.ops import shift3d as s3
+
+        self.prepare = s3._bwd_prepare
+        self.checked = set()  # (inverse, og, x, stride, padding, dtype, plan)
+        self.seen, self.armed, self.passed = [], False, set()
+        guard = self
+
+        def prepare(*args):
+            got = guard.prepare(*args)
+            if args in guard.passed:
+                return got
+            inverse, og_shape, x_shape, stride, padding, dtype, _ = args
+            key = (inverse, tuple(og_shape), tuple(x_shape),
+                   s3._triple(stride), s3._triple(padding), dtype, got[1])
+            if guard.armed:
+                if key not in guard.checked:
+                    fail(f"{'K1-inverse' if inverse else 'K4'} at x "
+                         f"{tuple(x_shape)} stride {stride} padding "
+                         f"{padding} {dtype} would run under {got[1]}, a "
+                         f"plan that was not held against the plain version")
+                guard.passed.add(args)
+            else:
+                guard.seen.append(key)
+            return got
+
+        prepare.cache_clear = self.prepare.cache_clear
+        s3._bwd_prepare = prepare
+
+    def take(self):
+        """Keep the plans recorded since the last call."""
+        self.checked.update(self.seen)
+        self.seen = []
+
+
+def tiny_shift_calls():
+    """(x shape, stride, padding) of every 3D shift of (a)'s tiny model, by
+    forward pre-hooks on one train-mode forward on the CPU (plain ops)."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.nn.layers import RubiksShift3D
+
+    model = create_rubiksnet("tiny", TINY["classes"], TINY["frames"],
+                             device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    model.train()
+    calls = set()
+    for mod in model.modules():
+        if isinstance(mod, RubiksShift3D):
+            mod.register_forward_pre_hook(lambda m, a: calls.add(
+                (tuple(a[0].shape), m.stride, m.padding)))
+    model(torch.zeros((TINY["batch"], TINY["frames"], TINY["size"],
+                       TINY["size"], 3)))
+    return sorted(calls)
+
+
 def check_shift_backward(errs, gen, dev):
-    """K1-inverse and K4 against their plain versions at every Large shift
-    shape, f32 and bf16; K4 twice on the same inputs must agree bit for
-    bit."""
+    """K1-inverse and K4 against their plain versions, f32 and bf16: on
+    their staged route (shift3d_bwd.cu) at every Large shift shape at every
+    batch that is checked, timed or trained (BWD_BATCHES), at every shift
+    of (a)'s tiny model, and off the model's shapes
+    (shift3d_bwd_probe.CASES: C = 54 and 108, odd extents, stride (2, 2, 2)
+    with padding (1, 1, 1), stride (1, 2, 2) with padding (0, 1, 0), one
+    clip, shifts of +-9 that take the direct-read route), the input
+    gradient fractional and quantized, every run repeated bit-identically;
+    then arms the guard on the staged route's plans. On the previous route
+    (shift3d.cu, shift_grad.cu) at every Large shift shape, K4 twice
+    bit-identical."""
     from rubiksnet_torch.ops.shift3d import (
         compute_output_shape_3d,
         shift3d_input_grad_kernel,
@@ -254,9 +341,46 @@ def check_shift_backward(errs, gen, dev):
         shift3d_shift_grad_kernel,
         shift3d_shift_grad_plain,
     )
+    from rubiksnet_torch.utils import shift3d_bwd_probe as probe
 
-    print("[kernels] K1-inverse shift3d_inverse vs plain input gradient; "
-          "K4 shift_grad vs plain shift gradient")
+    print(f"[kernels] K1-inverse shift3d_inverse and K4 shift_grad (staged "
+          f"route, shift3d_bwd.cu) vs plain, Large's shapes at batch "
+          f"{BWD_BATCHES}, the tiny model's, CASES; every run repeated "
+          f"bit-identically; the plans [inverse, K4] as rows per band R, "
+          f"ring rows D, og rows O")
+    guard = BwdPlanGuard()
+    todo = [(f"{h}x{h}x{c} stride {s}", n, FRAMES, h, h, c, (1, s, s),
+             (0, 0, 0), "mixed")
+            for n in BWD_BATCHES for h, c, s in SHIFT_SHAPES]
+    todo += [(f"tiny stride {stride}", *shape, stride, padding, "mixed")
+             for shape, stride, padding in tiny_shift_calls()]
+    for label, n, t, h, w, c, stride, padding, kind in todo + probe.CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            shift = probe.case_shift(kind, c, gen, dev)
+            rows = probe.check_case((n, t, h, w, c), stride, padding, dt,
+                                    shift, gen)
+            plans = {key[0]: key[-1] for key in guard.seen}
+            text = "; ".join(f"{what} {measure}={value:.2e} [<= {bound}]"
+                             f"{'' if ok else ' FAIL'}"
+                             for what, _, measure, value, bound, ok in rows)
+            print(f"  {label} {n}x{t}x{h}x{w}x{c} {str(dt)[6:]}: {text} "
+                  f"[" + ", ".join(f"R{p.rows} D{p.ring} O{p.og_rows}"
+                                   for p in (plans[True], plans[False]))
+                  + "]")
+            for what, max_abs, _, _, _, ok in rows:
+                if not ok:
+                    fail(f"{what} {label} {n}x{t}x{h}x{w}x{c} {dt} outside "
+                         f"tolerance or not bit-identical")
+                kind_of = "shift_grad" if what == "shift grad" else (
+                    "shift3d_inverse")
+                errs[kind_of].append(max_abs)
+            guard.take()
+    guard.armed = True
+    print(f"  {len(guard.checked)} configurations and plans passed; every "
+          f"later staged call is held to them")
+
+    print("[kernels] the previous route: K1-inverse (shift3d.cu) and K4 "
+          "(shift_grad.cu) vs plain")
     for h, c, s in SHIFT_SHAPES:
         stride = (1, s, s)
         x_shape = (BATCH_CHECK, FRAMES, h, h, c)
@@ -266,17 +390,20 @@ def check_shift_backward(errs, gen, dev):
             og = randn(og_shape, dt, gen, dev)
             for q in (False, True):
                 got = shift3d_input_grad_kernel(og, shift, x_shape, stride,
-                                                (0, 0, 0), q)
+                                                (0, 0, 0), q,
+                                                route="previous")
                 ref = shift3d_input_grad_plain(og, shift, x_shape, stride,
                                                (0, 0, 0), q)
-                judge(f"K1-inverse {h}x{h}x{c} stride {s} {str(dt)[6:]} "
-                      f"{'quantize' if q else 'fractional'}", got, ref, dt,
-                      errs["shift3d_inverse"])
+                judge(f"K1-inverse previous {h}x{h}x{c} stride {s} "
+                      f"{str(dt)[6:]} {'quantize' if q else 'fractional'}",
+                      got, ref, dt, [])
             x = randn(x_shape, dt, gen, dev)
-            got = shift3d_shift_grad_kernel(og, x, shift, stride)
-            again = shift3d_shift_grad_kernel(og, x, shift, stride)
+            got = shift3d_shift_grad_kernel(og, x, shift, stride,
+                                            route="previous")
+            again = shift3d_shift_grad_kernel(og, x, shift, stride,
+                                              route="previous")
             ref = shift3d_shift_grad_plain(og, x, shift, stride)
-            label = f"K4 {h}x{h}x{c} stride {s} {str(dt)[6:]}"
+            label = f"K4 previous {h}x{h}x{c} stride {s} {str(dt)[6:]}"
             if got.shape != (3, c) or not torch.isfinite(got).all():
                 fail(f"{label}: bad result {tuple(got.shape)}")
             if not torch.equal(got, again):
@@ -289,7 +416,6 @@ def check_shift_backward(errs, gen, dev):
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{label} outside tolerance")
-            errs["shift_grad"].append(max_abs)
 
 
 def overfit_tiny(dev):
@@ -300,7 +426,8 @@ def overfit_tiny(dev):
     from rubiksnet_torch.ops import launch_counters
     from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
 
-    classes, batch, size, frames = 4, 8, 32, 4
+    classes, batch, size, frames = (TINY[k] for k in ("classes", "batch",
+                                                     "size", "frames"))
     model = create_rubiksnet("tiny", classes, frames, device=dev).train()
     step = make_train_step(model, sgd_with_shift_mult(model, 0.05, 0.1))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1236,6 +1363,10 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                    gen, dev)
         x = randn(x_shape, bf, gen, dev)
         shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
+        # One call of the staged input gradient is one device kernel, one of
+        # the staged shift gradient two (its partials, their sum): the
+        # profiler holds them to that. The previous route's device time is
+        # that of all its kernels (the shift's two casts, K4's sum pass).
         timer.add("shift3d_inverse", f"K1-inverse {h}x{h}x{c} stride {s}",
                   count,
                   lambda: shift3d_input_grad_kernel(og, shift, x_shape,
@@ -1243,11 +1374,19 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_input_grad_plain(og, shift, x_shape,
                                                    stride),
                   shift_work(x.numel(), og.numel(), 2, 8), bf,
-                  library_shift(og, shift, s, inverse=True), device=True)
+                  library_shift(og, shift, s, inverse=True),
+                  lambda: shift3d_input_grad_kernel(og, shift, x_shape,
+                                                    stride,
+                                                    route="previous"),
+                  needles=("", ""), previous="shift3d.cu's first form")
         timer.add("shift_grad", f"K4 {h}x{h}x{c} stride {s}", count,
                   lambda: shift3d_shift_grad_kernel(og, x, shift, stride),
                   lambda: shift3d_shift_grad_plain(og, x, shift, stride),
-                  shift_grad_work(og.numel(), x.numel(), 2), bf, device=True)
+                  shift_grad_work(og.numel(), x.numel(), 2), bf,
+                  previous_fn=lambda: shift3d_shift_grad_kernel(
+                      og, x, shift, stride, route="previous"),
+                  needles=("", ""), kernels_per_call=2,
+                  previous="shift_grad.cu's first form")
         x4 = x.reshape((-1,) + x_shape[2:])
         og4 = og.reshape((-1,) + tuple(og.shape[2:]))
         shift2 = shift[1:].contiguous()
@@ -1272,7 +1411,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   library_shift(og4, shift2, s, inverse=True),
                   lambda: shift3d_input_grad_kernel(
                       og5, shift3(), x5.shape, stride,
-                      quantize_mode="half_away"))
+                      quantize_mode="half_away", route="previous"))
         ms = cuda_time_ms(lambda: shift2d.rubiks_shift_2d_shift_grad(
             og4, x4, shift2, s))
         plain2d_grad_ms += count * ms
@@ -1285,17 +1424,24 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         timer.summary(kind, "train step" if backward else "forward")
     print(f"  2D shift gradient (plain PyTorch, no kernel): "
           f"{plain2d_grad_ms:.3f} ms per Large-AQ train step")
-    # One call of either 2D shift wrapper is one device kernel and nothing
-    # else (no cat, cast or copy), at every shape the profiler recorded.
-    missed = [m for m in PROFILER_MISSES
-              if "," not in m and m.startswith("shift2d")]
-    seen = 2 * len(SHIFT_SHAPES) - len(missed)
-    print(f"[launch] shift2d_kernel and shift2d_input_grad_kernel: 1 device "
-          f"kernel per call by the profiler at {seen} of "
-          f"{2 * len(SHIFT_SHAPES)} timed shapes"
-          + (f" (no profiler records at: {missed})" if missed else ""))
-    if seen == 0:
-        fail("the profiler recorded no call of the 2D shift kernels")
+    # One call of either 2D shift wrapper, and of the staged input gradient
+    # of the 3D shift, is one device kernel and nothing else (no cat, cast
+    # or copy); one of the staged shift gradient two; at every shape the
+    # profiler recorded (Timer.add fails a call that launched other).
+    for prefixes, names in ((("shift2d",), "shift2d_kernel and "
+                             "shift2d_input_grad_kernel: 1 device kernel "
+                             "per call"),
+                            (("K1-inverse", "K4"), "shift3d_input_grad_kernel"
+                             " and shift3d_shift_grad_kernel (staged): 1 and "
+                             "2 device kernels per call")):
+        missed = [m for m in PROFILER_MISSES
+                  if "," not in m and m.startswith(prefixes)]
+        seen = 2 * len(SHIFT_SHAPES) - len(missed)
+        print(f"[launch] {names} by the profiler at {seen} of "
+              f"{2 * len(SHIFT_SHAPES)} timed shapes"
+              + (f" (no profiler records at: {missed})" if missed else ""))
+        if seen == 0:
+            fail(f"the profiler recorded no call of {names}")
 
 
 def se_partial_pairs(plan, shape):

@@ -5,9 +5,16 @@ CUDA kernel beside its plain gather form:
 
 * forward: K1 ``csrc/shift3d.cu::rubiks_shift3d_fwd`` / :func:`shift3d_plain`;
 * input gradient (the inverse shift of the upstream gradient): K1-inverse
-  ``csrc/shift3d.cu::rubiks_shift3d_inv`` / :func:`shift3d_input_grad_plain`;
-* raw (3, C) shift gradient: K4 ``csrc/shift_grad.cu`` /
+  ``csrc/shift3d_bwd.cu::rubiks_shift3d_inv_staged`` /
+  :func:`shift3d_input_grad_plain`;
+* raw (3, C) shift gradient: K4
+  ``csrc/shift3d_bwd.cu::rubiks_shift_grad_staged`` /
   :func:`shift3d_shift_grad_plain`.
+
+The two backward kernels share one device body (source rows staged in
+shared memory, one channel per thread) under the launch plan
+:func:`shift3d_bwd_plan`; their first forms (``csrc/shift3d.cu``'s inverse,
+``csrc/shift_grad.cu``) stay callable as ``route="previous"``.
 
 :func:`rubiks_shift_3d` ties them into an autograd op whose shift gradient
 is unit-normalized per channel (:func:`normalize_shift_grad_3d`): the
@@ -17,6 +24,9 @@ runs the plain forms on any device.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
 
 import torch
 
@@ -30,6 +40,7 @@ __all__ = [
     "rubiks_shift_3d_forward",
     "shift3d_input_grad_kernel",
     "shift3d_input_grad_plain",
+    "shift3d_bwd_plan",
     "shift3d_kernel",
     "shift3d_plain",
     "shift3d_shift_grad_kernel",
@@ -234,11 +245,11 @@ def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
     return out
 
 
-def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
-                              padding=(0, 0, 0), quantize=False, *,
-                              quantize_mode="half_up"):
-    """Kernel K1-inverse on a CUDA tensor: the input gradient in one pass,
-    one thread per input element, stride-gated, weights in f32."""
+def _input_grad_previous(og, shift, in_shape, stride, padding, quantize,
+                         quantize_mode):
+    """K1-inverse's first form (csrc/shift3d.cu): one thread per input
+    element, stride-gated, weights in f32; the shift cast to the dtype and
+    back by two device kernels before it."""
     _check_cuda("shift3d_input_grad_kernel", og, shift)
     code = _build.dtype_code(og.dtype)
     st, sh, sw = _triple(stride)
@@ -264,17 +275,17 @@ def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
 
 
 def shift_grad_slices(rows: int, c: int, sms: int) -> int:
-    """Row slices of K4's first pass: one block per (slice, 32-channel
-    tile), about 8 blocks per SM, at least 64 rows a slice. It depends on
-    the shape and the card only, so the summation order is fixed."""
+    """Row slices of the previous route of K4: one block per (slice,
+    32-channel tile), about 8 blocks per SM, at least 64 rows a slice. It
+    depends on the shape and the card only, so the summation order is
+    fixed."""
     ctiles = -(-c // 32)
     return max(1, min(max(1, 8 * sms // ctiles), -(-rows // 64)))
 
 
-def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
-                              padding=(0, 0, 0)):
-    """Kernel K4 on CUDA tensors: the raw (3, C) float32 shift gradient,
-    reduced per channel in a fixed order (bit-identical run to run)."""
+def _shift_grad_previous(og, x, shift, stride, padding):
+    """K4's first form (csrc/shift_grad.cu): per-slice partials and a
+    second launch that sums them; the shift cast as for K1-inverse's."""
     _check_cuda("shift3d_shift_grad_kernel", og, x, shift)
     if og.dtype != x.dtype:
         raise TypeError(f"og {og.dtype} and x {x.dtype} differ")
@@ -288,7 +299,7 @@ def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
     n, t, h, w, c = x.shape
     _, to, ho, wo, _ = og.shape
     s32 = _shift_f32(shift, x.dtype)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = _sm_count(x.device.index)
     slices = shift_grad_slices(n * to * ho * wo, c, sms)
     partial = torch.empty((slices, 3, c), dtype=torch.float32,
                           device=x.device)
@@ -301,6 +312,349 @@ def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
                 partial.data_ptr(), out.data_ptr(), code, n, t, h, w, c, to,
                 ho, wo, st, sh, sw, pt, ph, pw, slices, _build.stream_of(x))
     _build.check(rc, "rubiks_shift_grad")
+    SHIFT_GRAD_LAUNCHES.count += 1
+    return out
+
+
+# ------------------------------------- the backward's kernels, staged route
+#
+# csrc/shift3d_bwd.cu holds the arithmetic of K1-inverse and K4. Everything
+# else is here, where the CPU tests reach it: the per-axis coordinate rule,
+# the frames and rows a destination frame and band read, and the plan
+# (channel group, rows per band, ring frames and rows, column runs, shared
+# memory) that the wrappers pass to the C entry points.
+
+BWD_ROUTES = ("staged", "previous")
+BWD_SMEM_HEAD = 32  # the block's tap ranges
+BWD_MAX_THREADS = 384  # csrc/shift3d_bwd.cu's kMaxThreads (launch bound)
+SG_RED_BYTES = 12  # per thread: the shift gradient's three sums, reduced
+
+# The plan's knobs (settled by measuring on the card with
+# utils/shift3d_bwd_probe.py --sweep, PERF.md): a block stays under
+# BWD_SMEM_BUDGET; a group has at most BWD_MAX_GROUP channels; the ring
+# holds at most BWD_MAX_RING rows per frame; bands are cut until the grid
+# has about BWD_TARGET_BLOCKS blocks but keep at least BWD_MIN_BAND_ROWS
+# rows; a block has about BWD_BLOCK_THREADS threads. The ring is sized for
+# a tap extent (max hi - min lo over a group's channels) of BWD_EXTENT for
+# the input gradient (shifts in (-1, 1): floors -1 and 0) and SG_EXTENT for
+# the shift gradient (its corrected taps add a cell at an integer
+# remainder); a group whose taps reach further reads directly. The shift
+# gradient stages og's rows too, in a ring of as many rows beside the
+# source rows', where that leaves its channel group as wide.
+BWD_SMEM_BUDGET = 112 * 1024
+BWD_MAX_GROUP = 512
+BWD_MAX_RING = 8
+BWD_TARGET_BLOCKS = 2112
+BWD_MIN_BAND_ROWS = 2
+BWD_BLOCK_THREADS = 256
+BWD_EXTENT = 2
+SG_EXTENT = 3
+
+Shift3dBwdPlan = collections.namedtuple(
+    "Shift3dBwdPlan", "copy_bytes group groups rows bands units frames ring "
+                      "og_rows cols threads smem_bytes")
+
+
+def bwd_axis_rule(stride, padding, inverse):
+    """(mul, div, off) of one axis: destination position p of channel c
+    reads raw coordinates ``q = p * mul + off + {lo_c, hi_c}`` and the
+    source cell ``q // div`` where div divides q. Input gradient
+    (``inverse``): destination gx, source og; shift gradient: destination
+    the output positions, source x."""
+    return (1, stride, padding) if inverse else (stride, 1, -padding)
+
+
+def bwd_channel_taps(shift_c, inverse, quantize):
+    """Per channel of one axis the kernel's (lo, hi, w0, w1), from the shift
+    already rounded to the compute dtype (a 1-D tensor): the input gradient
+    takes the negated shift, lo = floor, hi = lo + 1, weights (1 - r, r),
+    quantize the one tap floor + (r >= 0.5) with weights (1, 0); the shift
+    gradient the corrected taps (lo moves back a cell at r == 0), weights
+    (1 - r, r)."""
+    s = -shift_c if inverse else shift_c
+    f = torch.floor(s)
+    r = s - f
+    fi = f.to(torch.int64)
+    if inverse:
+        lo = fi + ((r >= 0.5) & quantize).to(torch.int64)
+        w0 = torch.ones_like(r) if quantize else 1 - r
+        w1 = torch.zeros_like(r) if quantize else r
+        return lo, lo + 1, w0, w1
+    return fi - (r == 0).to(torch.int64), fi + 1, 1 - r, r
+
+
+def bwd_frames_needed(ext, div):
+    """Source frames one destination frame reads for a tap extent ``ext =
+    max hi - min lo`` over a group's channels."""
+    return ext // div + 1
+
+
+def bwd_rows_needed(ext, mul, div):
+    """Source rows live at once while a block walks down its band: the rows
+    of destination row r and those row r + 1 adds."""
+    return (mul + ext) // div + 1
+
+
+def bwd_lookahead(ext, mul, div, ring):
+    """How many destination rows ahead of the one being computed a ring of
+    ``ring`` rows lets the copies run."""
+    return (ring * div - ext - 1) // mul
+
+
+def bwd_source_range(p, lo_min, hi_max, rule, d_src):
+    """Inclusive range (lo, hi) of source cells that destination position p
+    reads for taps in [lo_min, hi_max], clamped to the source; lo > hi:
+    none."""
+    mul, div, off = rule
+    q_lo = p * mul + off + lo_min
+    q_hi = p * mul + off + hi_max
+    return max(-((-q_lo) // div), 0), min(q_hi // div, d_src - 1)
+
+
+def _ring_pitch(row_bytes):
+    return (row_bytes + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(shape, out_shape, stride, itemsize, inverse, copy_limit,
+              knobs):
+    (budget, max_group, max_ring, target, min_rows, block_threads, inv_ext,
+     sg_ext) = knobs
+    n, t, h, w, c = shape
+    _, to, ho, wo, _ = out_shape
+    if max(t * h * w * c, to * ho * wo * c) >= 2**31:
+        raise ValueError(
+            f"one clip of {tuple(shape)} -> {tuple(out_shape)} has 2**31 "
+            f"elements or more: the 3D shift's backward kernels index a clip "
+            f"in 32 bits")
+    (ts, hs, ws), (td, hd, wd) = (((to, ho, wo), (t, h, w)) if inverse
+                                  else ((t, h, w), (to, ho, wo)))
+    mul_t, div_t, _ = bwd_axis_rule(stride[0], 0, inverse)
+    mul_h, div_h, _ = bwd_axis_rule(stride[1], 0, inverse)
+    copy_bytes = next(b for b in (16, 4, itemsize)
+                      if b <= max(copy_limit, itemsize)
+                      and (c * itemsize) % b == 0)
+    unit = max(1, copy_bytes // itemsize)
+    ext = inv_ext if inverse else sg_ext
+    frames = bwd_frames_needed(ext, div_t)
+    need = bwd_rows_needed(ext, mul_h, div_h)
+    red = 0 if inverse else SG_RED_BYTES
+    cap = min(max_group, BWD_MAX_THREADS)
+
+    def cols_of(group):
+        return max(1, min(max(wd, 1), round(block_threads / group),
+                          BWD_MAX_THREADS // group))
+
+    def choose(og):
+        """(group, ring_of) with og's rows staged or not."""
+        def ring_of(group):
+            left = budget - BWD_SMEM_HEAD - red * group * cols_of(group)
+            pitch = max(16, _ring_pitch(ws * group * itemsize))
+            og_pitch = _ring_pitch(wd * group * itemsize) if og else 0
+            return max(0, min(max_ring, left // (frames * pitch + og_pitch)))
+
+        # The widest group that divides C and whose ring holds the rows it
+        # needs; where that is narrower than a warp and C exceeds ``cap``,
+        # one of ``cap`` channels that leaves a ragged last group, if it
+        # stages.
+        divisors = [g for g in range(unit, min(c, cap) + 1, unit)
+                    if c % g == 0]
+        staged = [g for g in divisors if ring_of(g) >= need]
+        ragged = cap // unit * unit
+        if c > cap and (not staged or staged[-1] < 32) and ring_of(
+                ragged) >= need:
+            staged.append(ragged)
+        return staged[-1] if staged else (divisors or [ragged])[0], ring_of
+
+    # The shift gradient stages og's rows where that leaves its group as
+    # wide (a narrower group pays a row's fixed cost more often).
+    group, ring_of = choose(False)
+    og_ring = not inverse and choose(True)[0] >= group
+    if og_ring:
+        group, ring_of = choose(True)
+    ring = ring_of(group)
+    if ring < need:
+        ring = 0  # no room for a ring: every block reads directly
+    cols = cols_of(group)
+    og_rows = ring if og_ring else 0
+    smem = (BWD_SMEM_HEAD + frames * ring * _ring_pitch(ws * group * itemsize)
+            + og_rows * _ring_pitch(wd * group * itemsize)
+            + red * group * cols)
+    groups = -(-c // group)
+    bands = max(1, min(-(-target // max(1, n * td * groups)),
+                       hd // min_rows if hd >= min_rows else 1))
+    rows = max(1, -(-hd // bands))
+    bands = -(-hd // rows)
+    return Shift3dBwdPlan(copy_bytes, group, groups, rows, bands,
+                          n * td * bands, frames, ring, og_rows, cols,
+                          group * cols, smem)
+
+
+def shift3d_bwd_plan(shape, out_shape, stride, dtype, inverse,
+                     copy_limit=16):
+    """How the kernels of csrc/shift3d_bwd.cu run the input gradient og
+    ``out_shape`` -> gx ``shape`` (``inverse``) or the shift gradient of x
+    ``shape`` and og ``out_shape``, (N, T, H, W, C) each. A pure function
+    of its arguments.
+
+    A block takes one (clip, destination frame, band of ``rows``
+    destination rows) unit at a time (``units`` in all) and one group of
+    ``group`` channels (``groups`` of them cover C; the last may be
+    ragged), as ``cols`` runs of consecutive columns, one channel per
+    thread: one block per unit and group. The shift gradient's blocks each
+    write a partial, which a second launch sums over the units in a fixed
+    order. Source rows are
+    staged in a ring of ``frames`` frames x ``ring`` rows (0: every block
+    reads device memory directly; otherwise a block does so only where the
+    tap range of its channels needs more frames or rows than the ring
+    has); the shift gradient's ``og_rows`` (``ring`` or 0) stage og's rows
+    beside them. ``copy_bytes`` is the width of a copy between device and
+    shared memory, at most ``copy_limit``.
+    """
+    knobs = (BWD_SMEM_BUDGET, BWD_MAX_GROUP, BWD_MAX_RING, BWD_TARGET_BLOCKS,
+             BWD_MIN_BAND_ROWS, BWD_BLOCK_THREADS, BWD_EXTENT, SG_EXTENT)
+    return _bwd_plan(tuple(int(v) for v in shape),
+                     tuple(int(v) for v in out_shape), _triple(stride),
+                     dtype.itemsize, bool(inverse), int(copy_limit), knobs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_INV_ENTRY = ("rubiks_shift3d_inv_staged",
+              (_build.PTR,) * 3 + (_build.INT,) * 23 + (_build.PTR,))
+_SG_ENTRY = ("rubiks_shift_grad_staged",
+             (_build.PTR,) * 5 + (_build.INT,) * 23 + (_build.PTR,))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_prepare(inverse, src_shape, x_shape, stride, padding, dtype,
+                 copy_limit):
+    """What one launch needs beyond its pointers, worked out once per
+    configuration (the arguments as the caller gave them, hashable): the C
+    entry point, the plan and the integer arguments. ``src_shape``: og's
+    shape; ``x_shape``: x's (the input gradient's result)."""
+    name, argtypes = _INV_ENTRY if inverse else _SG_ENTRY
+    stride, padding = _triple(stride), _triple(padding)
+    x_shape = tuple(int(v) for v in x_shape)
+    og_shape = tuple(int(v) for v in src_shape)
+    if len(x_shape) != 5 or compute_output_shape_3d(
+            x_shape, stride, padding) != og_shape:
+        raise ValueError(f"og {og_shape} is not the output shape of "
+                         f"{x_shape} at stride {stride} padding {padding}")
+    n, t, h, w, c = x_shape
+    if max(t, h, w) * max(stride) + max(max(padding), 0) >= 2**30:
+        raise ValueError(f"{name}: extent of {x_shape} too large")
+    plan = shift3d_bwd_plan(x_shape, og_shape, stride, dtype, inverse,
+                            copy_limit)
+    shapes = (_build.dtype_code(dtype), n, t, h, w, c, *og_shape[1:4],
+              *stride, *padding)
+    knobs = (plan.copy_bytes, plan.group, plan.rows, plan.frames, plan.ring,
+             plan.cols)
+    return _build.kernel_function(name, *argtypes), plan, shapes, knobs
+
+
+def _check_staged(name, shift, *tensors):
+    src = tensors[0]
+    if src.ndim != 5 or tuple(shift.shape) != (3, src.shape[-1]):
+        raise ValueError(
+            f"{name}: shift must be (3, C) for an (N, T, H, W, C) tensor, "
+            f"got {tuple(shift.shape)} for {tuple(src.shape)}")
+    dev = src.device
+    if dev.type != "cuda" or any(v.device != dev for v in (shift, *tensors)):
+        raise ValueError(
+            f"{name} needs its tensors on one CUDA device, got "
+            f"{[str(v.device) for v in (*tensors, shift)]}")
+    if shift.dtype != torch.float32:
+        raise TypeError(f"{name} takes the float32 shift parameter, got "
+                        f"{shift.dtype}")
+    if not all(v.is_contiguous() for v in (shift, *tensors)):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def _copy_limit(*tensors):
+    """A copy is no wider than the source is aligned (a view may start
+    anywhere; a fresh result is aligned)."""
+    at = min(v.data_ptr() % 16 or 16 for v in tensors)
+    return 16 if at == 16 else 4 if at % 4 == 0 else 2
+
+
+def _call(fn, dev, args):
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
+                              padding=(0, 0, 0), quantize=False, *,
+                              quantize_mode="half_up", route="staged"):
+    """Kernel K1-inverse on a CUDA tensor og (N, To, Ho, Wo, C), contiguous,
+    with the float32 (3, C) shift: the input gradient of shape ``in_shape``.
+    ``route="staged"``: one launch of ``rubiks_shift3d_inv_staged``
+    (csrc/shift3d_bwd.cu), planned by :func:`shift3d_bwd_plan`, and no
+    other device work; ``route="previous"``: the first form
+    (csrc/shift3d.cu), kept to time the two in one run, which alone takes
+    ``quantize_mode="half_away"`` (the 2D rule)."""
+    if route == "previous":
+        return _input_grad_previous(og, shift, in_shape, stride, padding,
+                                    quantize, quantize_mode)
+    if route != "staged":
+        raise ValueError(f"unknown route {route!r}, expected one of "
+                         f"{BWD_ROUTES}")
+    code = quantize_code(quantize, quantize_mode)
+    if code == 2:
+        raise ValueError("the staged route takes the 3D quantize rule "
+                         "(half_up) only")
+    _check_staged(_INV_ENTRY[0], shift, og)
+    dev = og.device
+    if not isinstance(in_shape, tuple):  # a hashable key (Size is a tuple)
+        in_shape = tuple(in_shape)
+    fn, plan, shapes, knobs = _bwd_prepare(
+        True, og.shape, in_shape, stride, padding, og.dtype,
+        _copy_limit(og))
+    gx = torch.empty(in_shape, dtype=og.dtype, device=dev)
+    rc = _call(fn, dev, (og.data_ptr(), shift.data_ptr(), gx.data_ptr(),
+                         *shapes, code, *knobs, plan.smem_bytes,
+                         _build.stream_of(og)))
+    if rc != 0:
+        _build.check(rc, _INV_ENTRY[0])
+    INVERSE_LAUNCHES.count += 1
+    return gx
+
+
+def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
+                              padding=(0, 0, 0), *, route="staged"):
+    """Kernel K4 on CUDA tensors: the raw (3, C) float32 shift gradient,
+    reduced per channel in a fixed order (bit-identical run to run).
+    ``route="staged"``: one call of ``rubiks_shift_grad_staged``
+    (csrc/shift3d_bwd.cu), planned by :func:`shift3d_bwd_plan`: two
+    launches (the partials, their sum) and no other device work;
+    ``route="previous"``: the first form (csrc/shift_grad.cu), the shift
+    cast as for K1-inverse's, two launches."""
+    if route == "previous":
+        return _shift_grad_previous(og, x, shift, stride, padding)
+    if route != "staged":
+        raise ValueError(f"unknown route {route!r}, expected one of "
+                         f"{BWD_ROUTES}")
+    _check_staged(_SG_ENTRY[0], shift, x, og)
+    if og.dtype != x.dtype:
+        raise TypeError(f"og {og.dtype} and x {x.dtype} differ")
+    dev = x.device
+    fn, plan, shapes, knobs = _bwd_prepare(
+        False, og.shape, x.shape, stride, padding, x.dtype,
+        _copy_limit(x, og))
+    c = x.shape[-1]
+    partial = torch.empty((plan.units, 3, c), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((3, c), dtype=torch.float32, device=dev)
+    rc = _call(fn, dev, (og.data_ptr(), x.data_ptr(), shift.data_ptr(),
+                         partial.data_ptr(), out.data_ptr(), *shapes, *knobs,
+                         plan.og_rows, plan.smem_bytes, _build.stream_of(x)))
+    if rc != 0:
+        _build.check(rc, _SG_ENTRY[0])
     SHIFT_GRAD_LAUNCHES.count += 1
     return out
 

@@ -26,8 +26,10 @@ from .benchmark import cuda_call_times_ms, cuda_kernel_times, nvidia_smi_line
 CLASSES = (
     ("2D shift and its input gradient (shift2d_kernel)", ("shift2d_kernel",)),
     ("K1 (shift3d_fwd_kernel)", ("shift3d_fwd_kernel",)),
-    ("K1-inverse (shift3d_inv_kernel)", ("shift3d_inv_kernel",)),
-    ("K4 (shift_grad)", ("shift_grad",)),
+    ("K1-inverse (bwd3d_input_grad_kernel; previous route "
+     "shift3d_inv_kernel)", ("bwd3d_input_grad", "shift3d_inv_kernel")),
+    ("K4 (bwd3d_shift_grad_kernel; previous route shift_grad_*)",
+     ("shift_grad",)),
     ("SE gate (se_gate_tc_kernel; SIMT route: se_partial, se_gate)",
      ("se_gate_tc_kernel", "se_partial_kernel", "se_gate_kernel")),
     ("K2 bf16 launches (rubiks_tc_kernel)", ("rubiks_tc_kernel",)),
