@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse and K4
-shift_grad with their redesign shift3d_bwd.cu, K2 fused_block with its tensor-core launches fused_block_tc.cu,
+Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse and
+K4 shift_grad on their staged route shift3d_bwd.cu, their first forms
+shift3d.cu and shift_grad.cu, K2 fused_block with its tensor-core launches
+fused_block_tc.cu,
 K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
 inside K2 and K3: on the tensor-core route its sums in launch A, tc_se.cuh,
 and one gate launch, se_gate_tc.cu, on the SIMT route se_gate.cuh's two
@@ -35,12 +37,12 @@ on its main path, its error against the plain version, its time beside the
 plain version's, its bound (the larger of bytes moved over the memory rate
 and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
-exists (a depthwise convolution for the shifts). K1 carries its device
-time by the profiler; the 2D shift's two rows, K2's three, K3's two,
-K1-inverse's and K4's also theirs and the time of the route they replaced
-(K1 and K1-inverse on a one-frame view; for K2 and K3 in bf16 the SIMT GEMM
-of common.cuh; for K1-inverse and K4 their first forms, shift3d.cu and
-shift_grad.cu), taken in this run; K2's also the time of a forward's blocks
+exists (a depthwise convolution for the shifts). K1's, K1-inverse's and
+K4's rows, K2's three and K3's two carry their device time by the profiler
+and the time of the route they replaced (for K1, K1-inverse and K4 their
+first forms, shift3d.cu and shift_grad.cu; for K2 and K3 in bf16 the SIMT
+GEMM of common.cuh), taken in this run; the 2D shift's two rows their
+device time; K2's also the time of a forward's blocks
 as the models call them, one run per stage. The SE gate's row (se_gate) carries
 its device time over Small's 17 SE blocks beside what its sums add to
 launch A and the previous route's two gate launches in the same call.
@@ -132,11 +134,12 @@ FLOPS_PER_CORNER = 4  # weight product and multiply-add per corner read
 
 # Every kernel of the JSON line: where it lives and what it replaces.
 KERNELS = {
-    "shift3d": ("rubiksnet_torch/ops/csrc/shift3d.cu",
+    # The 3D shift on its staged route (one device body, three kernels:
+    # the forward, the input gradient, the shift gradient); the first forms
+    # (shift3d.cu, shift_grad.cu) are timed beside them as the previous
+    # route.
+    "shift3d": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
                 "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
-    # The 3D shift's backward on its staged route (one device body, two
-    # kernels); the first forms (shift3d.cu's inverse, shift_grad.cu) are
-    # timed beside them as the previous route.
     "shift3d_inverse": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
                         "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
     "shift_grad": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
@@ -247,31 +250,36 @@ SHIFT_SHAPES = [(h, c, 1) for h, c, _ in BLOCK_SHAPES] + [
     (h, cm, 2) for h, _, cm in ENTRY_SHAPES]
 
 
-# The staged backward's plan depends on the batch: bands, rows per band
-# and units follow N (at 112x112x72 the input gradient's band is 3 rows at
+# The staged route's plan depends on the batch: bands, rows per band and
+# units follow N (at 112x112x72 the input gradient's band is 3 rows at
 # batch 2 and 11 at batch 8), and with the rows how often a band's ring of
-# staged rows wraps. Every staged call after check_shift_backward runs
-# under a plan that passed there at its own configuration, or fails the
-# run before its kernel launches (BwdPlanGuard).
+# staged rows wraps. Every staged call after check_shift_staged runs under
+# a plan that passed there at its own configuration, or fails the run
+# before its kernel launches (BwdPlanGuard).
 BWD_BATCHES = sorted({BATCH_CHECK, TIME_BATCH, *TRAIN_BATCHES})
 TINY = dict(classes=4, batch=8, size=32, frames=4)  # (a)'s overfit
 
 
+STAGED_NAMES = {"forward": "K1", "input_grad": "K1-inverse",
+                "shift_grad": "K4"}
+
+
 class BwdPlanGuard:
-    """Holds every launch of the staged K1-inverse and K4 to the plans that
-    passed their comparison with the plain version. It wraps
-    ``ops/shift3d.py::_bwd_prepare``, which both wrappers call for the plan
-    of each launch: while ``recording`` it notes each call's configuration
-    and plan (``take`` keeps them once the comparison passed); once
-    ``armed``, a configuration and plan not kept fails the run. A
-    configuration is checked once, then found in a set (about a
+    """Holds every launch of the staged K1, K1-inverse and K4 to the plans
+    that passed their comparison with the plain version. It wraps
+    ``ops/shift3d.py::_bwd_prepare``, which the three wrappers call for the
+    plan of each launch: while ``recording`` it notes each call's
+    configuration and plan (``take`` keeps them once the comparison
+    passed); once ``armed``, a configuration and plan not kept fails the
+    run. A configuration is checked once, then found in a set (about a
     microsecond of host time a call)."""
 
     def __init__(self):
         from rubiksnet_torch.ops import shift3d as s3
 
         self.prepare = s3._bwd_prepare
-        self.checked = set()  # (inverse, og, x, stride, padding, dtype, plan)
+        # (direction, og, x, stride, padding, dtype, plan)
+        self.checked = set()
         self.seen, self.armed, self.passed = [], False, set()
         guard = self
 
@@ -279,15 +287,15 @@ class BwdPlanGuard:
             got = guard.prepare(*args)
             if args in guard.passed:
                 return got
-            inverse, og_shape, x_shape, stride, padding, dtype, _ = args
-            key = (inverse, tuple(og_shape), tuple(x_shape),
-                   s3._triple(stride), s3._triple(padding), dtype, got[1])
+            direction, _, x_shape, stride, padding, dtype, _ = args
+            key = (direction, got[4], tuple(x_shape), s3._triple(stride),
+                   s3._triple(padding), dtype, got[1])
             if guard.armed:
                 if key not in guard.checked:
-                    fail(f"{'K1-inverse' if inverse else 'K4'} at x "
-                         f"{tuple(x_shape)} stride {stride} padding "
-                         f"{padding} {dtype} would run under {got[1]}, a "
-                         f"plan that was not held against the plain version")
+                    fail(f"{STAGED_NAMES[direction]} at x {tuple(x_shape)} "
+                         f"stride {stride} padding {padding} {dtype} would "
+                         f"run under {got[1]}, a plan that was not held "
+                         f"against the plain version")
                 guard.passed.add(args)
             else:
                 guard.seen.append(key)
@@ -322,36 +330,43 @@ def tiny_shift_calls():
     return sorted(calls)
 
 
-def check_shift_backward(errs, gen, dev):
-    """K1-inverse and K4 against their plain versions, f32 and bf16: on
+def check_shift_staged(errs, gen, dev):
+    """K1, K1-inverse and K4 against their plain versions, f32 and bf16: on
     their staged route (shift3d_bwd.cu) at every Large shift shape at every
     batch that is checked, timed or trained (BWD_BATCHES), at every shift
-    of (a)'s tiny model, and off the model's shapes
-    (shift3d_bwd_probe.CASES: C = 54 and 108, odd extents, stride (2, 2, 2)
-    with padding (1, 1, 1), stride (1, 2, 2) with padding (0, 1, 0), one
-    clip, shifts of +-9 that take the direct-read route), the input
-    gradient fractional and quantized, every run repeated bit-identically;
-    then arms the guard on the staged route's plans. On the previous route
-    (shift3d.cu, shift_grad.cu) at every Large shift shape, K4 twice
-    bit-identical."""
+    of (a)'s tiny model, on one-frame views of Large's shapes, and off the
+    model's shapes (shift3d_bwd_probe.CASES: C = 54 and 108, odd extents,
+    stride (2, 2, 2) with padding (1, 1, 1), stride (1, 2, 2) with padding
+    (0, 1, 0), one clip, shifts of +-9 that take the direct-read route),
+    every fourth shift an integer, the forward and the input gradient
+    fractional and quantized, every run repeated bit-identically; K1 with a
+    bfloat16 shift against its float32 widening; then arms the guard on
+    the staged route's plans. On the previous route (shift3d.cu,
+    shift_grad.cu) at every Large shift shape, K4 twice bit-identical."""
     from rubiksnet_torch.ops.shift3d import (
+        DIRECTIONS,
         compute_output_shape_3d,
         shift3d_input_grad_kernel,
         shift3d_input_grad_plain,
+        shift3d_kernel,
+        shift3d_plain,
         shift3d_shift_grad_kernel,
         shift3d_shift_grad_plain,
     )
     from rubiksnet_torch.utils import shift3d_bwd_probe as probe
 
-    print(f"[kernels] K1-inverse shift3d_inverse and K4 shift_grad (staged "
-          f"route, shift3d_bwd.cu) vs plain, Large's shapes at batch "
-          f"{BWD_BATCHES}, the tiny model's, CASES; every run repeated "
-          f"bit-identically; the plans [inverse, K4] as rows per band R, "
-          f"ring rows D, og rows O")
+    print(f"[kernels] K1 shift3d, K1-inverse shift3d_inverse and K4 "
+          f"shift_grad (staged route, shift3d_bwd.cu) vs plain, Large's "
+          f"shapes at batch {BWD_BATCHES}, the tiny model's, CASES; every "
+          f"run repeated bit-identically; the plans [K1, K1-inverse, K4] as "
+          f"rows per band R, ring rows D, og rows O")
     guard = BwdPlanGuard()
     todo = [(f"{h}x{h}x{c} stride {s}", n, FRAMES, h, h, c, (1, s, s),
              (0, 0, 0), "mixed")
             for n in BWD_BATCHES for h, c, s in SHIFT_SHAPES]
+    todo += [(f"{h}x{h}x{c} stride {s} one frame", BATCH_CHECK * FRAMES, 1,
+              h, h, c, (1, s, s), (0, 0, 0), "mixed")
+             for h, c, s in SHIFT_SHAPES]
     todo += [(f"tiny stride {stride}", *shape, stride, padding, "mixed")
              for shape, stride, padding in tiny_shift_calls()]
     for label, n, t, h, w, c, stride, padding, kind in todo + probe.CASES:
@@ -364,23 +379,39 @@ def check_shift_backward(errs, gen, dev):
                              f"{'' if ok else ' FAIL'}"
                              for what, _, measure, value, bound, ok in rows)
             print(f"  {label} {n}x{t}x{h}x{w}x{c} {str(dt)[6:]}: {text} "
-                  f"[" + ", ".join(f"R{p.rows} D{p.ring} O{p.og_rows}"
-                                   for p in (plans[True], plans[False]))
+                  f"[" + ", ".join(f"R{plans[d].rows} D{plans[d].ring} "
+                                   f"O{plans[d].og_rows}" for d in DIRECTIONS)
                   + "]")
             for what, max_abs, _, _, _, ok in rows:
                 if not ok:
                     fail(f"{what} {label} {n}x{t}x{h}x{w}x{c} {dt} outside "
                          f"tolerance or not bit-identical")
-                kind_of = "shift_grad" if what == "shift grad" else (
-                    "shift3d_inverse")
+                kind_of = ("shift_grad" if what == "shift grad" else
+                           "shift3d" if what.startswith("forward") else
+                           "shift3d_inverse")
                 errs[kind_of].append(max_abs)
             guard.take()
+    # A shift parameter cast to bfloat16 (a module cast with .to) widens
+    # exactly: K1 gives what it gives for the same values in float32.
+    h, c, s = SHIFT_SHAPES[0]
+    x = randn((BATCH_CHECK, FRAMES, h, h, c), torch.bfloat16, gen, dev)
+    shift = rand_shift(c, gen, dev, integer_every=4).to(torch.bfloat16)
+    for q in (False, True):
+        same = torch.equal(shift3d_kernel(x, shift, quantize=q),
+                           shift3d_kernel(x, shift.float(), quantize=q))
+        print(f"  K1 with a bfloat16 shift {h}x{h}x{c} "
+              f"{'quantize' if q else 'fractional'}: equal to its float32 "
+              f"widening {'ok' if same else 'FAIL'}")
+        if not same:
+            fail("K1 with a bfloat16 shift differs from the same shift in "
+                 "float32")
+    guard.take()
     guard.armed = True
     print(f"  {len(guard.checked)} configurations and plans passed; every "
           f"later staged call is held to them")
 
-    print("[kernels] the previous route: K1-inverse (shift3d.cu) and K4 "
-          "(shift_grad.cu) vs plain")
+    print("[kernels] the previous route: K1 and K1-inverse (shift3d.cu) and "
+          "K4 (shift_grad.cu) vs plain")
     for h, c, s in SHIFT_SHAPES:
         stride = (1, s, s)
         x_shape = (BATCH_CHECK, FRAMES, h, h, c)
@@ -388,7 +419,14 @@ def check_shift_backward(errs, gen, dev):
         for dt in (torch.float32, torch.bfloat16):
             shift = rand_shift(c, gen, dev, integer_every=4)
             og = randn(og_shape, dt, gen, dev)
+            x = randn(x_shape, dt, gen, dev)
             for q in (False, True):
+                got = shift3d_kernel(x, shift, stride, (0, 0, 0), q,
+                                     route="previous")
+                ref = shift3d_plain(x, shift, stride, (0, 0, 0), q)
+                judge(f"K1 previous {h}x{h}x{c} stride {s} {str(dt)[6:]} "
+                      f"{'quantize' if q else 'fractional'}", got, ref, dt,
+                      [])
                 got = shift3d_input_grad_kernel(og, shift, x_shape, stride,
                                                 (0, 0, 0), q,
                                                 route="previous")
@@ -397,7 +435,6 @@ def check_shift_backward(errs, gen, dev):
                 judge(f"K1-inverse previous {h}x{h}x{c} stride {s} "
                       f"{str(dt)[6:]} {'quantize' if q else 'fractional'}",
                       got, ref, dt, [])
-            x = randn(x_shape, dt, gen, dev)
             got = shift3d_shift_grad_kernel(og, x, shift, stride,
                                             route="previous")
             again = shift3d_shift_grad_kernel(og, x, shift, stride,
@@ -715,12 +752,10 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
         fused_entry_plain,
         stack_entry_params,
     )
-    from rubiksnet_torch.ops.shift3d import shift3d_kernel, shift3d_plain
 
     dtypes = (torch.float32, torch.bfloat16)
     print("[kernels] shift2d / shift2d_inverse (shift2d.cu) vs the 2D gather "
-          "forms (quantize: half away from zero; and K1's half-up rule on "
-          "the one-frame view)")
+          "forms (quantize: half away from zero)")
     for h, c, s in SHIFT_SHAPES:
         for dt in dtypes:
             x = randn((BATCH_CHECK * FRAMES, h, h, c), dt, gen, dev)
@@ -739,13 +774,6 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
                 judge(f"shift2d_inverse {h}x{h}x{c} stride {s} "
                       f"{str(dt)[6:]} {mode}", got, ref, dt,
                       errs["shift2d_inverse"])
-            shift3 = torch.cat([torch.zeros_like(shift[:1]), shift])
-            got = shift3d_kernel(x[:, None], shift3, (1, s, s), (0, 0, 0),
-                                 True)
-            ref = shift3d_plain(x[:, None], shift3, (1, s, s), (0, 0, 0),
-                                True)
-            judge(f"K1 one frame {h}x{h}x{c} stride {s} {str(dt)[6:]} "
-                  f"quantize half-up", got, ref, dt, errs["shift3d"])
     check_shift2d_cases(errs, gen, dev)
 
     def twice(label, fn):
@@ -1121,16 +1149,13 @@ class Timer:
                      for k in names}
 
     def add(self, kind, label, count, kernel_fn, plain_fn, work, dtype,
-            lib_fn=None, previous_fn=None, needles=("shift2d_kernel",
-                                                    "shift3d_"),
-            kernels_per_call=1, previous="K1 on a one-frame view", note="",
-            device=False):
-        """``previous_fn``: the route this kernel replaced; both then also
-        get their device time from the profiler (the kernels whose names
-        hold ``needles[0]`` and ``needles[1]``), and ``kernel_fn`` must
-        launch exactly ``kernels_per_call`` device kernels per call.
-        ``device``: the device time of ``kernel_fn`` alone (every device
-        kernel of a call)."""
+            lib_fn=None, previous_fn=None, kernels_per_call=1, previous="",
+            note="", device=False):
+        """``previous_fn``: the route this kernel replaced (named
+        ``previous``); both then also get their device time from the
+        profiler (every device kernel of a call). ``device``: the device
+        time of ``kernel_fn`` alone. Either way ``kernel_fn`` must launch
+        exactly ``kernels_per_call`` device kernels per call."""
         from rubiksnet_torch.utils import cuda_time_ms
 
         row = self.rows[kind]
@@ -1154,15 +1179,18 @@ class Timer:
             text += f", library (depthwise conv) {lib_ms:.4f} ms"
         if device and previous_fn is None:
             dev_ms, n_kernels = profiled_ms(kernel_fn, "", label)
+            if n_kernels not in (kernels_per_call, None):
+                fail(f"{label}: one call launched {n_kernels} device "
+                     f"kernels, not {kernels_per_call}")
             row["device_ms"] = (row["device_ms"] or 0.0) + count * dev_ms
             text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernels "
                      f"per call by the profiler")
         if previous_fn is not None:
-            dev_ms, n_kernels = profiled_ms(kernel_fn, needles[0], label)
+            dev_ms, n_kernels = profiled_ms(kernel_fn, "", label)
             if n_kernels not in (kernels_per_call, None):
                 fail(f"{label}: one call launched {n_kernels} device "
                      f"kernels, not {kernels_per_call}")
-            prev_dev_ms, prev_n = profiled_ms(previous_fn, needles[1],
+            prev_dev_ms, prev_n = profiled_ms(previous_fn, "",
                                               f"{label}, previous route")
             prev_ms = cuda_time_ms(previous_fn)
             timed = [("device_ms", dev_ms), ("previous_ms", prev_ms),
@@ -1290,11 +1318,16 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
     for h, c, count in BLOCK_SHAPES:
         x = randn((nb, FRAMES, h, h, c), bf, gen, dev)
         shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
+        # One call of the staged K1 is one device kernel; the previous
+        # route's device time is that of all its kernels (the shift's two
+        # casts).
         timer.add("shift3d", f"K1 {h}x{h}x{c} stride 1", count,
                   lambda: shift3d_kernel(x, shift),
                   lambda: shift3d_plain(x, shift),
                   shift_work(x.numel(), x.numel(), 2, 8), bf,
-                  library_shift(x, shift, 1), device=True)
+                  library_shift(x, shift, 1),
+                  lambda: shift3d_kernel(x, shift, route="previous"),
+                  previous="shift3d.cu's first form")
         blocks = {}
         for aq, se in ((False, False), (True, False), (False, True)):
             blk = random_block(c, c, 1, False, cpu_gen, dev,
@@ -1319,7 +1352,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                                  se), bf,
                       previous_fn=run(functools.partial(
                           fused_block_kernel, route="simt"), aq, se),
-                      needles=("", ""), kernels_per_call=3 if se else 2,
+                      kernels_per_call=3 if se else 2,
                       previous="the SIMT GEMM of common.cuh",
                       note=f"; plan: {plan.describe()}")
     time_block_runs(timer, gen, cpu_gen, dev, small_counts)
@@ -1330,7 +1363,10 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_kernel(xm, shift, (1, 2, 2)),
                   lambda: shift3d_plain(xm, shift, (1, 2, 2)),
                   shift_work(xm.numel() // 4, xm.numel(), 2, 8), bf,
-                  library_shift(xm, shift, 2), device=True)
+                  library_shift(xm, shift, 2),
+                  lambda: shift3d_kernel(xm, shift, (1, 2, 2),
+                                         route="previous"),
+                  previous="shift3d.cu's first form")
         x = randn((nb, FRAMES, h, h, cin), bf, gen, dev)
         for kind, tag, se in (("fused_entry", "K3", False),
                               ("fused_entry_se", "K3-SE", True)):
@@ -1347,7 +1383,6 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                       entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, se), bf,
                       previous_fn=lambda: fused_entry_kernel(
                           x, params, sep, max_shift=k, route="simt"),
-                      needles=("", ""),
                       kernels_per_call=2 + (plan.g is not None) + se,
                       previous="the SIMT GEMM of common.cuh",
                       note=f"; {entry_parts(new)}; plan: {plan.describe()}")
@@ -1378,29 +1413,22 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_input_grad_kernel(og, shift, x_shape,
                                                     stride,
                                                     route="previous"),
-                  needles=("", ""), previous="shift3d.cu's first form")
+                  previous="shift3d.cu's first form")
         timer.add("shift_grad", f"K4 {h}x{h}x{c} stride {s}", count,
                   lambda: shift3d_shift_grad_kernel(og, x, shift, stride),
                   lambda: shift3d_shift_grad_plain(og, x, shift, stride),
                   shift_grad_work(og.numel(), x.numel(), 2), bf,
                   previous_fn=lambda: shift3d_shift_grad_kernel(
                       og, x, shift, stride, route="previous"),
-                  needles=("", ""), kernels_per_call=2,
-                  previous="shift_grad.cu's first form")
+                  kernels_per_call=2, previous="shift_grad.cu's first form")
         x4 = x.reshape((-1,) + x_shape[2:])
         og4 = og.reshape((-1,) + tuple(og.shape[2:]))
         shift2 = shift[1:].contiguous()
-        # The previous route: K1 / K1-inverse on the one-frame view, with the
-        # wrapper work it had per call (a zero T row joined to the shift).
-        x5, og5 = x4[:, None], og4[:, None]
-        shift3 = lambda: torch.cat([torch.zeros_like(shift2[:1]), shift2])
         timer.add("shift2d", f"shift2d {h}x{h}x{c} stride {s}", count,
                   lambda: shift2d.shift2d_kernel(x4, shift2, s),
                   lambda: shift2d.shift2d_plain(x4, shift2, s),
                   shift_work(og.numel(), x.numel(), 2, 4), bf,
-                  library_shift(x4, shift2, s),
-                  lambda: shift3d_kernel(x5, shift3(), stride,
-                                         quantize_mode="half_away"))
+                  library_shift(x4, shift2, s), device=True)
         timer.add("shift2d_inverse", f"shift2d_inverse {h}x{h}x{c} stride {s}",
                   count,
                   lambda: shift2d.shift2d_input_grad_kernel(og4, shift2,
@@ -1408,10 +1436,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift2d.shift2d_input_grad_plain(og4, shift2,
                                                            x4.shape, s),
                   shift_work(x.numel(), og.numel(), 2, 4), bf,
-                  library_shift(og4, shift2, s, inverse=True),
-                  lambda: shift3d_input_grad_kernel(
-                      og5, shift3(), x5.shape, stride,
-                      quantize_mode="half_away", route="previous"))
+                  library_shift(og4, shift2, s, inverse=True), device=True)
         ms = cuda_time_ms(lambda: shift2d.rubiks_shift_2d_shift_grad(
             og4, x4, shift2, s))
         plain2d_grad_ms += count * ms
@@ -1424,21 +1449,25 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         timer.summary(kind, "train step" if backward else "forward")
     print(f"  2D shift gradient (plain PyTorch, no kernel): "
           f"{plain2d_grad_ms:.3f} ms per Large-AQ train step")
-    # One call of either 2D shift wrapper, and of the staged input gradient
-    # of the 3D shift, is one device kernel and nothing else (no cat, cast
-    # or copy); one of the staged shift gradient two; at every shape the
-    # profiler recorded (Timer.add fails a call that launched other).
-    for prefixes, names in ((("shift2d",), "shift2d_kernel and "
-                             "shift2d_input_grad_kernel: 1 device kernel "
-                             "per call"),
-                            (("K1-inverse", "K4"), "shift3d_input_grad_kernel"
-                             " and shift3d_shift_grad_kernel (staged): 1 and "
-                             "2 device kernels per call")):
+    # One call of either 2D shift wrapper, and of the staged forward and
+    # input gradient of the 3D shift, is one device kernel and nothing else
+    # (no cat, cast or copy); one of the staged shift gradient two; at every
+    # shape the profiler recorded (Timer.add fails a call that launched
+    # other).
+    for prefixes, per_shape, names in (
+            (("shift2d",), 2, "shift2d_kernel and shift2d_input_grad_kernel: "
+             "1 device kernel per call"),
+            (("K1 ",), 1, "shift3d_kernel (staged): 1 device kernel per "
+             "call"),
+            (("K1-inverse", "K4"), 2, "shift3d_input_grad_kernel and "
+             "shift3d_shift_grad_kernel (staged): 1 and 2 device kernels per "
+             "call")):
         missed = [m for m in PROFILER_MISSES
                   if "," not in m and m.startswith(prefixes)]
-        seen = 2 * len(SHIFT_SHAPES) - len(missed)
-        print(f"[launch] {names} by the profiler at {seen} of "
-              f"{2 * len(SHIFT_SHAPES)} timed shapes"
+        timed = per_shape * len(SHIFT_SHAPES)
+        seen = timed - len(missed)
+        print(f"[launch] {names} by the profiler at {seen} of {timed} timed "
+              f"shapes"
               + (f" (no profiler records at: {missed})" if missed else ""))
         if seen == 0:
             fail(f"the profiler recorded no call of {names}")
@@ -1794,7 +1823,8 @@ def main() -> int:
     dtypes = (torch.float32, torch.bfloat16)
 
     # Phase 3: each kernel against its plain version at the Large shapes.
-    print("[kernels] K1 shift3d vs gather form")
+    print("[kernels] K1 shift3d (staged route, shift3d_bwd.cu) vs gather "
+          "form")
     for h, c, s in SHIFT_SHAPES:
         for dt in dtypes:
             for q in (False, True):
@@ -1834,7 +1864,7 @@ def main() -> int:
                 judge(f"K3 {h}x{h}x{cin}->{cm} {str(dt)[6:]} "
                       f"{'quantize' if q else 'fractional'}", got, ref, dt,
                       errs["fused_entry"])
-    check_shift_backward(errs, gen, dev)
+    check_shift_staged(errs, gen, dev)
     check_new_kernels(errs, gen, cpu_gen, dev)
     check_block_cases(errs, gen, cpu_gen, dev)
     check_block_served_shapes(errs, gen, cpu_gen, dev)
@@ -1919,7 +1949,8 @@ def main() -> int:
         if row["device_ms"] is not None:
             kernels[-1].update(device_ms=row["device_ms"])
         if row["previous_ms"] is not None:
-            kernels[-1].update(previous_ms=row["previous_ms"])
+            kernels[-1].update(previous_ms=row["previous_ms"],
+                               previous_device_ms=row["previous_device_ms"])
         if "runs_ms" in row:
             kernels[-1].update(runs_ms=row["runs_ms"],
                                previous_runs_ms=row["previous_runs_ms"])

@@ -58,11 +58,7 @@ struct AxisTaps {
 
 // Taps of a shift by s (already rounded to the compute dtype) reading cells
 // j0 + {0, 1} with weights (1 - r, r), where j0 = base + floor(s) and r is
-// the remainder. quantize 1 (the 3D rule) reads the one cell j0 + (r >= 0.5);
-// quantize 2 (the 2D rule) reads the cell base + s rounded half away from
-// zero, so the coordinate's sign enters the rounding.
-enum Quantize { kFractional = 0, kHalfUp = 1, kHalfAway = 2 };
-
+// the remainder; quantize (the 3D rule) reads the one cell j0 + (r >= 0.5).
 __device__ __forceinline__ AxisTaps raw_taps(int base, float s,
                                              int quantize) {
   const float f = floorf(s);
@@ -70,12 +66,7 @@ __device__ __forceinline__ AxisTaps raw_taps(int base, float s,
   const int j0 = base + (int)f;
   AxisTaps a;
   if (quantize) {
-    if (quantize == kHalfAway) {
-      const float v = (float)base + s;
-      a.idx[0] = (int)truncf(v < 0.f ? v - 0.5f : v + 0.5f);
-    } else {
-      a.idx[0] = j0 + (r >= 0.5f);
-    }
+    a.idx[0] = j0 + (r >= 0.5f);
     a.w[0] = 1.f;
     a.idx[1] = -1;
     a.w[1] = 0.f;

@@ -17,13 +17,13 @@
 // stride, div = 1, off = -pad; gradient: mul = 1, div = stride, off = pad, s
 // negated).
 //
-// What bounds it on the card. The one-pass 3D kernel run on a one-frame view
-// (shift3d.cu, the previous route) was bound by its operation count: about
-// 300 per 2-byte element (64-bit divisions to unflatten the index, the taps
-// of both axes recomputed per element). The function itself is bound by
-// bytes: 4 multiply-adds per element against 2 bytes read and 2 written. The
-// design, so that the operation count falls below what the memory rate
-// allows:
+// What bounds it on the card. The one-pass 3D kernel run on a one-frame
+// view (shift3d.cu, this function's first form) was bound by its operation
+// count: about 300 per 2-byte element (64-bit divisions to unflatten the
+// index, the taps of both axes recomputed per element). The function itself
+// is bound by bytes: 4 multiply-adds per element against 2 bytes read and 2
+// written. The design, so that the operation count falls below what the
+// memory rate allows:
 //
 // * Grid = (frame, band of destination rows) x channel group. n, rows,
 //   columns and channels come from blockIdx, threadIdx and loop counters;

@@ -1,17 +1,14 @@
-// K1: the fractional 3D shift forward, one pass; and K1-inverse, its input
-// gradient, one pass.
+// The previous route of K1, the fractional 3D shift forward, and of
+// K1-inverse, its input gradient: their first forms, one pass each, kept
+// callable (ops/shift3d.py's route="previous") so that a run can time them
+// beside shift3d_bwd.cu, which serves both (and K4) on the port's path.
 //
 // K1 replaces rubiksnet_tpu/ops/pallas/shift_kernel.py::rubiks_shift3d_pallas
 // (forward) and, at stride (1, 2, 2), ops/pallas/fused_shift3d.py::
 // rubiks_shift_3d_fused. out[n, t', h', w', c] is the trilinear interpolation
 // of x at (t'*sT - pT + shiftT[c], h'*sH - pH + shiftH[c], w'*sW - pW +
-// shiftW[c]) with zero fill outside x; quantize 1 reads the one corner whose
-// per-axis remainder rounds half up (remainder < 0.5 -> floor), quantize 2
-// the corner at the coordinate rounded half away from zero. With T = 1 and
-// a zero T row both kernels are the 2D shift (rubiksnet_tpu/ops/shift2d.py,
-// which calls the same TPU kernel so), whose quantize rule is the second;
-// the port's 2D shift has kernels of its own (shift2d.cu) and keeps this
-// mode only as the route to time them against.
+// shiftW[c]) with zero fill outside x; quantize reads the one corner whose
+// per-axis remainder rounds half up (remainder < 0.5 -> floor).
 //
 // K1-inverse replaces rubiks_shift3d_pallas(inverse=True), which covered
 // stride 1 only, and the XLA inverse shift of the strided entry blocks
@@ -36,12 +33,10 @@
 // cost is in what every element repeats: four 64-bit divisions to unflatten
 // its index, floor, remainder, range tests (and, in the inverse, a division
 // by the stride per tap) of all three axes, and 2-byte loads and stores.
-// csrc/shift2d.cu is the same function in 2D redesigned around that finding
-// (indices from the grid, taps once per channel, rows staged in shared
-// memory) and runs 3-6 times faster on the device; K1 and K1-inverse in 3D
-// wait for the same treatment. The integer part of the shift is unbounded
-// here (the gather form's semantics: shifts move during training), so no
-// max_shift argument exists.
+// shift3d_bwd.cu is the redesign around that finding (indices from the
+// grid, taps once per channel, rows staged in shared memory). The integer
+// part of the shift is unbounded here (the gather form's semantics: shifts
+// move during training), so no max_shift argument exists.
 #include "common.cuh"
 
 namespace rubiks {
@@ -148,8 +143,8 @@ extern "C" {
 
 // x (N, T, H, W, C) and out (N, To, Ho, Wo, C) contiguous, of dtype
 // (0 float32, 1 bfloat16); shift (3, C) float32, already rounded to the
-// compute dtype by the caller. quantize: 0 fractional, 1 half up (3D), 2
-// half away from zero of the coordinate (2D).
+// compute dtype by the caller. quantize: 0 fractional, 1 the 3D rule (half
+// up).
 int rubiks_shift3d_fwd(const void* x, const float* shift, void* out,
                        int dtype, int N, int T, int H, int W, int C, int To,
                        int Ho, int Wo, int st, int sh, int sw, int pt, int ph,

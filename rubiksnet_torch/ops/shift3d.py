@@ -3,7 +3,8 @@
 Counterpart of ``rubiksnet_tpu/ops/shift3d.py``. Three functions, each a
 CUDA kernel beside its plain gather form:
 
-* forward: K1 ``csrc/shift3d.cu::rubiks_shift3d_fwd`` / :func:`shift3d_plain`;
+* forward: K1 ``csrc/shift3d_bwd.cu::rubiks_shift3d_fwd_staged`` /
+  :func:`shift3d_plain`;
 * input gradient (the inverse shift of the upstream gradient): K1-inverse
   ``csrc/shift3d_bwd.cu::rubiks_shift3d_inv_staged`` /
   :func:`shift3d_input_grad_plain`;
@@ -11,10 +12,12 @@ CUDA kernel beside its plain gather form:
   ``csrc/shift3d_bwd.cu::rubiks_shift_grad_staged`` /
   :func:`shift3d_shift_grad_plain`.
 
-The two backward kernels share one device body (source rows staged in
-shared memory, one channel per thread) under the launch plan
-:func:`shift3d_bwd_plan`; their first forms (``csrc/shift3d.cu``'s inverse,
-``csrc/shift_grad.cu``) stay callable as ``route="previous"``.
+The three kernels share one device body (source rows staged in shared
+memory, one channel per thread) under the launch plan
+:func:`shift3d_bwd_plan`, which takes the direction (``FORWARD``,
+``INPUT_GRAD``, ``SHIFT_GRAD``); their first forms (``csrc/shift3d.cu``'s
+forward and inverse, ``csrc/shift_grad.cu``) stay callable as
+``route="previous"``.
 
 :func:`rubiks_shift_3d` ties them into an autograd op whose shift gradient
 is unit-normalized per channel (:func:`normalize_shift_grad_3d`): the
@@ -34,6 +37,10 @@ from . import _build
 from . import shift_core as core
 
 __all__ = [
+    "DIRECTIONS",
+    "FORWARD",
+    "INPUT_GRAD",
+    "SHIFT_GRAD",
     "compute_output_shape_3d",
     "normalize_shift_grad_3d",
     "rubiks_shift_3d",
@@ -212,19 +219,10 @@ def _shift_f32(shift, dtype):
     return shift.to(dtype).to(torch.float32).contiguous()
 
 
-def quantize_code(quantize: bool, quantize_mode: str) -> int:
-    """The kernels' rounding argument: 0 fractional, 1 ``half_up`` (the 3D
-    rule), 2 ``half_away`` (the 2D rule, see shift_core)."""
-    if quantize_mode not in core.QUANTIZE_MODES:
-        raise ValueError(f"unknown quantize_mode {quantize_mode!r}")
-    if not quantize:
-        return 0
-    return 1 + core.QUANTIZE_MODES.index(quantize_mode)
-
-
-def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
-                   quantize=False, *, quantize_mode="half_up"):
-    """Kernel K1 on a CUDA tensor: one pass, trilinear weights in f32."""
+def _forward_previous(x, shift, stride, padding, quantize):
+    """K1's first form (csrc/shift3d.cu): one thread per output element,
+    trilinear weights in f32; the shift cast to the dtype and back by two
+    device kernels before it."""
     _check_cuda("shift3d_kernel", x, shift)
     code = _build.dtype_code(x.dtype)
     st, sh, sw = _triple(stride)
@@ -238,15 +236,14 @@ def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
     fn = _build.kernel_function("rubiks_shift3d_fwd", P, P, P, *[I] * 16, P)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), s32.data_ptr(), out.data_ptr(), code, n, t, h,
-                w, c, to, ho, wo, st, sh, sw, pt, ph, pw,
-                quantize_code(quantize, quantize_mode), _build.stream_of(x))
+                w, c, to, ho, wo, st, sh, sw, pt, ph, pw, int(quantize),
+                _build.stream_of(x))
     _build.check(rc, "rubiks_shift3d_fwd")
     LAUNCHES.count += 1
     return out
 
 
-def _input_grad_previous(og, shift, in_shape, stride, padding, quantize,
-                         quantize_mode):
+def _input_grad_previous(og, shift, in_shape, stride, padding, quantize):
     """K1-inverse's first form (csrc/shift3d.cu): one thread per input
     element, stride-gated, weights in f32; the shift cast to the dtype and
     back by two device kernels before it."""
@@ -267,8 +264,8 @@ def _input_grad_previous(og, shift, in_shape, stride, padding, quantize,
     fn = _build.kernel_function("rubiks_shift3d_inv", P, P, P, *[I] * 16, P)
     with torch.cuda.device(og.device):
         rc = fn(og.data_ptr(), s32.data_ptr(), gx.data_ptr(), code, n, t, h,
-                w, c, to, ho, wo, st, sh, sw, pt, ph, pw,
-                quantize_code(quantize, quantize_mode), _build.stream_of(og))
+                w, c, to, ho, wo, st, sh, sw, pt, ph, pw, int(quantize),
+                _build.stream_of(og))
     _build.check(rc, "rubiks_shift3d_inv")
     INVERSE_LAUNCHES.count += 1
     return gx
@@ -316,14 +313,17 @@ def _shift_grad_previous(og, x, shift, stride, padding):
     return out
 
 
-# ------------------------------------- the backward's kernels, staged route
+# ---------------------------------------------- the staged route's kernels
 #
-# csrc/shift3d_bwd.cu holds the arithmetic of K1-inverse and K4. Everything
-# else is here, where the CPU tests reach it: the per-axis coordinate rule,
-# the frames and rows a destination frame and band read, and the plan
-# (channel group, rows per band, ring frames and rows, column runs, shared
-# memory) that the wrappers pass to the C entry points.
+# csrc/shift3d_bwd.cu holds the arithmetic of K1, K1-inverse and K4, one
+# body in three directions. Everything else is here, where the CPU tests
+# reach it: the per-axis coordinate rule, the frames and rows a destination
+# frame and band read, and the plan (channel group, rows per band, ring
+# frames and rows, column runs, shared memory) that the wrappers pass to
+# the C entry points.
 
+FORWARD, INPUT_GRAD, SHIFT_GRAD = "forward", "input_grad", "shift_grad"
+DIRECTIONS = (FORWARD, INPUT_GRAD, SHIFT_GRAD)
 BWD_ROUTES = ("staged", "previous")
 BWD_SMEM_HEAD = 32  # the block's tap ranges
 BWD_MAX_THREADS = 384  # csrc/shift3d_bwd.cu's kMaxThreads (launch bound)
@@ -336,10 +336,10 @@ SG_RED_BYTES = 12  # per thread: the shift gradient's three sums, reduced
 # has about BWD_TARGET_BLOCKS blocks but keep at least BWD_MIN_BAND_ROWS
 # rows; a block has about BWD_BLOCK_THREADS threads. The ring is sized for
 # a tap extent (max hi - min lo over a group's channels) of BWD_EXTENT for
-# the input gradient (shifts in (-1, 1): floors -1 and 0) and SG_EXTENT for
-# the shift gradient (its corrected taps add a cell at an integer
-# remainder); a group whose taps reach further reads directly. The shift
-# gradient stages og's rows too, in a ring of as many rows beside the
+# the forward and the input gradient (shifts in (-1, 1): floors -1 and 0)
+# and SG_EXTENT for the shift gradient (its corrected taps add a cell at an
+# integer remainder); a group whose taps reach further reads directly. The
+# shift gradient stages og's rows too, in a ring of as many rows beside the
 # source rows', where that leaves its channel group as wide.
 BWD_SMEM_BUDGET = 112 * 1024
 BWD_MAX_GROUP = 512
@@ -355,32 +355,42 @@ Shift3dBwdPlan = collections.namedtuple(
                       "og_rows cols threads smem_bytes")
 
 
-def bwd_axis_rule(stride, padding, inverse):
+def _direction(direction):
+    if direction not in DIRECTIONS:
+        raise ValueError(f"unknown direction {direction!r}, expected one of "
+                         f"{DIRECTIONS}")
+    return direction
+
+
+def bwd_axis_rule(stride, padding, direction):
     """(mul, div, off) of one axis: destination position p of channel c
     reads raw coordinates ``q = p * mul + off + {lo_c, hi_c}`` and the
-    source cell ``q // div`` where div divides q. Input gradient
-    (``inverse``): destination gx, source og; shift gradient: destination
-    the output positions, source x."""
-    return (1, stride, padding) if inverse else (stride, 1, -padding)
+    source cell ``q // div`` where div divides q. Input gradient:
+    destination gx, source og; forward and shift gradient: destination the
+    output positions, source x."""
+    if _direction(direction) == INPUT_GRAD:
+        return (1, stride, padding)
+    return (stride, 1, -padding)
 
 
-def bwd_channel_taps(shift_c, inverse, quantize):
+def bwd_channel_taps(shift_c, direction, quantize):
     """Per channel of one axis the kernel's (lo, hi, w0, w1), from the shift
-    already rounded to the compute dtype (a 1-D tensor): the input gradient
-    takes the negated shift, lo = floor, hi = lo + 1, weights (1 - r, r),
-    quantize the one tap floor + (r >= 0.5) with weights (1, 0); the shift
-    gradient the corrected taps (lo moves back a cell at r == 0), weights
-    (1 - r, r)."""
-    s = -shift_c if inverse else shift_c
+    already rounded to the compute dtype (a 1-D tensor): the forward takes
+    the shift and the input gradient the negated shift, lo = floor, hi =
+    lo + 1, weights (1 - r, r), quantize the one tap floor + (r >= 0.5)
+    with weights (1, 0); the shift gradient the corrected taps (lo moves
+    back a cell at r == 0), weights (1 - r, r)."""
+    direction = _direction(direction)
+    s = -shift_c if direction == INPUT_GRAD else shift_c
     f = torch.floor(s)
     r = s - f
     fi = f.to(torch.int64)
-    if inverse:
-        lo = fi + ((r >= 0.5) & quantize).to(torch.int64)
-        w0 = torch.ones_like(r) if quantize else 1 - r
-        w1 = torch.zeros_like(r) if quantize else r
-        return lo, lo + 1, w0, w1
-    return fi - (r == 0).to(torch.int64), fi + 1, 1 - r, r
+    if direction == SHIFT_GRAD:
+        return fi - (r == 0).to(torch.int64), fi + 1, 1 - r, r
+    lo = fi + ((r >= 0.5) & quantize).to(torch.int64)
+    w0 = torch.ones_like(r) if quantize else 1 - r
+    w1 = torch.zeros_like(r) if quantize else r
+    return lo, lo + 1, w0, w1
 
 
 def bwd_frames_needed(ext, div):
@@ -416,7 +426,7 @@ def _ring_pitch(row_bytes):
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_plan(shape, out_shape, stride, itemsize, inverse, copy_limit,
+def _bwd_plan(shape, out_shape, stride, itemsize, direction, copy_limit,
               knobs):
     (budget, max_group, max_ring, target, min_rows, block_threads, inv_ext,
      sg_ext) = knobs
@@ -425,20 +435,22 @@ def _bwd_plan(shape, out_shape, stride, itemsize, inverse, copy_limit,
     if max(t * h * w * c, to * ho * wo * c) >= 2**31:
         raise ValueError(
             f"one clip of {tuple(shape)} -> {tuple(out_shape)} has 2**31 "
-            f"elements or more: the 3D shift's backward kernels index a clip "
+            f"elements or more: the 3D shift's staged kernels index a clip "
             f"in 32 bits")
+    inverse = direction == INPUT_GRAD
+    sg = direction == SHIFT_GRAD
     (ts, hs, ws), (td, hd, wd) = (((to, ho, wo), (t, h, w)) if inverse
                                   else ((t, h, w), (to, ho, wo)))
-    mul_t, div_t, _ = bwd_axis_rule(stride[0], 0, inverse)
-    mul_h, div_h, _ = bwd_axis_rule(stride[1], 0, inverse)
+    mul_t, div_t, _ = bwd_axis_rule(stride[0], 0, direction)
+    mul_h, div_h, _ = bwd_axis_rule(stride[1], 0, direction)
     copy_bytes = next(b for b in (16, 4, itemsize)
                       if b <= max(copy_limit, itemsize)
                       and (c * itemsize) % b == 0)
     unit = max(1, copy_bytes // itemsize)
-    ext = inv_ext if inverse else sg_ext
+    ext = sg_ext if sg else inv_ext
     frames = bwd_frames_needed(ext, div_t)
     need = bwd_rows_needed(ext, mul_h, div_h)
-    red = 0 if inverse else SG_RED_BYTES
+    red = SG_RED_BYTES if sg else 0
     cap = min(max_group, BWD_MAX_THREADS)
 
     def cols_of(group):
@@ -469,7 +481,7 @@ def _bwd_plan(shape, out_shape, stride, itemsize, inverse, copy_limit,
     # The shift gradient stages og's rows where that leaves its group as
     # wide (a narrower group pays a row's fixed cost more often).
     group, ring_of = choose(False)
-    og_ring = not inverse and choose(True)[0] >= group
+    og_ring = sg and choose(True)[0] >= group
     if og_ring:
         group, ring_of = choose(True)
     ring = ring_of(group)
@@ -490,12 +502,13 @@ def _bwd_plan(shape, out_shape, stride, itemsize, inverse, copy_limit,
                           group * cols, smem)
 
 
-def shift3d_bwd_plan(shape, out_shape, stride, dtype, inverse,
+def shift3d_bwd_plan(shape, out_shape, stride, dtype, direction,
                      copy_limit=16):
-    """How the kernels of csrc/shift3d_bwd.cu run the input gradient og
-    ``out_shape`` -> gx ``shape`` (``inverse``) or the shift gradient of x
-    ``shape`` and og ``out_shape``, (N, T, H, W, C) each. A pure function
-    of its arguments.
+    """How the kernels of csrc/shift3d_bwd.cu run, for x ``shape`` and the
+    output (og) ``out_shape``, (N, T, H, W, C) each: the forward x -> out
+    (``FORWARD``), the input gradient og -> gx (``INPUT_GRAD``) or the
+    shift gradient of x and og (``SHIFT_GRAD``). A pure function of its
+    arguments.
 
     A block takes one (clip, destination frame, band of ``rows``
     destination rows) unit at a time (``units`` in all) and one group of
@@ -515,7 +528,8 @@ def shift3d_bwd_plan(shape, out_shape, stride, dtype, inverse,
              BWD_MIN_BAND_ROWS, BWD_BLOCK_THREADS, BWD_EXTENT, SG_EXTENT)
     return _bwd_plan(tuple(int(v) for v in shape),
                      tuple(int(v) for v in out_shape), _triple(stride),
-                     dtype.itemsize, bool(inverse), int(copy_limit), knobs)
+                     dtype.itemsize, _direction(direction), int(copy_limit),
+                     knobs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -523,37 +537,47 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-_INV_ENTRY = ("rubiks_shift3d_inv_staged",
-              (_build.PTR,) * 3 + (_build.INT,) * 23 + (_build.PTR,))
-_SG_ENTRY = ("rubiks_shift_grad_staged",
-             (_build.PTR,) * 5 + (_build.INT,) * 23 + (_build.PTR,))
+_ENTRIES = {
+    FORWARD: ("rubiks_shift3d_fwd_staged",
+              (_build.PTR,) * 3 + (_build.INT,) * 23 + (_build.PTR,)),
+    INPUT_GRAD: ("rubiks_shift3d_inv_staged",
+                 (_build.PTR,) * 3 + (_build.INT,) * 23 + (_build.PTR,)),
+    SHIFT_GRAD: ("rubiks_shift_grad_staged",
+                 (_build.PTR,) * 5 + (_build.INT,) * 23 + (_build.PTR,)),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_prepare(inverse, src_shape, x_shape, stride, padding, dtype,
+def _bwd_prepare(direction, og_shape, x_shape, stride, padding, dtype,
                  copy_limit):
     """What one launch needs beyond its pointers, worked out once per
     configuration (the arguments as the caller gave them, hashable): the C
-    entry point, the plan and the integer arguments. ``src_shape``: og's
-    shape; ``x_shape``: x's (the input gradient's result)."""
-    name, argtypes = _INV_ENTRY if inverse else _SG_ENTRY
+    entry point, the plan, the integer arguments and og's shape (the
+    output's). ``og_shape``: og's shape, None for the forward (which makes
+    it); ``x_shape``: x's (the input gradient's result)."""
+    name, argtypes = _ENTRIES[_direction(direction)]
     stride, padding = _triple(stride), _triple(padding)
     x_shape = tuple(int(v) for v in x_shape)
-    og_shape = tuple(int(v) for v in src_shape)
-    if len(x_shape) != 5 or compute_output_shape_3d(
-            x_shape, stride, padding) != og_shape:
+    if len(x_shape) != 5:
+        raise ValueError(f"{name}: x must be (N, T, H, W, C), got {x_shape}")
+    out_shape = compute_output_shape_3d(x_shape, stride, padding)
+    if og_shape is None:
+        og_shape = out_shape
+    og_shape = tuple(int(v) for v in og_shape)
+    if out_shape != og_shape:
         raise ValueError(f"og {og_shape} is not the output shape of "
                          f"{x_shape} at stride {stride} padding {padding}")
     n, t, h, w, c = x_shape
     if max(t, h, w) * max(stride) + max(max(padding), 0) >= 2**30:
         raise ValueError(f"{name}: extent of {x_shape} too large")
-    plan = shift3d_bwd_plan(x_shape, og_shape, stride, dtype, inverse,
+    plan = shift3d_bwd_plan(x_shape, og_shape, stride, dtype, direction,
                             copy_limit)
     shapes = (_build.dtype_code(dtype), n, t, h, w, c, *og_shape[1:4],
               *stride, *padding)
     knobs = (plan.copy_bytes, plan.group, plan.rows, plan.frames, plan.ring,
              plan.cols)
-    return _build.kernel_function(name, *argtypes), plan, shapes, knobs
+    return (_build.kernel_function(name, *argtypes), plan, shapes, knobs,
+            og_shape)
 
 
 def _check_staged(name, shift, *tensors):
@@ -588,39 +612,70 @@ def _call(fn, dev, args):
         return fn(*args)
 
 
+def _unknown_route(route):
+    return ValueError(f"unknown route {route!r}, expected one of "
+                      f"{BWD_ROUTES}")
+
+
+def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
+                   quantize=False, *, route="staged"):
+    """Kernel K1 on a CUDA tensor x (N, T, H, W, C), contiguous, with the
+    (3, C) shift: the shifted output. ``route="staged"``: one launch of
+    ``rubiks_shift3d_fwd_staged`` (csrc/shift3d_bwd.cu), planned by
+    :func:`shift3d_bwd_plan`, and no other device work, where the shift is
+    float32 (another dtype is widened first, as for a module cast to
+    bfloat16; the kernel rounds it to x's dtype either way);
+    ``route="previous"``: the first form (csrc/shift3d.cu), kept to time
+    the two in one run."""
+    if route == "previous":
+        return _forward_previous(x, shift, stride, padding, quantize)
+    if route != "staged":
+        raise _unknown_route(route)
+    name = _ENTRIES[FORWARD][0]
+    if shift.dtype != torch.float32:
+        shift = shift.float()
+    _check_staged(name, shift, x)
+    dev = x.device
+    fn, plan, shapes, knobs, out_shape = _bwd_prepare(
+        FORWARD, None, x.shape, stride, padding, x.dtype, _copy_limit(x))
+    out = torch.empty(out_shape, dtype=x.dtype, device=dev)
+    rc = _call(fn, dev, (x.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                         *shapes, 1 if quantize else 0, *knobs,
+                         plan.smem_bytes, _build.stream_of(x)))
+    if rc != 0:
+        _build.check(rc, name)
+    LAUNCHES.count += 1
+    return out
+
+
 def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
                               padding=(0, 0, 0), quantize=False, *,
-                              quantize_mode="half_up", route="staged"):
+                              route="staged"):
     """Kernel K1-inverse on a CUDA tensor og (N, To, Ho, Wo, C), contiguous,
     with the float32 (3, C) shift: the input gradient of shape ``in_shape``.
     ``route="staged"``: one launch of ``rubiks_shift3d_inv_staged``
     (csrc/shift3d_bwd.cu), planned by :func:`shift3d_bwd_plan`, and no
     other device work; ``route="previous"``: the first form
-    (csrc/shift3d.cu), kept to time the two in one run, which alone takes
-    ``quantize_mode="half_away"`` (the 2D rule)."""
+    (csrc/shift3d.cu), kept to time the two in one run."""
     if route == "previous":
         return _input_grad_previous(og, shift, in_shape, stride, padding,
-                                    quantize, quantize_mode)
+                                    quantize)
     if route != "staged":
-        raise ValueError(f"unknown route {route!r}, expected one of "
-                         f"{BWD_ROUTES}")
-    code = quantize_code(quantize, quantize_mode)
-    if code == 2:
-        raise ValueError("the staged route takes the 3D quantize rule "
-                         "(half_up) only")
-    _check_staged(_INV_ENTRY[0], shift, og)
+        raise _unknown_route(route)
+    name = _ENTRIES[INPUT_GRAD][0]
+    _check_staged(name, shift, og)
     dev = og.device
     if not isinstance(in_shape, tuple):  # a hashable key (Size is a tuple)
         in_shape = tuple(in_shape)
-    fn, plan, shapes, knobs = _bwd_prepare(
-        True, og.shape, in_shape, stride, padding, og.dtype,
+    fn, plan, shapes, knobs, _ = _bwd_prepare(
+        INPUT_GRAD, og.shape, in_shape, stride, padding, og.dtype,
         _copy_limit(og))
     gx = torch.empty(in_shape, dtype=og.dtype, device=dev)
     rc = _call(fn, dev, (og.data_ptr(), shift.data_ptr(), gx.data_ptr(),
-                         *shapes, code, *knobs, plan.smem_bytes,
-                         _build.stream_of(og)))
+                         *shapes, 1 if quantize else 0, *knobs,
+                         plan.smem_bytes, _build.stream_of(og)))
     if rc != 0:
-        _build.check(rc, _INV_ENTRY[0])
+        _build.check(rc, name)
     INVERSE_LAUNCHES.count += 1
     return gx
 
@@ -637,14 +692,14 @@ def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
     if route == "previous":
         return _shift_grad_previous(og, x, shift, stride, padding)
     if route != "staged":
-        raise ValueError(f"unknown route {route!r}, expected one of "
-                         f"{BWD_ROUTES}")
-    _check_staged(_SG_ENTRY[0], shift, x, og)
+        raise _unknown_route(route)
+    name = _ENTRIES[SHIFT_GRAD][0]
+    _check_staged(name, shift, x, og)
     if og.dtype != x.dtype:
         raise TypeError(f"og {og.dtype} and x {x.dtype} differ")
     dev = x.device
-    fn, plan, shapes, knobs = _bwd_prepare(
-        False, og.shape, x.shape, stride, padding, x.dtype,
+    fn, plan, shapes, knobs, _ = _bwd_prepare(
+        SHIFT_GRAD, og.shape, x.shape, stride, padding, x.dtype,
         _copy_limit(x, og))
     c = x.shape[-1]
     partial = torch.empty((plan.units, 3, c), dtype=torch.float32,
@@ -654,7 +709,7 @@ def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
                          partial.data_ptr(), out.data_ptr(), *shapes, *knobs,
                          plan.og_rows, plan.smem_bytes, _build.stream_of(x)))
     if rc != 0:
-        _build.check(rc, _SG_ENTRY[0])
+        _build.check(rc, name)
     SHIFT_GRAD_LAUNCHES.count += 1
     return out
 

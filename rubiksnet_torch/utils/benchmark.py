@@ -70,8 +70,9 @@ def cuda_queued_time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
 def cuda_kernel_times(fn, iters: int = 5, warmup: int = 2) -> dict:
     """Device kernels launched by ``iters`` calls of ``fn()``, from
     ``torch.profiler``: kernel name -> (launches, total device ms). Memory
-    copies and memsets count as kernels. Raises if the profiler recorded no
-    device time."""
+    copies and memsets count as kernels; a user annotation's range on the
+    device (``Optimizer.step#SGD.step``) does not: it spans kernels already
+    counted. Raises if the profiler recorded no device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -91,7 +92,8 @@ def cuda_kernel_times(fn, iters: int = 5, warmup: int = 2) -> dict:
             device_us = getattr(evt, "device_time_total", 0) or getattr(
                 evt, "cuda_time_total", 0)
             if (evt.device_type != torch.autograd.DeviceType.CUDA
-                    or not device_us):
+                    or not device_us
+                    or getattr(evt, "is_user_annotation", False)):
                 continue
             count, ms = out.get(evt.key, (0, 0.0))
             out[evt.key] = (count + evt.count / (attempt + 1),

@@ -6,8 +6,10 @@
 Builds the model (random weights, seed 0, bf16, 8 frames, 224 px), times
 the unprofiled step with CUDA events, then traces a few steps with
 ``torch.profiler`` and prints the device time per step by kernel class,
-the busy time and the idle share (1 - busy / unprofiled step time). Needs
-a CUDA card; prints the card's name and power limit with the numbers.
+the busy time and the idle share (1 - busy / unprofiled step time), and
+the three kernels of the class "other" that take the most time, so that
+unclassified time stays visible. Needs a CUDA card; prints the card's name
+and power limit with the numbers.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from .benchmark import cuda_call_times_ms, cuda_kernel_times, nvidia_smi_line
 # (class, substrings of the kernel name), first match wins.
 CLASSES = (
     ("2D shift and its input gradient (shift2d_kernel)", ("shift2d_kernel",)),
-    ("K1 (shift3d_fwd_kernel)", ("shift3d_fwd_kernel",)),
+    ("K1 (bwd3d_forward_kernel; previous route shift3d_fwd_kernel)",
+     ("bwd3d_forward", "shift3d_fwd_kernel")),
     ("K1-inverse (bwd3d_input_grad_kernel; previous route "
      "shift3d_inv_kernel)", ("bwd3d_input_grad", "shift3d_inv_kernel")),
     ("K4 (bwd3d_shift_grad_kernel; previous route shift_grad_*)",
@@ -37,7 +40,7 @@ CLASSES = (
      ("rubiks_entry",)),
     ("float32 K2 and K3 GEMMs (gemm_kernel)", ("rubiks",)),
     ("library GEMMs (1x1 convs, dense)", ("gemm", "cutlass", "xmma", "gemv",
-                                          "cublas")),
+                                          "cublas", "nvjet")),
     ("library convolution (stem)", ("conv", "cudnn", "nchw", "nhwc")),
     ("reductions", ("reduce",)),
     ("gather / scatter / index", ("gather", "scatter", "index")),
@@ -89,12 +92,14 @@ def main(argv=None) -> int:
     fn = build_step(args, dev)
     ms = sorted(cuda_call_times_ms(fn, iters=5, warmup=3))
     step_ms = ms[len(ms) // 2]
-    by_class, launches = {}, {}
+    by_class, launches, other = {}, {}, []
     for key, (count, total_ms) in cuda_kernel_times(
             fn, iters=args.steps, warmup=0).items():
         label = classify(key)
         by_class[label] = by_class.get(label, 0.0) + total_ms
         launches[label] = launches.get(label, 0) + count
+        if label == "other":
+            other.append((total_ms, count, key))
     busy = sum(by_class.values()) / args.steps
     print(f"{args.tier} {args.variant} {args.mode} batch {args.batch} bf16 "
           f"{args.frames}x{args.size}x{args.size}, {nvidia_smi_line()}")
@@ -104,6 +109,9 @@ def main(argv=None) -> int:
         per = total / args.steps
         print(f"  {label}: {per:.3f} ms per step, {100 * per / busy:.1f}% of "
               f"busy, {launches[label] / args.steps:.0f} launches")
+    for total, count, key in sorted(other, reverse=True)[:3]:
+        print(f"    other: {total / args.steps:.3f} ms per step, "
+              f"{count / args.steps:.0f} launches: {key[:100]}")
     print(f"device busy {busy:.3f} ms per step; idle share "
           f"{100 * max(0.0, 1 - busy / step_ms):.1f}% of the unprofiled step")
     return 0

@@ -14,8 +14,8 @@ both, bf16 at 64 frames, under several settings of the plan's knobs
 BLOCK_THREADS, MAX_GROUP): device time per launch by ``torch.profiler``,
 and the time per call by CUDA events around back-to-back calls, which
 includes the host's share. ``--host`` times the enqueue alone (host clock,
-no synchronisation) of the wrappers, the previous route and the library
-call at the smallest stage. Needs a CUDA card; prints its name and power
+no synchronisation) of the wrappers and the library call at the smallest
+stage. Needs a CUDA card; prints its name and power
 limit.
 """
 
@@ -129,10 +129,8 @@ def host_us(fn, calls=2000):
 
 def host(dev) -> None:
     """The host's share at the smallest stage: the wrappers beside the
-    library calls and the previous route, through the autograd op too."""
+    library calls, through the autograd op too."""
     import torch.nn.functional as F
-
-    from ..ops.shift3d import shift3d_kernel
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -146,9 +144,6 @@ def host(dev) -> None:
             x, shift, x.shape),
         "rubiks_shift_2d (autograd op)": lambda: shift2d.rubiks_shift_2d(
             x, shift),
-        "previous route (K1 on the one-frame view)": lambda: shift3d_kernel(
-            x[:, None], torch.cat([torch.zeros_like(shift[:1]), shift]),
-            quantize_mode="half_away"),
         "library conv2d, depthwise": lambda: F.conv2d(xp, w, padding=1,
                                                       groups=576),
         "torch.empty_like": lambda: torch.empty_like(x),

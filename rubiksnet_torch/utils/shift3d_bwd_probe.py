@@ -1,29 +1,35 @@
-"""The 3D shift's backward kernels on their staged route
-(ops/csrc/shift3d_bwd.cu: K1-inverse, the input gradient, and K4, the shift
-gradient) alone on the card: what was compiled, a check, the host's share
-and a sweep of the plan's knobs.
+"""The 3D shift's kernels on their staged route (ops/csrc/shift3d_bwd.cu:
+K1, the forward; K1-inverse, the input gradient; K4, the shift gradient)
+alone on the card: what was compiled, a check, the host's share and a sweep
+of the plan's knobs.
 
     python3 -m rubiksnet_torch.utils.shift3d_bwd_probe --ptxas --check
     python3 -m rubiksnet_torch.utils.shift3d_bwd_probe --host --sweep
+    python3 -m rubiksnet_torch.utils.shift3d_bwd_probe --ptxas \\
+        --parent OTHER_CHECKOUT
 
 ``--ptxas`` compiles shift3d_bwd.cu and the previous route's sources
 (shift3d.cu, shift_grad.cu) once more with ``-Xptxas -v`` and prints each
-kernel's registers, spills and shared memory. ``--check`` holds both
-kernels against their plain versions at the nine shift shapes of Large (2
-clips of 8 frames; float32 and bfloat16; the input gradient fractional and
-quantized; every fourth channel an exact integer) and at CASES (C = 54 and
-108, odd extents, stride (2, 2, 2) with padding (1, 1, 1), stride (1, 2, 2)
-with padding (0, 1, 0), one clip, shifts of +-9 that take the direct-read
-route), each run twice and bit-identical. ``--sweep`` times both, bfloat16
-at 8 clips (or ``--batch``), at the nine shapes under several settings of
-the plan's knobs (``ops/shift3d.py``: BWD_SMEM_BUDGET, BWD_MAX_GROUP,
-BWD_MAX_RING, BWD_TARGET_BLOCKS, BWD_MIN_BAND_ROWS, BWD_BLOCK_THREADS),
-device time per call by ``torch.profiler`` beside the previous route's, summed
-over the calls of one Large train step. ``--host`` times the enqueue alone
-(host clock, no synchronisation) of both wrappers on either route at the
-smallest shape. ``--trace``, alone (its build's marks change registers and
-times), builds the kernels with BWD3D_TRACE and prints when the blocks of one launch reach the stages of
-their lives. Needs a CUDA card; prints its name and power limit.
+kernel's registers, spills and shared memory; with ``--parent`` also those
+of the shift3d_bwd.cu of another checkout of the repository (its root), so
+that two versions of the body compare in one run. ``--check`` holds the
+three kernels against their plain versions at the nine shift shapes of
+Large (2 clips of 8 frames; float32 and bfloat16; the forward and the input
+gradient fractional and quantized; every fourth channel an exact integer)
+and at CASES (C = 54 and 108, odd extents, stride (2, 2, 2) with padding
+(1, 1, 1), stride (1, 2, 2) with padding (0, 1, 0), one clip, shifts of +-9
+that take the direct-read route), each run twice and bit-identical.
+``--sweep`` times the three, bfloat16 at 8 clips (or ``--batch``), at the
+nine shapes under several settings of the plan's knobs (``ops/shift3d.py``:
+BWD_SMEM_BUDGET, BWD_MAX_GROUP, BWD_MAX_RING, BWD_TARGET_BLOCKS,
+BWD_MIN_BAND_ROWS, BWD_BLOCK_THREADS), device time per call by
+``torch.profiler`` beside the previous route's, summed over the calls of
+one Large forward (K1) or train step. ``--host`` times the enqueue alone
+(host clock, no synchronisation) of the three wrappers on either route at
+the smallest shape. ``--trace``, alone (its build's marks change registers
+and times), builds the kernels with BWD3D_TRACE and prints when the blocks
+of one launch reach the stages of their lives. Needs a CUDA card; prints
+its name and power limit.
 """
 
 from __future__ import annotations
@@ -69,11 +75,12 @@ CASES = [
     ("shifts of +-9 stride 2", 2, 8, 28, 28, 144, (1, 2, 2), (0, 0, 0),
      "far"),
 ]
-# Tolerances against the plain versions (chip_smoke.py's): the input
-# gradient float32 rel-max 1e-4 (summation order), bfloat16 rel-L2 1e-2
-# (the plain version rounds each axis stage); quantized, a copy: exact in
-# bfloat16. The shift gradient rel-L2 1e-4 (float32 inputs) and 1e-3
-# (bfloat16 inputs: larger terms that cancel more), both summing in f32.
+# Tolerances against the plain versions (chip_smoke.py's): the forward and
+# the input gradient float32 rel-max 1e-4 (summation order), bfloat16
+# rel-L2 1e-2 (the plain version rounds each axis stage); quantized, a
+# copy: exact in bfloat16. The shift gradient rel-L2 1e-4 (float32 inputs)
+# and 1e-3 (bfloat16 inputs: larger terms that cancel more), both summing
+# in f32.
 TOL_INV = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SG = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 KNOBS = ("BWD_SMEM_BUDGET", "BWD_MAX_GROUP", "BWD_MAX_RING",
@@ -114,16 +121,23 @@ def sass_counts(obj):
     return counts
 
 
-def ptxas_report(sass_out="") -> None:
+def ptxas_report(sass_out="", parent="") -> None:
     """Registers, spills and shared memory of every kernel of the new
-    source and of the previous route's; for the new source also the count
-    of its shared, generic and global loads and stores and barriers, and
-    with ``sass_out`` its whole SASS listing in that file."""
-    for name in ("shift3d_bwd.cu", "shift3d.cu", "shift_grad.cu"):
+    source and of the previous route's (and with ``parent`` of that
+    checkout's shift3d_bwd.cu, built against its own headers); for the new
+    source also the count of its shared, generic and global loads and
+    stores and barriers, and with ``sass_out`` its whole SASS listing in
+    that file."""
+    sources = [(name, _build.CSRC / name)
+               for name in ("shift3d_bwd.cu", "shift3d.cu", "shift_grad.cu")]
+    if parent:
+        sources.append(("parent's shift3d_bwd.cu", Path(parent)
+                        / "rubiksnet_torch/ops/csrc/shift3d_bwd.cu"))
+    for name, path in sources:
         with tempfile.TemporaryDirectory() as tmp:
             proc = subprocess.run(
                 [_build._find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                 "-c", "-o", f"{tmp}/k.o", str(_build.CSRC / name)],
+                 "-c", "-o", f"{tmp}/k.o", str(path)],
                 capture_output=True, text=True)
             if name == "shift3d_bwd.cu" and proc.returncode == 0:
                 for kernel, ops in sass_counts(f"{tmp}/k.o").items():
@@ -173,13 +187,15 @@ def trace(dev, batch) -> None:
     lib.rubiks_bwd3d_trace.restype = ctypes.c_int
     for h, c, s, _ in SHAPES:
         stride, x, og, shift = _inputs(h, c, s, batch, gen, dev)
-        for name, fn, inverse in (
+        for name, fn, direction in (
+                ("fwd", lambda: s3.shift3d_kernel(x, shift, stride),
+                 s3.FORWARD),
                 ("inv", lambda: s3.shift3d_input_grad_kernel(
-                    og, shift, x.shape, stride), True),
+                    og, shift, x.shape, stride), s3.INPUT_GRAD),
                 ("sg", lambda: s3.shift3d_shift_grad_kernel(
-                    og, x, shift, stride), False)):
+                    og, x, shift, stride), s3.SHIFT_GRAD)):
             plan = s3.shift3d_bwd_plan(x.shape, og.shape, stride,
-                                       torch.bfloat16, inverse)
+                                       torch.bfloat16, direction)
             blocks = plan.units * plan.groups
             buf = torch.zeros((blocks, 8), dtype=torch.int64,
                               device=dev)
@@ -238,33 +254,37 @@ def rel_errors(got, ref):
 
 
 def check_case(x_shape, stride, padding, dt, shift, gen):
-    """Both kernels against their plain versions on one shape, each run
-    twice: a list of (label, max_abs, measure, value, bound, ok) rows, the
-    rerun's equality folded into ok."""
+    """The three kernels against their plain versions on one shape, each
+    run twice: a list of (label, max_abs, measure, value, bound, ok) rows,
+    the rerun's equality folded into ok."""
     dev = shift.device
     og_shape = s3.compute_output_shape_3d(x_shape, stride, padding)
     og = torch.randn(og_shape, generator=gen, device=dev).to(dt)
     x = torch.randn(x_shape, generator=gen, device=dev).to(dt)
     rows = []
-    for q in (False, True):
-        got = s3.shift3d_input_grad_kernel(og, shift, x_shape, stride,
-                                           padding, q)
-        again = s3.shift3d_input_grad_kernel(og, shift, x_shape, stride,
-                                             padding, q)
-        ref = s3.shift3d_input_grad_plain(og, shift, x_shape, stride,
-                                          padding, q)
-        max_abs, rel_max, rel_l2 = rel_errors(got, ref)
-        if dt == torch.float32:
-            measure, value = "rel_max", rel_max
-        else:
-            measure, value = "rel_l2", rel_l2
-        ok = (value <= TOL_INV[dt] and torch.equal(got, again)
-              and bool(torch.isfinite(got).all())
-              and got.shape == ref.shape)
-        if q and dt == torch.bfloat16:
-            ok = ok and torch.equal(got, ref)
-        rows.append((f"input grad {'quantize' if q else 'fractional'}",
-                     max_abs, measure, value, TOL_INV[dt], ok))
+    for what, kernel, plain in (
+            ("forward",
+             lambda q: s3.shift3d_kernel(x, shift, stride, padding, q),
+             lambda q: s3.shift3d_plain(x, shift, stride, padding, q)),
+            ("input grad",
+             lambda q: s3.shift3d_input_grad_kernel(og, shift, x_shape,
+                                                    stride, padding, q),
+             lambda q: s3.shift3d_input_grad_plain(og, shift, x_shape,
+                                                   stride, padding, q))):
+        for q in (False, True):
+            got, again, ref = kernel(q), kernel(q), plain(q)
+            max_abs, rel_max, rel_l2 = rel_errors(got, ref)
+            if dt == torch.float32:
+                measure, value = "rel_max", rel_max
+            else:
+                measure, value = "rel_l2", rel_l2
+            ok = (value <= TOL_INV[dt] and torch.equal(got, again)
+                  and bool(torch.isfinite(got).all())
+                  and got.shape == ref.shape)
+            if q and dt == torch.bfloat16:
+                ok = ok and torch.equal(got, ref)
+            rows.append((f"{what} {'quantize' if q else 'fractional'}",
+                         max_abs, measure, value, TOL_INV[dt], ok))
     got = s3.shift3d_shift_grad_kernel(og, x, shift, stride, padding)
     again = s3.shift3d_shift_grad_kernel(og, x, shift, stride, padding)
     ref = s3.shift3d_shift_grad_plain(og, x, shift, stride, padding)
@@ -321,6 +341,8 @@ def host(dev) -> None:
     shift = torch.rand((3, 576), generator=gen, device=dev) * 2 - 1
     for route in ("staged", "previous"):
         for label, fn in (
+                ("shift3d_kernel",
+                 lambda: s3.shift3d_kernel(x, shift, route=route)),
                 ("shift3d_input_grad_kernel",
                  lambda: s3.shift3d_input_grad_kernel(og, shift, x.shape,
                                                       route=route)),
@@ -335,7 +357,7 @@ def sweep(dev, batch, picked) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     defaults = {k: getattr(s3, k) for k in KNOBS}
-    totals, previous = {}, [0.0, 0.0]
+    totals, previous = {}, [0.0, 0.0, 0.0]
     for h, c, s, count in SHAPES:
         stride = (1, s, s)
         x = torch.randn((batch, FRAMES, h, h, c), generator=gen,
@@ -348,10 +370,14 @@ def sweep(dev, batch, picked) -> None:
             og, shift, x.shape, stride, route="previous"))
         sg_prev = device_ms(lambda: s3.shift3d_shift_grad_kernel(
             og, x, shift, stride, route="previous"))
+        fwd_prev = device_ms(lambda: s3.shift3d_kernel(
+            x, shift, stride, route="previous"))
         previous[0] += count * inv_prev[0]
         previous[1] += count * sg_prev[0]
-        print(f"  {h}x{h}x{c} stride {s} previous route: inv device "
-              f"{inv_prev[0]:.4f} ms ({inv_prev[1]:.0f} kernels/call); sg "
+        previous[2] += count * fwd_prev[0]
+        print(f"  {h}x{h}x{c} stride {s} previous route: fwd device "
+              f"{fwd_prev[0]:.4f} ms ({fwd_prev[1]:.0f} kernels/call); inv "
+              f"{inv_prev[0]:.4f} ms ({inv_prev[1]:.0f}); sg "
               f"{sg_prev[0]:.4f} ms ({sg_prev[1]:.0f})")
         for i in picked:
             setting = SETTINGS[i]
@@ -361,31 +387,39 @@ def sweep(dev, batch, picked) -> None:
             inv = lambda: s3.shift3d_input_grad_kernel(og, shift, x.shape,
                                                        stride)
             sg = lambda: s3.shift3d_shift_grad_kernel(og, x, shift, stride)
+            fwd = lambda: s3.shift3d_kernel(x, shift, stride)
             ref_i = s3.shift3d_input_grad_plain(og, shift, x.shape, stride)
             ref_s = s3.shift3d_shift_grad_plain(og, x, shift, stride)
+            ref_f = s3.shift3d_plain(x, shift, stride)
             e_i, e_s = rel_errors(inv(), ref_i)[2], rel_errors(sg(), ref_s)[2]
-            if e_i > TOL_INV[bf] or e_s > TOL_SG[bf]:
-                raise RuntimeError(f"{setting}: rel_l2 {e_i:.2e} / {e_s:.2e}")
+            e_f = rel_errors(fwd(), ref_f)[2]
+            if e_i > TOL_INV[bf] or e_s > TOL_SG[bf] or e_f > TOL_INV[bf]:
+                raise RuntimeError(f"{setting}: rel_l2 {e_f:.2e} / "
+                                   f"{e_i:.2e} / {e_s:.2e}")
             (i_dev, i_n), (s_dev, s_n) = device_ms(inv), device_ms(sg)
-            t = totals.setdefault(i, [0.0, 0.0])
+            f_dev, f_n = device_ms(fwd)
+            t = totals.setdefault(i, [0.0, 0.0, 0.0])
             t[0] += count * i_dev
             t[1] += count * s_dev
-            pi = s3.shift3d_bwd_plan(x.shape, og.shape, stride, bf, True)
-            ps = s3.shift3d_bwd_plan(x.shape, og.shape, stride, bf, False)
-            print(f"  {h}x{h}x{c} stride {s} {setting or 'defaults'}: inv "
-                  f"device {i_dev:.4f} ms ({i_n:.0f}) [G{pi.group} "
+            t[2] += count * f_dev
+            pf, pi, ps = (s3.shift3d_bwd_plan(x.shape, og.shape, stride, bf,
+                                              d) for d in s3.DIRECTIONS)
+            print(f"  {h}x{h}x{c} stride {s} {setting or 'defaults'}: fwd "
+                  f"device {f_dev:.4f} ms ({f_n:.0f}) [G{pf.group} "
+                  f"R{pf.rows} F{pf.frames} D{pf.ring} x{pf.cols}]; inv "
+                  f"{i_dev:.4f} ms ({i_n:.0f}) [G{pi.group} "
                   f"R{pi.rows} F{pi.frames} D{pi.ring} x{pi.cols}]; sg "
                   f"{s_dev:.4f} ms ({s_n:.0f}) [G{ps.group} R{ps.rows} "
                   f"F{ps.frames} D{ps.ring} x{ps.cols}]")
     for k in KNOBS:
         setattr(s3, k, defaults[k])
     s3._bwd_prepare.cache_clear()
-    print(f"[sweep] summed over one Large train step (51 calls each), batch "
-          f"{batch}, device ms: previous route inv {previous[0]:.3f}, sg "
-          f"{previous[1]:.3f}")
+    print(f"[sweep] summed over one Large forward (K1) or train step (51 "
+          f"calls each), batch {batch}, device ms: previous route fwd "
+          f"{previous[2]:.3f}, inv {previous[0]:.3f}, sg {previous[1]:.3f}")
     for i, t in totals.items():
-        print(f"  {SETTINGS[i] or 'defaults'}: inv {t[0]:.3f}, sg "
-              f"{t[1]:.3f}")
+        print(f"  {SETTINGS[i] or 'defaults'}: fwd {t[2]:.3f}, inv "
+              f"{t[0]:.3f}, sg {t[1]:.3f}")
 
 
 def main(argv=None) -> int:
@@ -397,6 +431,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--sass", default="",
                     help="with --ptxas: write shift3d_bwd.cu's SASS here")
+    ap.add_argument("--parent", default="",
+                    help="with --ptxas: also compile the shift3d_bwd.cu of "
+                         "the checkout at this root")
     ap.add_argument("--settings", default="",
                     help="comma-separated indices into SETTINGS (default: "
                          "all)")
@@ -413,7 +450,7 @@ def main(argv=None) -> int:
     print(f"[device] {nvidia_smi_line()}; torch {torch.__version__}; nvcc "
           f"flags {' '.join(_build.NVCC_FLAGS)}")
     if args.ptxas:
-        ptxas_report(args.sass)
+        ptxas_report(args.sass, args.parent)
     if args.check:
         if not check(dev):
             print("shift3d_bwd_probe: a comparison failed", file=sys.stderr)

@@ -1,15 +1,18 @@
-"""The staged route of the 3D shift's backward kernels
-(rubiksnet_torch/ops/csrc/shift3d_bwd.cu: K1-inverse and K4) on the CPU.
-The kernels run only on the card; what surrounds them is tested here: the
-launch plan (ops/shift3d.py::shift3d_bwd_plan) and the kernels'
-decomposition, emulated in float64 (channel groups, units of a destination
+"""The staged route of the 3D shift's kernels
+(rubiksnet_torch/ops/csrc/shift3d_bwd.cu: K1, the forward; K1-inverse and
+K4, the backward) on the CPU. The kernels run only on the card; what
+surrounds them is tested here: the launch plan
+(ops/shift3d.py::shift3d_bwd_plan) and the kernels' decomposition in each
+direction, emulated in float64 (channel groups, units of a destination
 frame and a band of rows, the ring of staged frames and rows with its
-direct-read route, the per-axis taps with the parity walk and the walker,
-the in-kernel rounding of the shift, the shift gradient's window of source
-columns and its fixed order of partials) against the plain forms (1e-12)
-and the JAX package in x64 (1e-10), and at one stride-1 shape against the
-Pallas kernels in interpret mode (float32, 1e-5 relative to the largest
-entry). Small shapes; the wrappers refuse what the kernels do not take."""
+direct-read route, the per-axis taps with the carry, the forward's strided
+walk, the parity walk and the walker, the in-kernel rounding of the shift,
+the shift gradient's window of source columns and its fixed order of
+partials) against the plain forms (1e-12) and the JAX package in x64
+(1e-10), and against the Pallas kernels in interpret mode (float32, 1e-5
+relative to the largest entry): at stride 1 rubiks_shift3d_pallas, at
+stride (1, 2, 2) the forward's rubiks_shift_3d_fused. Small shapes; the
+wrappers refuse what the kernels do not take."""
 
 import re
 from pathlib import Path
@@ -21,12 +24,15 @@ import torch
 
 from rubiksnet_torch.ops import shift3d as s3
 from rubiksnet_tpu.ops import shift3d as jshift3d
+from rubiksnet_tpu.ops.pallas.fused_shift3d import rubiks_shift_3d_fused
 from rubiksnet_tpu.ops.pallas.shift_grad_kernel import (
     rubiks_shift3d_shift_grad_pallas,
 )
 from rubiksnet_tpu.ops.pallas.shift_kernel import rubiks_shift3d_pallas
 
 torch.set_num_threads(1)
+
+FORWARD, INPUT_GRAD, SHIFT_GRAD = s3.FORWARD, s3.INPUT_GRAD, s3.SHIFT_GRAD
 
 TOL_PLAIN = 1e-12
 TOL_JAX = 1e-10
@@ -142,21 +148,24 @@ class _Ring:
             assert self.og.get(r % self.plan.ring) == r
 
 
-def _emulate(src, og, shift, dst_shape, stride, padding, quantize, inverse,
-             plan, dtype):
-    """The kernels' decomposition on float64 tensors. src: og for the input
-    gradient, x for the shift gradient; ``dtype``: the compute dtype the
-    kernel rounds the float32 shift to. Returns (result, set of routes)."""
+def _emulate(src, og, shift, dst_shape, stride, padding, quantize,
+             direction, plan, dtype):
+    """The kernels' decomposition on float64 tensors. src: x for the
+    forward and the shift gradient, og for the input gradient; ``dtype``:
+    the compute dtype the kernel rounds the float32 shift to. Returns
+    (result, set of routes)."""
     c = shift.shape[1]
-    rules = [s3.bwd_axis_rule(stride[a], padding[a], inverse)
+    sg = direction == SHIFT_GRAD
+    rules = [s3.bwd_axis_rule(stride[a], padding[a], direction)
              for a in range(3)]
     sr = shift.to(dtype).double()  # the kernel's round_to<T>
-    taps = [s3.bwd_channel_taps(sr[a], inverse, quantize) for a in range(3)]
+    taps = [s3.bwd_channel_taps(sr[a], direction, quantize)
+            for a in range(3)]
     n_all, ts, hs, ws = src.shape[:4]
     td_all, hd, wd = dst_shape[1:4]
     seg = -(-wd // plan.cols)
     routes = set()
-    if inverse:
+    if not sg:  # one value per destination element, each written once
         result = torch.full(dst_shape, float("nan"), dtype=torch.float64)
     bands = -(-hd // plan.rows)
     units = n_all * td_all * bands
@@ -180,12 +189,12 @@ def _emulate(src, og, shift, dst_shape, stride, padding, quantize, inverse,
             r_begin = band * plan.rows
             r_end = min(r_begin + plan.rows, hd)
             f_lo, f_hi = s3.bwd_source_range(td, t_lo, t_hi, rules[0], ts)
-            tt = _cells(td, rules[0], lo_t, hi_t, w0_t, w1_t, ts, inverse)
+            tt = _cells(td, rules[0], lo_t, hi_t, w0_t, w1_t, ts, not sg)
             ring = (_Ring(plan, rules[1], h_lo, h_hi, hs, r_begin, r_end)
                     if staged else None)
             sums = torch.zeros((plan.cols, 3, len(chs)), dtype=torch.float64)
             for r in range(r_begin, r_end):
-                th = _cells(r, rules[1], lo_h, hi_h, w0_h, w1_h, hs, inverse)
+                th = _cells(r, rules[1], lo_h, hi_h, w0_h, w1_h, hs, not sg)
                 if ring is not None:
                     ring.start_row(r)
                     for frame, _ in tt:
@@ -197,12 +206,12 @@ def _emulate(src, og, shift, dst_shape, stride, padding, quantize, inverse,
                         ring.check(row, r)
                 args = (src, n, tt, th, chs, rules[2], lo_w, hi_w, a0, a1,
                         ws)
-                if inverse:
-                    result[n, td, r, :, chs] = _input_grad_row(*args, wd).T
-                else:
+                if sg:
                     _shift_grad_row(*args, og[n, td, r][:, chs], seg, sums)
+                else:
+                    result[n, td, r, :, chs] = _lerp_row(*args, wd).T
             partial[unit, :, chs] = _ordered(sums)
-    if not inverse:
+    if sg:
         result = _final_sum(partial)
     return result, routes
 
@@ -238,9 +247,9 @@ def _corners(src, n, tt, th, chs):
     return lambda i: _gather(src, n, frame, row, i, chs)
 
 
-def _input_grad_row(src, n, tt, th, chs, rule_w, lo_w, hi_w, a0, a1, ws,
-                    wd):
-    """One destination row of the input gradient, (C_group, wd)."""
+def _lerp_row(src, n, tt, th, chs, rule_w, lo_w, hi_w, a0, a1, ws, wd):
+    """One destination row of the forward or the input gradient,
+    (C_group, wd)."""
     mul, div, off = rule_w
     corners = _corners(src, n, tt, th, chs)
     wt = torch.stack([tt[a][1] * th[b][1] for a in (0, 1) for b in (0, 1)])
@@ -248,9 +257,13 @@ def _input_grad_row(src, n, tt, th, chs, rule_w, lo_w, hi_w, a0, a1, ws,
     def col(i):
         return (wt * corners(i)).sum(0)
 
-    base = off + lo_w  # raw coordinate q = w + base
+    base = off + lo_w  # raw coordinate q = w * mul + base
     out = []
-    if div == 1:  # cells q and q + 1, carried from column to column
+    if mul > 1:  # the forward's strided walk: each column its cells q, q + 1
+        for w in range(wd):
+            q = w * mul + base
+            out.append(a1 * col(q + 1) + a0 * col(q))
+    elif div == 1:  # cells q and q + 1, carried from column to column
         prev = col(base)
         for w in range(wd):
             nxt = col(w + base + 1)
@@ -315,39 +328,51 @@ def _shift_grad_row(src, n, tt, th, chs, rule_w, lo_w, hi_w, a0, a1, ws,
             sums[ty, 2] += u * (hi[2] - lo[2])
 
 
-def _small_plan(x_shape, og_shape, stride, inverse, itemsize=8):
+def _small_plan(x_shape, og_shape, stride, direction, itemsize=8):
     return s3._bwd_plan(tuple(x_shape), tuple(og_shape), tuple(stride),
-                        itemsize, inverse, 16, SMALL_KNOBS)
+                        itemsize, direction, 16, SMALL_KNOBS)
+
+
+def _src_dst(direction, x, og):
+    """The source tensor a direction stages and its destination's shape."""
+    if direction == INPUT_GRAD:
+        return _t(og), x.shape
+    return _t(x), og.shape
 
 
 # Quantize does not enter the shift gradient: it takes cases 0-2.
-DIRECTIONS = [(case, inverse) for case in range(len(CASES))
-              for inverse in (True, False)
-              if inverse or not CASES[case]["quantize"]]
+DIRECTIONS = [(case, direction) for case in range(len(CASES))
+              for direction in s3.DIRECTIONS
+              if direction != SHIFT_GRAD or not CASES[case]["quantize"]]
 
 
 @pytest.mark.parametrize("kind", sorted(SHIFTS))
-@pytest.mark.parametrize("case,inverse", DIRECTIONS)
-def test_decomposition_equals_plain_and_jax(case, inverse, kind):
+@pytest.mark.parametrize("case,direction", DIRECTIONS)
+def test_decomposition_equals_plain_and_jax(case, direction, kind):
     cfg = CASES[case]
     x, og, s = _inputs(cfg, kind, seed=200 + case)
     args = (cfg["stride"], cfg["padding"])
-    plan = _small_plan(x.shape, og.shape, cfg["stride"], inverse)
+    plan = _small_plan(x.shape, og.shape, cfg["stride"], direction)
     assert plan.groups > 1 and plan.bands > 1 and plan.ring > 0
     s32 = _t(s).float()
-    src = _t(og) if inverse else _t(x)
-    dst_shape = x.shape if inverse else og.shape
+    src, dst_shape = _src_dst(direction, x, og)
     got, routes = _emulate(src, _t(og), s32, dst_shape, *args,
-                           cfg["quantize"], inverse, plan, torch.float32)
+                           cfg["quantize"], direction, plan, torch.float32)
     sd = s32.double()
-    if inverse:
+    scale = 1.0
+    if direction != SHIFT_GRAD:
         assert not torch.isnan(got).any()  # every element written once
+    if direction == INPUT_GRAD:
         want = s3.shift3d_input_grad_plain(_t(og), sd, x.shape, *args,
                                            cfg["quantize"])
         jax_want = jshift3d.rubiks_shift_3d_input_grad(
             jnp.asarray(og), jnp.asarray(sd.numpy()), x.shape, *args,
             cfg["quantize"], backend="gather")
-        scale = 1.0
+    elif direction == FORWARD:
+        want = s3.shift3d_plain(_t(x), sd, *args, cfg["quantize"])
+        jax_want = jshift3d.rubiks_shift_3d_forward(
+            jnp.asarray(x), jnp.asarray(sd.numpy()), *args, cfg["quantize"],
+            backend="gather")
     else:
         want = s3.shift3d_shift_grad_plain(_t(og), _t(x), sd, *args)
         jax_want = jshift3d.rubiks_shift_3d_shift_grad(
@@ -359,12 +384,59 @@ def test_decomposition_equals_plain_and_jax(case, inverse, kind):
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_want), rtol=0,
                                atol=TOL_JAX * scale)
     # Shifts of +-12 in the first group exceed the ring: that group reads
-    # directly, the others stay staged.
-    assert routes == ({"staged", "direct"} if kind == "far" else {"staged"})
+    # directly, the others stay staged (and so does every group of the
+    # other kinds, but for DIRECT_WITHOUT_FAR).
+    far = kind == "far" or (case, direction, kind) in DIRECT_WITHOUT_FAR
+    assert routes == ({"staged", "direct"} if far else {"staged"})
 
 
-@pytest.mark.parametrize("inverse", [True, False])
-def test_decomposition_rounds_the_shift_to_the_compute_dtype(inverse):
+# Case 4's "half" shifts put -2 and +2.5 on the T axis of one channel group.
+# Quantized, the forward rounds the tie +2.5 up to tap 3 (hi 4), so that
+# group's taps span cells -2 to 4: 7 frames where SMALL_KNOBS' ring holds 6,
+# and it reads directly. The input gradient's taps of the negated shifts
+# span -2 to 3 and stay staged. The edge itself:
+# test_quantized_ties_at_the_ring_edge.
+DIRECT_WITHOUT_FAR = {(4, FORWARD, "half")}
+
+
+@pytest.mark.parametrize("direction,pair,route", [
+    (FORWARD, (-2.0, 2.5), "direct"),
+    (FORWARD, (-2.0, 2.4), "staged"),
+    (FORWARD, (-1.5, 2.5), "staged"),
+    (INPUT_GRAD, (-2.0, 2.5), "staged"),
+    (INPUT_GRAD, (-2.5, 2.0), "direct"),
+])
+def test_quantized_ties_at_the_ring_edge(direction, pair, route):
+    """SMALL_KNOBS' ring holds 6 frames, a tap extent of 5. A quantized tie
+    rounds up in the direction in which the kernel reads (s for the
+    forward, -s for the input gradient): beside an integer -2 in its group
+    that tie makes the T taps span 7 frames, and the group reads directly;
+    one step inside the edge it stays staged. The other group is staged
+    either way, and the result equals the plain form."""
+    cfg = CASES[3]  # stride 1, quantized
+    x, og, s = _inputs(cfg, "fractional", seed=11)
+    s = np.clip(s, -1.0, 1.0)
+    s[0, :2] = pair
+    s32 = _t(s).float()
+    args = (cfg["stride"], cfg["padding"])
+    plan = _small_plan(x.shape, og.shape, cfg["stride"], direction)
+    assert plan.group >= 2 and plan.groups > 1
+    src, dst_shape = _src_dst(direction, x, og)
+    got, routes = _emulate(src, _t(og), s32, dst_shape, *args, True,
+                           direction, plan, torch.float32)
+    assert routes == ({"staged", "direct"} if route == "direct"
+                      else {"staged"})
+    sd = s32.double()
+    if direction == FORWARD:
+        want = s3.shift3d_plain(_t(x), sd, *args, True)
+    else:
+        want = s3.shift3d_input_grad_plain(_t(og), sd, x.shape, *args, True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=TOL_PLAIN)
+
+
+@pytest.mark.parametrize("direction", s3.DIRECTIONS)
+def test_decomposition_rounds_the_shift_to_the_compute_dtype(direction):
     """The kernel takes the float32 parameter and rounds it to the compute
     dtype itself (round to nearest even, as Tensor.to): the emulation with
     a bfloat16 compute dtype equals the plain forms fed the rounded
@@ -374,14 +446,16 @@ def test_decomposition_rounds_the_shift_to_the_compute_dtype(inverse):
     s[:, 0] = [0.30078125 + 2**-10, -1.00390625, 2.0 - 2**-9]  # ties, near 1
     s32 = _t(s).float()
     args = (cfg["stride"], cfg["padding"])
-    plan = _small_plan(x.shape, og.shape, cfg["stride"], inverse)
-    src = _t(og) if inverse else _t(x)
-    got, _ = _emulate(src, _t(og), s32, x.shape if inverse else og.shape,
-                      *args, False, inverse, plan, torch.bfloat16)
+    plan = _small_plan(x.shape, og.shape, cfg["stride"], direction)
+    src, dst_shape = _src_dst(direction, x, og)
+    got, _ = _emulate(src, _t(og), s32, dst_shape, *args, False, direction,
+                      plan, torch.bfloat16)
     rounded = s32.to(torch.bfloat16).double()
     assert not torch.equal(rounded, s32.double())
-    if inverse:
+    if direction == INPUT_GRAD:
         want = s3.shift3d_input_grad_plain(_t(og), rounded, x.shape, *args)
+    elif direction == FORWARD:
+        want = s3.shift3d_plain(_t(x), rounded, *args)
     else:
         want = s3.shift3d_shift_grad_plain(_t(og), _t(x), rounded, *args)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
@@ -391,8 +465,9 @@ def test_decomposition_rounds_the_shift_to_the_compute_dtype(inverse):
 @pytest.mark.parametrize("stride", [1, 2, 3])
 def test_emulated_walks_cover_every_stride(stride):
     """The input gradient's column walks (carry at stride 1, parity at 2,
-    the walker at 3) and the shift gradient's at a strided W, one row of
-    each, against the plain forms with T = H = 1."""
+    the walker at 3), the forward's (carry at stride 1, each column's own
+    two cells at 2 and 3) and the shift gradient's at a strided W, one row
+    of each, against the plain forms with T = H = 1."""
     rng = np.random.default_rng(stride)
     c = 8
     shape = (1, 1, 1, 11, c)
@@ -401,14 +476,16 @@ def test_emulated_walks_cover_every_stride(stride):
     x, og = rng.standard_normal(shape), rng.standard_normal(og_shape)
     s = np.full((3, c), 0.25)
     s[2] = np.r_[rng.uniform(-2.6, 2.6, c - 4), -1.0, 0.0, 2.0, -0.5]
-    for inverse in (True, False):
-        plan = _small_plan(shape, og_shape, st, inverse)
-        got, _ = _emulate(_t(og) if inverse else _t(x), _t(og), _t(s).float(),
-                          shape if inverse else og_shape, st, pad, False,
-                          inverse, plan, torch.float32)
+    for direction in s3.DIRECTIONS:
+        plan = _small_plan(shape, og_shape, st, direction)
+        src, dst_shape = _src_dst(direction, x, og)
+        got, _ = _emulate(src, _t(og), _t(s).float(), dst_shape, st, pad,
+                          False, direction, plan, torch.float32)
         sd = _t(s).float().double()
         want = (s3.shift3d_input_grad_plain(_t(og), sd, shape, st, pad)
-                if inverse else
+                if direction == INPUT_GRAD else
+                s3.shift3d_plain(_t(x), sd, st, pad)
+                if direction == FORWARD else
                 s3.shift3d_shift_grad_plain(_t(og), _t(x), sd, st, pad))
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=TOL_PLAIN * float(want.abs().max()))
@@ -416,17 +493,27 @@ def test_emulated_walks_cover_every_stride(stride):
 
 @pytest.mark.parametrize("quantize", [False, True])
 def test_decomposition_matches_the_pallas_kernels(quantize):
-    """Stride 1, float32: the input gradient against
-    rubiks_shift3d_pallas(inverse=True) and the shift gradient against
-    rubiks_shift3d_shift_grad_pallas, both in interpret mode."""
+    """Stride 1, float32: the forward against rubiks_shift3d_pallas, the
+    input gradient against rubiks_shift3d_pallas(inverse=True) and the
+    shift gradient against rubiks_shift3d_shift_grad_pallas, all in
+    interpret mode."""
     rng = np.random.default_rng(30 + quantize)
     x = rng.standard_normal((1, 2, 4, 5, 16)).astype(np.float32)
     og = rng.standard_normal(x.shape).astype(np.float32)
     s = rng.uniform(-0.95, 0.95, (3, 16)).astype(np.float32)
     stride = (1, 1, 1)
-    inv_plan = _small_plan(x.shape, og.shape, stride, True, 4)
+    fwd_plan = _small_plan(x.shape, og.shape, stride, FORWARD, 4)
+    got, _ = _emulate(_t(x).double(), _t(og).double(), _t(s), og.shape,
+                      stride, (0, 0, 0), quantize, FORWARD, fwd_plan,
+                      torch.float32)
+    want = np.asarray(rubiks_shift3d_pallas(
+        jnp.asarray(x), jnp.asarray(s), 1, quantize, inverse=False,
+        interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    inv_plan = _small_plan(x.shape, og.shape, stride, INPUT_GRAD, 4)
     got, _ = _emulate(_t(og).double(), _t(og).double(), _t(s), x.shape,
-                      stride, (0, 0, 0), quantize, True, inv_plan,
+                      stride, (0, 0, 0), quantize, INPUT_GRAD, inv_plan,
                       torch.float32)
     want = np.asarray(rubiks_shift3d_pallas(
         jnp.asarray(og), jnp.asarray(s), 1, quantize, inverse=True,
@@ -436,14 +523,62 @@ def test_decomposition_matches_the_pallas_kernels(quantize):
     if quantize:
         return
     s[:, ::4] = np.round(s[:, ::4])  # the corrected taps
-    sg_plan = _small_plan(x.shape, og.shape, stride, False, 4)
+    sg_plan = _small_plan(x.shape, og.shape, stride, SHIFT_GRAD, 4)
     got, _ = _emulate(_t(x).double(), _t(og).double(), _t(s), og.shape,
-                      stride, (0, 0, 0), False, False, sg_plan,
+                      stride, (0, 0, 0), False, SHIFT_GRAD, sg_plan,
                       torch.float32)
     want = np.asarray(rubiks_shift3d_shift_grad_pallas(
         jnp.asarray(og), jnp.asarray(x), jnp.asarray(s), 1, interpret=True))
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_forward_matches_the_strided_pallas_kernel(quantize):
+    """Stride (1, 2, 2), float32: the forward's decomposition (the strided
+    W walk, a destination row reading source rows 2r - 1 .. 2r + 2) against
+    rubiks_shift_3d_fused, the Pallas kernel of the strided forward, in
+    interpret mode; every fourth shift an exact half (quantize's ties)."""
+    rng = np.random.default_rng(40 + quantize)
+    x = rng.standard_normal((1, 2, 8, 10, 16)).astype(np.float32)
+    s = rng.uniform(-0.95, 0.95, (3, 16)).astype(np.float32)
+    s[:, ::4] = np.round(s[:, ::4] * 2) / 2
+    stride = (1, 2, 2)
+    out_shape = s3.compute_output_shape_3d(x.shape, stride, 0)
+    plan = _small_plan(x.shape, out_shape, stride, FORWARD, 4)
+    got, _ = _emulate(_t(x).double(), None, _t(s), out_shape, stride,
+                      (0, 0, 0), quantize, FORWARD, plan, torch.float32)
+    want = np.asarray(rubiks_shift_3d_fused(
+        jnp.asarray(x), jnp.asarray(s), stride, (0, 0, 0), quantize, 1))
+    assert want.shape == tuple(out_shape)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("c", [54, 108])
+@pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2)])
+def test_forward_at_the_tiny_widths_with_far_shifts(stride, c):
+    """The forward under the port's own plan (its default knobs) at the
+    tiny tier's widths, whose copies are 4 bytes wide in bfloat16: shifts of
+    +-9 in every other channel of the first eight take the direct-read
+    route, the other groups stay staged; every fourth shift an integer."""
+    rng = np.random.default_rng(c + stride[1])
+    shape = (1, 3, 10, 9, c)
+    x = rng.standard_normal(shape)
+    s = rng.uniform(-1.8, 1.8, (3, c))
+    s[:, ::4] = np.round(s[:, ::4])
+    s[:, :8] = s[:, :8] / 2 + 9.0 * (1 - 2 * (np.arange(8) % 2))
+    out_shape = s3.compute_output_shape_3d(shape, stride, 0)
+    plan = s3.shift3d_bwd_plan(shape, out_shape, stride, torch.bfloat16,
+                               FORWARD)
+    assert plan.copy_bytes == 4 and plan.ring > 0
+    got, routes = _emulate(_t(x), None, _t(s).float(), out_shape, stride,
+                           (0, 0, 0), False, FORWARD, plan, torch.float32)
+    assert routes == ({"staged", "direct"} if plan.groups > 1
+                      else {"direct"})
+    want = s3.shift3d_plain(_t(x), _t(s).float().double(), stride)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=TOL_PLAIN)
 
 
 # ------------------------------------------------------------ the plan
@@ -459,14 +594,16 @@ def _plan_cases():
     yield (2, 8, 14, 14, 144), (2, 2, 2)
 
 
-@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("direction", s3.DIRECTIONS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_plan_covers_every_element_once_and_fits_the_card(dtype, inverse):
+def test_plan_covers_every_element_once_and_fits_the_card(dtype, direction):
+    inverse, sg = direction == INPUT_GRAD, direction == SHIFT_GRAD
     for x_shape, stride in _plan_cases():
         og_shape = s3.compute_output_shape_3d(x_shape, stride, (0, 0, 0))
-        plan = s3.shift3d_bwd_plan(x_shape, og_shape, stride, dtype, inverse)
+        plan = s3.shift3d_bwd_plan(x_shape, og_shape, stride, dtype,
+                                   direction)
         again = s3.shift3d_bwd_plan(list(x_shape), og_shape, list(stride),
-                                    dtype, inverse)
+                                    dtype, direction)
         assert plan == again  # a pure function of its arguments
         n, td, hd, wd, c = x_shape if inverse else og_shape
         src = og_shape if inverse else x_shape
@@ -484,15 +621,15 @@ def test_plan_covers_every_element_once_and_fits_the_card(dtype, inverse):
         assert plan.threads == plan.group * plan.cols <= s3.BWD_MAX_THREADS
         pitch = -(-src[3] * plan.group * item // 16) * 16
         og_pitch = -(-wd * plan.group * item // 16) * 16
-        assert plan.og_rows in (0, plan.ring) and not (inverse
+        assert plan.og_rows in (0, plan.ring) and not (not sg
                                                        and plan.og_rows)
         assert plan.smem_bytes == (s3.BWD_SMEM_HEAD + plan.frames * plan.ring
                                    * pitch + plan.og_rows * og_pitch
-                                   + (0 if inverse else 12 * plan.threads))
+                                   + (12 * plan.threads if sg else 0))
         assert plan.smem_bytes <= min(H100_SMEM, s3.BWD_SMEM_BUDGET)
         # Large's shapes stage (shifts within (-1, 1), integers for K4).
-        ext = s3.BWD_EXTENT if inverse else s3.SG_EXTENT
-        rule_h = s3.bwd_axis_rule(stride[1], 0, inverse)
+        ext = s3.SG_EXTENT if sg else s3.BWD_EXTENT
+        rule_h = s3.bwd_axis_rule(stride[1], 0, direction)
         assert plan.ring >= s3.bwd_rows_needed(ext, rule_h[0], rule_h[1])
 
 
@@ -521,7 +658,7 @@ def test_copy_width_follows_the_alignment_of_every_source(dtype):
         assert s3._copy_limit(view(1), view(0)) == 2
     for limit in (16, 4, item):
         plan = s3.shift3d_bwd_plan((2, 2, 4, 4, 8), (2, 2, 4, 4, 8), 1,
-                                   dtype, False, limit)
+                                   dtype, SHIFT_GRAD, limit)
         assert plan.copy_bytes <= max(limit, item)
 
 
@@ -544,22 +681,24 @@ def test_shift_grad_copy_width_covers_og(monkeypatch):
     og = buf[1:513].view(2, 2, 4, 4, 8)
     s = torch.zeros(3, 8)
     for fn in (lambda: s3.shift3d_shift_grad_kernel(og, x, s),
-               lambda: s3.shift3d_input_grad_kernel(og, s, x.shape)):
+               lambda: s3.shift3d_input_grad_kernel(og, s, x.shape),
+               lambda: s3.shift3d_kernel(og, s)):
         with pytest.raises(Stop):
             fn()
-    assert seen == [2, 2]
+    assert seen == [2, 2, 2]
 
 
 def test_plan_refuses_a_clip_of_2_to_the_31_elements():
     shape = (1, 8, 1 << 12, 1 << 9, 128)
     with pytest.raises(ValueError, match=r"2\*\*31"):
-        s3.shift3d_bwd_plan(shape, shape, 1, torch.bfloat16, True)
+        s3.shift3d_bwd_plan(shape, shape, 1, torch.bfloat16, INPUT_GRAD)
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     x = torch.randn(1, 2, 4, 4, 6)
     s = torch.zeros(3, 6)
-    for fn in (lambda a, b, **kw: s3.shift3d_input_grad_kernel(
+    for fn in (lambda a, b, **kw: s3.shift3d_kernel(a, b, **kw),
+               lambda a, b, **kw: s3.shift3d_input_grad_kernel(
                    a, b, a.shape, **kw),
                lambda a, b, **kw: s3.shift3d_shift_grad_kernel(a, a, b,
                                                                **kw)):
@@ -569,14 +708,26 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
             fn(x, s)
         with pytest.raises(ValueError, match=r"must be \(3, C\)"):
             fn(x, torch.zeros(2, 6))
-    with pytest.raises(ValueError, match="half_up"):
-        s3.shift3d_input_grad_kernel(x, s, x.shape, quantize=True,
-                                     quantize_mode="half_away")
+    # The 2D rounding mode (``quantize_mode``) is gone from the 3D shift's
+    # kernels, on either route: the port's 2D shift has kernels of its own.
+    for route in s3.BWD_ROUTES:
+        with pytest.raises(TypeError, match="quantize_mode"):
+            s3.shift3d_kernel(x, s, quantize=True, quantize_mode="half_away",
+                              route=route)
+        with pytest.raises(TypeError, match="quantize_mode"):
+            s3.shift3d_input_grad_kernel(x, s, x.shape, quantize=True,
+                                         quantize_mode="half_away",
+                                         route=route)
+    assert not hasattr(s3, "quantize_code")
     # The shapes are held against each other once per configuration, where
     # the launch is prepared (after the device check).
-    for inverse in (True, False):
+    for direction in s3.DIRECTIONS:
         with pytest.raises(ValueError, match="not the output shape"):
-            s3._bwd_prepare(inverse, (1, 2, 4, 4, 6), (1, 2, 9, 9, 6),
+            s3._bwd_prepare(direction, (1, 2, 4, 4, 6), (1, 2, 9, 9, 6),
                             (1, 2, 2), (0, 0, 0), torch.float32, 16)
+    with pytest.raises(ValueError, match="unknown direction"):
+        s3.shift3d_bwd_plan((1, 2, 4, 4, 6), (1, 2, 4, 4, 6), 1,
+                            torch.float32, True)
+    assert s3.LAUNCHES.count == 0
     assert s3.INVERSE_LAUNCHES.count == 0
     assert s3.SHIFT_GRAD_LAUNCHES.count == 0

@@ -290,7 +290,11 @@ def test_profile_probe_classifies_kernel_names():
 
     cases = {
         "void rubiks::shift3d_fwd_kernel<__nv_bfloat16>(...)": "K1 (",
+        "void rubiks::bwd3d::bwd3d_forward_kernel<__nv_bfloat16, 16>(...)":
+            "K1 (",
         "void rubiks::shift3d_inv_kernel<float>(...)": "K1-inverse (",
+        "void rubiks::bwd3d::bwd3d_input_grad_kernel<float, 4>(...)":
+            "K1-inverse (",
         "void rubiks::shift2d_kernel<__nv_bfloat16, 16>(...)": "2D shift",
         "void rubiks::se_partial_kernel<float>(...)": "SE gate",
         "rubiks::(anonymous namespace)::se_gate_tc_kernel(...)": "SE gate",
@@ -302,6 +306,7 @@ def test_profile_probe_classifies_kernel_names():
         "void rubiks::rubiks_entry_gather_kernel(rubiks::EntryArgs)":
             "K3 bf16",
         "sm90_xmma_gemm_bf16bf16_bf16f32": "library GEMMs",
+        "nvjet_tst_96x384_64x3_1x2_h_bz_coopA_NNN": "library GEMMs",
         "void at::native::reduce_kernel<512, 1>": "reductions",
         "void at::native::vectorized_elementwise_kernel<4>": "elementwise",
         "something_else": "other",
