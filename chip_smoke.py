@@ -28,7 +28,15 @@ and 32 (bf16, 8 frames, 224x224). Then it trains: a tiny synthetic overfit
 through the kernels, one Large f32 train step through the kernels against
 the same step on the plain shift, the launches of one bf16 train step of
 each model, and train throughput (Large at batch 8, 16 and 32, Large-AQ
-and Small at batch 8). Fails (non-zero exit, no result line) on the first
+and Small at batch 8). Before training, the evaluator
+(rubiksnet_torch.scripts.test_models) runs end to end on RubiksNet-Large in
+bf16 over 64 synthetic SSv2-like videos, 1-clip at batch 32 and 2-clip at
+batch 8, each with --prefetch 2 and 0: K2's and K3's plans at its 32 and
+48 clips checked first, its launches counted (47 K2 and 4 K3 a batch, one
+executor a run), the first batch against the plain model, the two runs'
+logits bit-identical, and its s/video, steady videos/s and host-wait share
+printed (the native loader where g++ finds libjpeg, else PIL, said on a
+line of its own). Fails (non-zero exit, no result line) on the first
 problem, and without a CUDA device.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -50,7 +58,10 @@ launch A and the previous route's two gate launches in the same call.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import functools
+import importlib.util
 import json
 import math
 import sys
@@ -72,6 +83,13 @@ SERVE_ITERS = 10
 TIME_BATCH = 8  # clips per kernel timing (bf16)
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+# The evaluator (rubiksnet_torch.scripts.test_models) on synthetic SSv2-like
+# frame folders: (label, two clips, videos a batch, views a video). It
+# serves batch x views clips a batch, 32 and 48: K2's and K3's plans at
+# those clip counts are checked against plain before it runs.
+EVAL_VIDEOS = 64
+EVAL_PROTOCOLS = (("1-clip", False, 32, 1), ("2-clip", True, 8, 6))
+EVAL_CLIPS = tuple(sorted({b * v for _, _, b, v in EVAL_PROTOCOLS}))
 
 # Tolerances (kernel vs its plain version on the same inputs):
 # * float32: max |err| / max |ref| <= 1e-4. Both sides compute in f32 and
@@ -578,7 +596,7 @@ def large_step_vs_plain(dev, gen):
 
 
 def train_phase(dev, gen, name, smi):
-    """Phase 7: the training path. Returns the launch counts of one Large
+    """Phase 8: the training path. Returns the launch counts of one Large
     bf16 train step at batch 8 (counters zeroed just before it)."""
     from rubiksnet_torch.models.rubiksnet import create_rubiksnet
     from rubiksnet_torch.ops import launch_counters
@@ -838,15 +856,16 @@ CHECKED_PLANS = {}
 
 def check_block_served_shapes(errs, gen, cpu_gen, dev):
     """K2 in bf16 at every stride-1 shape of the main path (Large's and
-    Small's) at every batch size that is timed or served (SERVE_BATCHES and
-    TIME_BATCH), rubiks3d, aq, se and aq+se, a run of 2 blocks, twice
+    Small's) at every batch size that is timed or served (SERVE_BATCHES,
+    TIME_BATCH and the evaluator's EVAL_CLIPS), rubiks3d, aq, se and
+    aq+se, a run of 2 blocks, twice
     bit-identically, against the plain version, with se also the gate alone
     against the plain gate of the kernel's mid (its error to the se_gate
     row); and the previous route, which is only timed, at TIME_BATCH."""
     from rubiksnet_torch.utils import fused_block_probe as probe
 
     bf = torch.bfloat16
-    batches = sorted(set(SERVE_BATCHES) | {TIME_BATCH})
+    batches = sorted(set(SERVE_BATCHES) | {TIME_BATCH} | set(EVAL_CLIPS))
     print(f"[kernels] K2 fused_block bf16 at the main path's shapes, batch "
           f"{batches}: the plans that are timed and served, vs plain; every "
           f"run repeated bit-identically")
@@ -893,13 +912,14 @@ CHECKED_ENTRY_PLANS = {}
 def check_entry_served_shapes(errs, gen, cpu_gen, dev):
     """K3 and K3-SE in bf16 on the tensor-core route at every entry shape of
     the main path (Large's and Small's) at every batch size that is timed or
-    served, twice bit-identically, against the plain version, K3-SE's gate
+    served (the evaluator's EVAL_CLIPS included), twice bit-identically,
+    against the plain version, K3-SE's gate
     also alone (as K2's); and the previous route, which is only timed, at
     TIME_BATCH."""
     from rubiksnet_torch.utils import fused_entry_probe as probe
 
     bf = torch.bfloat16
-    batches = sorted(set(SERVE_BATCHES) | {TIME_BATCH})
+    batches = sorted(set(SERVE_BATCHES) | {TIME_BATCH} | set(EVAL_CLIPS))
     print(f"[kernels] K3 fused_entry bf16 at the main path's shapes, batch "
           f"{batches}: the plans that are timed and served, vs plain; every "
           f"run repeated bit-identically")
@@ -1740,6 +1760,179 @@ def small_aq_check(dev, gen):
             fail(f"Small rubiks3d-aq fused forward failed in {dt}")
 
 
+@contextlib.contextmanager
+def executors_built():
+    """The FusedExecutors constructed inside the block, in a list."""
+    from rubiksnet_torch.models.fused_infer import FusedExecutor
+
+    built, init = [], FusedExecutor.__init__
+
+    def counting_init(self, model):
+        built.append(self)
+        init(self, model)
+
+    FusedExecutor.__init__ = counting_init
+    try:
+        yield built
+    finally:
+        FusedExecutor.__init__ = init
+
+
+def eval_log(*parts):
+    """The evaluator's log lines, indented; its per-class array left out."""
+    if parts and isinstance(parts[0], str):
+        for line in " ".join(map(str, parts)).strip("\n").splitlines():
+            print("  |", line)
+
+
+def first_batch_vs_plain(label, args, result, bs, views, model, dev):
+    """The run's first batch rebuilt through the evaluator's own dataset,
+    normalized on the device and put through the plain model; its
+    view-averaged logits against the run's (bf16, TOL_MODEL_BF16)."""
+    from rubiksnet_torch.data import batch_iterator
+    from rubiksnet_torch.models import INPUT_MEAN, INPUT_STD
+    from rubiksnet_torch.scripts import test_models
+
+    ds = test_models.build_dataset(args, log=lambda *a: None)[0]
+    video, _, valid = next(iter(batch_iterator(ds, bs, views, FRAMES)))
+    n = int(valid.sum())
+    flat = torch.from_numpy(video).to(dev).reshape(
+        (bs * views,) + video.shape[2:])
+    mean = torch.tensor(INPUT_MEAN, device=dev)
+    std = torch.tensor(INPUT_STD, device=dev)
+    with torch.no_grad():
+        ref = model((flat.float() * (1.0 / 255.0) - mean) / std, plain=True)
+    ref = ref.float().reshape(bs, views, -1).mean(1)[:n]
+    got = torch.from_numpy(result["logits"][:n]).to(dev)
+    _, _, rel = errors(got, ref)
+    ok = rel <= TOL_MODEL_BF16
+    print(f"  {label} first batch ({n} videos x {views} views) vs the plain "
+          f"model on the same normalized clips, bf16: logits rel_l2="
+          f"{rel:.3e} [<= {TOL_MODEL_BF16}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"evaluator {label}: first-batch logits outside tolerance")
+
+
+def loaders_agree(args, videos=4):
+    """The native loader's uint8 clips against the PIL path's on the first
+    ``videos`` videos: at most 1 apart per pixel."""
+    from rubiksnet_torch.scripts import test_models
+
+    def clips(loader):
+        a = argparse.Namespace(**dict(vars(args), loader=loader,
+                                      limit=videos))
+        return [c for c, _ in test_models.build_dataset(
+            a, log=lambda *p: None)[0]]
+
+    import numpy as np
+
+    return max(int(np.abs(n.astype(np.int16) - p.astype(np.int16)).max())
+               for n, p in zip(clips("native"), clips("pil")))
+
+
+def eval_phase(dev, name, smi):
+    """The evaluator end to end on RubiksNet-Large, bf16, 8 frames at 224:
+    EVAL_VIDEOS synthetic SSv2-like videos (340x256 JPEGs at quality 87,
+    24-48 frames, seed 0), a random checkpoint (seed 0, BN statistics
+    randomized), each protocol run with --prefetch 2 and 0 through
+    ``test_models.evaluate`` as a user runs it (uint8 clips normalized on
+    the device, one held executor). The loader follows the probe made
+    before the phase: native where g++ finds libjpeg, else PIL."""
+    import tempfile
+
+    from rubiksnet_torch.data import native_loader
+    from rubiksnet_torch.models import load_pretrained, save_pretrained
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.scripts import eval_throughput, test_models
+
+    if importlib.util.find_spec("PIL") is None:
+        fail("Pillow is missing: the evaluator phase cannot write its frames")
+    native = native_loader.toolchain_present()
+    loader = "native" if native else "pil"
+    print(f"[eval] the evaluator, RubiksNet-Large bf16, {FRAMES}x{SIZE}x"
+          f"{SIZE}, {EVAL_VIDEOS} synthetic videos, loader {loader} "
+          f"({name}, {smi})")
+    if not native:
+        print("[eval] loader: pil, because g++ finds no libjpeg header or "
+              "library on this machine; the native loader is held against "
+              "the PIL path on the CPU only (tests/test_torch_native_"
+              "loader.py)")
+    for clips in EVAL_CLIPS:
+        plans = [f"{h}x{h}x{c} " + checked_plan(
+            (clips, FRAMES, h, h, c), False, False, dev).describe()
+                 for h, c, _ in BLOCK_SHAPES]
+        entries = [f"{h}x{h}x{cin}->{cm} " + checked_entry_plan(
+            (clips, FRAMES, h, h, cin), cm, False, dev).describe()
+                   for h, cin, cm in ENTRY_SHAPES]
+        print(f"  K2 and K3 plans at {clips} clips, each checked against "
+              f"plain: " + "; ".join(plans + entries))
+    with tempfile.TemporaryDirectory(prefix="rubiks_eval_") as root:
+        t0 = time.perf_counter()
+        list_file = eval_throughput.generate_frames(root, EVAL_VIDEOS,
+                                                    CLASSES, seed=0)
+        model = create_rubiksnet("large", CLASSES, FRAMES,
+                                 max_shift=MAX_SHIFT, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        randomize_bn(model, torch.Generator().manual_seed(1))
+        ckpt = f"{root}/large.pth.tar"
+        save_pretrained(model, ckpt)
+        plain = load_pretrained(ckpt, device=dev, dtype=torch.bfloat16)
+        print(f"  wrote the videos and the checkpoint in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for label, two_clips, bs, views in EVAL_PROTOCOLS:
+            results = {}
+            for depth in (2, 0):
+                args = test_models.build_parser().parse_args(
+                    eval_throughput.evaluator_args(
+                        ckpt, list_file, root, CLASSES, FRAMES, bs,
+                        two_clips, loader=loader, prefetch=depth))
+                with executors_built() as built:
+                    result, counts = counted(lambda: test_models.evaluate(
+                        args, log=eval_log if depth else lambda *a: None))
+                results[depth] = result
+                st, batches = result["stats"], result["batches"]
+                want = dict.fromkeys(counts, 0)
+                want.update(fused_block=47 * batches,
+                            fused_entry=4 * batches)
+                lg = result["logits"]
+                print(f"  {label} --prefetch {depth}: {batches} batches, "
+                      f"executors built {len(built)}, launches {counts} "
+                      f"(K2 {counts['fused_block'] / batches:g}, K3 "
+                      f"{counts['fused_entry'] / batches:g} a batch)")
+                if counts != want or len(built) != 1:
+                    fail(f"evaluator {label}: launches {counts} != {want} "
+                         f"or {len(built)} executors")
+                if lg.shape != (EVAL_VIDEOS, CLASSES) or not (
+                        torch.isfinite(torch.from_numpy(lg)).all()):
+                    fail(f"evaluator {label}: bad logits {lg.shape}")
+                print(f"[eval] {label}, batch {bs} ({bs * views} clips), "
+                      f"{loader} loader, --prefetch {depth}: "
+                      f"{st['sec_per_video']:.5f} s/video ({st['videos']} "
+                      f"videos in {st['wall_s']:.3f} s, first batch "
+                      f"{st['first_batch_s']:.3f} s), steady "
+                      f"{st['steady_videos_per_s']:.2f} videos/s "
+                      f"({st['steady_sec_per_video']:.5f} s/video), "
+                      f"host-wait share {st['host_wait_frac']:.3f}, device "
+                      f"step+fetch share {st['device_frac']:.3f} ({name}, "
+                      f"{smi}); the reference's eval log: "
+                      f"{eval_throughput.REFERENCE_SEC_PER_VIDEO[label.replace('-', '')]} "
+                      f"s/video (unspecified GPU)")
+            first_batch_vs_plain(label, args, results[2], bs, views, plain,
+                                 dev)
+            same = (results[2]["logits"] == results[0]["logits"]).all()
+            print(f"  {label}: logits of --prefetch 2 and --prefetch 0 "
+                  f"{'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                fail(f"evaluator {label}: --prefetch 2 and 0 disagree")
+            if native:
+                worst = loaders_agree(args)
+                print(f"  {label}: native vs PIL uint8 clips, 4 videos: max "
+                      f"|diff| {worst} [<= 1] {'ok' if worst <= 1 else 'FAIL'}")
+                if worst > 1:
+                    fail(f"evaluator {label}: native and PIL clips differ")
+        del plain
+
+
 def train_config(label, tier, variant, want, dev, gen, name, smi):
     """One bf16 train step of a configuration at batch TIME_BATCH, counted
     (its main path), then its throughput at that batch."""
@@ -1918,7 +2111,12 @@ def main() -> int:
               f"{time.perf_counter() - started:.0f} s")
     small_aq_check(dev, gen)
 
-    # Phase 7: training, each configuration's train step counted inside.
+    # Phase 7: the evaluator end to end, its launches counted per run.
+    eval_phase(dev, name, smi)
+    torch.cuda.empty_cache()
+    print(f"[clock] evaluator done at {time.perf_counter() - started:.0f} s")
+
+    # Phase 8: training, each configuration's train step counted inside.
     train_launches = train_phase(dev, gen, name, smi)
     for k in ("shift3d_inverse", "shift_grad"):
         launches[k] = train_launches[k]

@@ -60,18 +60,23 @@ def make_train_step(model, optimizer, scheduler=None, plain=False):
 
 
 def make_eval_step(model, num_crops: int = 1, fused: bool = False,
-                   normalize=None):
+                   normalize=None, executor=None):
     """``eval_step(video, labels) -> {"logits", "top1", "top5"}``.
 
     video is (N, crops, T, H, W, 3); the logits are averaged over the crops
     axis (the multi-view consensus). The model runs in eval mode, without
-    autograd; ``fused=True`` runs every block on the fused inference
-    kernels (``fused_infer_apply``, parameters stacked on each call, so a
-    model trained in between is seen as it is). ``normalize=(mean, std)``
-    takes raw uint8 pixels and applies ``(v / 255 - mean) / std`` on the
-    device in float32. top1 and top5 are per-clip float32 hits.
+    autograd. ``executor``, a :class:`FusedExecutor` of ``model`` that the
+    caller holds (an evaluator builds one for its run), runs every block on
+    the fused inference kernels with the parameters it folded and stacked
+    once. ``fused=True`` without an executor does the same through
+    ``fused_infer_apply``, stacking the parameters on each call, so a model
+    trained in between is seen as it is. ``normalize=(mean, std)`` takes
+    raw uint8 pixels and applies ``(v / 255 - mean) / std`` on the device
+    in float32. top1 and top5 are per-clip float32 hits.
     """
     del num_crops  # the crops axis comes from the video's shape
+    if executor is not None and executor.model is not model:
+        raise ValueError("the executor runs another model")
 
     @torch.no_grad()
     def eval_step(video, labels):
@@ -84,7 +89,12 @@ def make_eval_step(model, num_crops: int = 1, fused: bool = False,
             std = torch.as_tensor(normalize[1], dtype=torch.float32,
                                   device=flat.device)
             flat = (flat.float() * (1.0 / 255.0) - mean) / std
-        logits = fused_infer_apply(model, flat) if fused else model(flat)
+        if executor is not None:
+            logits = executor(flat)
+        elif fused:
+            logits = fused_infer_apply(model, flat)
+        else:
+            logits = model(flat)
         logits = logits.float().reshape(n, crops, -1).mean(dim=1)
         labels = labels.long()
         top1 = logits.argmax(-1) == labels
