@@ -36,8 +36,29 @@ batch 8, each with --prefetch 2 and 0: K2's and K3's plans at its 32 and
 executor a run), the first batch against the plain model, the two runs'
 logits bit-identical, and its s/video, steady videos/s and host-wait share
 printed (the native loader where g++ finds libjpeg, else PIL, said on a
-line of its own). Fails (non-zero exit, no result line) on the first
-problem, and without a CUDA device.
+line of its own). Last, the training entry points as a user runs them
+(phase 9; RubiksNet-Large in float32, 8x224x224, batch 8):
+rubiksnet_torch.scripts.train on 48 synthetic clips (cosine schedule with
+warmup, checkpoints every 2 steps, validation at step 4), then --resume
+for 2 more steps (global step 6; right after the load the parameters,
+statistics, momentum buffers and lr equal the step-4 checkpoint's bit for
+bit); train somethingv2 over 128 synthetic SSv2-like videos, 16 steps
+(the training data path: random segments, GroupMultiScaleCrop, flip,
+crop, PIL decode on the prefetch thread, uint8 to the card); test_models on that run's
+model_final.pth.tar (bf16, 1-clip, the first batch against the plain
+model); example_finetune; each run's launches counted (51 K1, K1-inverse
+and K4 a train step, 51 K1 a validation batch) and, over the steps after
+the first, its median step, clips/s and host-wait share printed (marked
+not steady under 3 such steps), with its first step and peak memory;
+then Large bf16 at 112 px through the fused executor (the last entry, at
+7x7, on the module path; logits against the plain model), Small bf16 at
+the default max_shift (4) at batch 1, 8 and 32 (the steps whose SE gate
+does not fit K2's or K3's shared memory on the module path, printed;
+launches by the route; logits against the plain model) and the SE
+shared-memory rule of fused_*_supported at its edge (declined: the C side
+refuses the launch; one step inside: the kernel runs and agrees with
+plain). Fails (non-zero exit, no result line) on the first problem, and
+without a CUDA device.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel results as {"kernels": [...]}: for each kernel its launches
@@ -387,6 +408,10 @@ def check_shift_staged(errs, gen, dev):
              for h, c, s in SHIFT_SHAPES]
     todo += [(f"tiny stride {stride}", *shape, stride, padding, "mixed")
              for shape, stride, padding in tiny_shift_calls()]
+    # Phase 9 (e): the last entry of Large at ROUTE_SIZE px meets 7 x 7 and
+    # runs on the module path, its shift on K1.
+    todo += [(f"7x7x576 stride 2 (the last entry at {ROUTE_SIZE} px)",
+              BATCH_CHECK, FRAMES, 7, 7, 576, (1, 2, 2), (0, 0, 0), "mixed")]
     for label, n, t, h, w, c, stride, padding, kind in todo + probe.CASES:
         for dt in (torch.float32, torch.bfloat16):
             shift = probe.case_shift(kind, c, gen, dev)
@@ -1933,6 +1958,382 @@ def eval_phase(dev, name, smi):
         del plain
 
 
+# Phase 9: the training entry points, Large rubiks3d at full width, float32
+# (the scripts' default), 8x224x224, batch 8. (a) synthetic data with a
+# cosine schedule, checkpoints and validation, then --resume; (b) the
+# registry path over synthetic SSv2-like videos; (c) the evaluator on (b)'s
+# final weights; (d) example_finetune; (e) the executor's per-shape route
+# at 112 px, Small's route at the default max_shift, and the SE
+# shared-memory rule at its edge.
+TRAIN_SCRIPT_BATCH, TRAIN_SCRIPT_STEPS, TRAIN_SCRIPT_RESUME = 8, 4, 2
+# (b) runs long enough for the prefetch queue, filled while the first step
+# builds, to drain: 16 steps of 8.
+REGISTRY_TRAIN, REGISTRY_VAL = 128, 8
+ROUTE_SIZE = 112  # the last entry block meets 7 x 7 there
+
+
+def run_stats(label, step_s, wait_s, batch, peak_bytes, name, smi):
+    """The median step, the clips/s and the host-wait share (the waits'
+    share of those steps' wall clock) over the steps after the first
+    (``utils.profiling.step_stats``), the first step and its wait, peak
+    device memory. Fewer than STEADY_MIN_STEPS steps after the first are
+    printed as not steady."""
+    from rubiksnet_torch.utils.profiling import STEADY_MIN_STEPS, step_stats
+
+    st = step_stats(step_s, wait_s, batch)
+    kind = ("steady" if st["steady"] else
+            f"NOT steady, fewer than {STEADY_MIN_STEPS} steps")
+    print(f"[train script] {label}: {len(step_s)} steps; over the "
+          f"{st['steps']} after the first ({kind}): median step "
+          f"{st['median_s'] * 1e3:.3f} ms, {st['clips_s']:.2f} train "
+          f"clips/s, host-wait share {st['host_wait_frac']:.4f} (waits "
+          f"{' '.join(f'{w:.4f}' for w in wait_s[1:])} s); first step "
+          f"{st['first_s'] * 1e3:.1f} ms, its wait "
+          f"{st['first_wait_s']:.3f} s; peak device memory "
+          f"{peak_bytes / 2**30:.2f} GiB ({name}, {smi})")
+
+
+def step_alone(model, step_s, batch, dev, gen, name, smi, warm=2, timed=5):
+    """The f32 train step of ``model`` with no feed beside it: one batch
+    already on the card, ``warm`` + ``timed`` steps, each timed on the host
+    clock up to reading its loss as the script times its steps; printed
+    beside the median of ``step_s`` after the first, so the difference is
+    what the feed's thread costs inside the step besides its waits."""
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
+    from rubiksnet_torch.utils.profiling import step_stats
+
+    step = make_train_step(model, sgd_with_shift_mult(model, 1e-3))
+    video = torch.rand((batch, FRAMES, SIZE, SIZE, 3), generator=gen,
+                       device=dev)
+    labels = torch.arange(batch, device=dev) % CLASSES
+    times = []
+    for _ in range(warm + timed):
+        t0 = time.perf_counter()
+        float(step(video, labels)["loss"])
+        times.append(time.perf_counter() - t0)
+    alone = sorted(times[warm:])[timed // 2]
+    fed = step_stats(step_s, [0.0] * len(step_s), batch)["median_s"]
+    print(f"[train script] the same f32 step with no feed, {timed} after "
+          f"{warm} warm-up: median {alone * 1e3:.3f} ms (min "
+          f"{min(times[warm:]) * 1e3:.3f}, max {max(times[warm:]) * 1e3:.3f})"
+          f"; the fed run's median {fed * 1e3:.3f} ms, {(fed - alone) * 1e3:.3f}"
+          f" ms more ({name}, {smi})")
+
+
+def check_train_launches(label, counts, steps, val_batches):
+    """51 K1 a forward (train steps and validation batches), 51 K1-inverse
+    and K4 a train step, nothing else."""
+    want = dict.fromkeys(counts, 0)
+    want.update(shift3d=51 * (steps + val_batches),
+                shift3d_inverse=51 * steps, shift_grad=51 * steps)
+    print(f"  {label}: launches {counts} for {steps} train steps and "
+          f"{val_batches} validation batches "
+          f"{'ok' if counts == want else 'FAIL'}")
+    if counts != want:
+        fail(f"{label}: launches {counts} != {want}")
+
+
+def finite_losses(label, losses):
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: losses {losses}")
+
+
+def resumed_state_check(resumed_at):
+    """The callback of (a)'s resumed run: right after the load, the
+    parameters and statistics, the momentum buffers and the groups' lr equal
+    the checkpoint's bit for bit, and the lr is the schedule's at the
+    restored step."""
+    from rubiksnet_torch.train import lr_schedule
+
+    def check(model, optimizer, scheduler, path):
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        state = model.state_dict()
+        bad = [k for k, v in saved["model"].items()
+               if not torch.equal(state[k].cpu(), v)]
+        got_opt = optimizer.state_dict()
+        bad += [f"momentum {k}" for k, v in saved["optimizer"]["state"].items()
+                if not torch.equal(got_opt["state"][k]["momentum_buffer"].cpu(),
+                                   v["momentum_buffer"])]
+        lrs = [g["lr"] for g in optimizer.param_groups]
+        want_lr = [g["lr"] for g in saved["optimizer"]["param_groups"]]
+        fn = lr_schedule("cosine", 1e-3, 2, 8)
+        step = saved["step"]
+        sched_lr = [fn(step), fn(step), fn(step) * 0.1]
+        ok = not bad and lrs == want_lr == sched_lr and (
+            scheduler.last_epoch == step)
+        print(f"  (a) resumed from {path.split('/')[-1]} (step {step}): "
+              f"parameters, statistics and momentum buffers bit-identical "
+              f"to the checkpoint, lr {lrs} = the checkpoint's = the "
+              f"schedule's at step {step} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"resumed state differs from the checkpoint: {bad[:4]}, "
+                 f"lr {lrs} vs {want_lr} vs {sched_lr}")
+        resumed_at.append(step)
+
+    return check
+
+
+def se_edge_check(dev, cpu_gen, gen):
+    """The SE rule of fused_*_supported at its edge on the card: where it
+    declines, the C side refuses the launch (invalid argument); one step
+    inside, the kernel runs and agrees with its plain version (bf16)."""
+    from rubiksnet_torch.ops.fused_block import (
+        fused_block_kernel,
+        fused_block_plain,
+        fused_block_supported,
+        stack_block_params,
+        stack_se_params,
+    )
+    from rubiksnet_torch.ops.fused_entry import (
+        fused_entry_kernel,
+        fused_entry_plain,
+        fused_entry_supported,
+        stack_entry_params,
+    )
+
+    bf = torch.bfloat16
+    for ms, runs in ((5, True), (6, False)):
+        shape = (8, FRAMES, 14, 14, 288)
+        blocks = [random_block(288, 288, 1, False, cpu_gen, dev, use_se=True)
+                  for _ in range(2)]
+        vt, wm = stack_block_params(blocks, bf, ms)
+        se = stack_se_params(blocks)
+        x = randn(shape, bf, gen, dev)
+        edge("K2-SE", shape, ms, fused_block_supported(shape, ms, bf,
+                                                       se=True), runs,
+             lambda: fused_block_kernel(x, vt, wm, se, max_shift=ms),
+             lambda: fused_block_plain(x, vt, wm, se, max_shift=ms))
+    for ms, runs in ((1, True), (2, False)):
+        shape = (2, FRAMES, 14, 14, 288)
+        blk = random_block(288, 576, 2, False, cpu_gen, dev, use_se=True)
+        params = stack_entry_params(blk, bf, ms)
+        se = stack_se_params([blk])[0]
+        x = randn(shape, bf, gen, dev)
+        edge("K3-SE", shape, ms, fused_entry_supported(
+            shape, 288, 576, ms, bf, se=True), runs,
+             lambda: fused_entry_kernel(x, params, se, max_shift=ms),
+             lambda: fused_entry_plain(x, params, se, max_shift=ms))
+
+
+def edge(label, shape, ms, supported, runs, kernel, plain):
+    text = f"(e) {label} bf16 {shape} max_shift {ms}: supported {supported}"
+    if supported != runs:
+        fail(f"{text}: expected supported={runs}")
+    if runs:
+        judge(text + ", kernel vs plain", kernel(), plain(), torch.bfloat16,
+              [])
+        return
+    try:
+        kernel()
+    except RuntimeError as exc:
+        if "invalid argument" not in str(exc):
+            raise
+        print(f"  {text}, the C side refuses it ({exc}) ok")
+    else:
+        fail(f"{text}: the kernel ran where the rule declines it")
+    torch.cuda.synchronize()
+
+
+def route_check(dev, gen):
+    """(e) Large bf16 at ROUTE_SIZE px: the executor runs the last entry
+    (7 x 7) on the module path (K1 once, at stride 2), every other block on
+    K2 and K3, and agrees with the plain model."""
+    from rubiksnet_torch.models.fused_infer import FusedExecutor
+
+    model = build_models("large", "rubiks3d", dev)[torch.bfloat16]
+    video = torch.randn((BATCH_CHECK, FRAMES, ROUTE_SIZE, ROUTE_SIZE, 3),
+                        generator=gen, device=dev)
+    executor = FusedExecutor(model)
+    with torch.no_grad():
+        ref = model(video, plain=True)
+        got, counts = counted(lambda: executor(video))
+    steps = executor.route(video.shape, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    modules = [n for k, ns, _ in steps if k == "module" for n in ns]
+    _, _, rel = errors(got, ref)
+    want = dict.fromkeys(counts, 0)
+    want.update(fused_block=47, fused_entry=3, shift3d=1)
+    ok = (rel <= TOL_MODEL_BF16 and modules == ["layer4_0"]
+          and counts == want and bool(torch.isfinite(got.float()).all()))
+    print(f"  (e) Large bf16 {BATCH_CHECK}x{FRAMES}x{ROUTE_SIZE}x{ROUTE_SIZE}"
+          f" through the executor: module path {modules}, launches {counts}, "
+          f"logits vs plain model rel_l2={rel:.3e} [<= {TOL_MODEL_BF16}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the executor's per-shape route at 112 px failed")
+
+
+def small_default_route(dev, gen):
+    """(e) Small bf16 at create_rubiksnet's default max_shift (4), 224 px,
+    batch 1, 8 and 32 through the executor: the steps whose SE gate does not
+    fit K2's or K3's launch A (FusedExecutor.declined) run on the module
+    path, the launches follow the route, and the logits agree with the
+    plain model."""
+    from rubiksnet_torch.models.fused_infer import FusedExecutor
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+
+    model = randomize_bn(create_rubiksnet(
+        "small", CLASSES, FRAMES, dtype=torch.bfloat16, device="cpu",
+        generator=torch.Generator().manual_seed(0)),
+        torch.Generator().manual_seed(1)).to(dev)
+    executor = FusedExecutor(model)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for batch in (1, 8, 32):
+        video = torch.randn((batch, FRAMES, SIZE, SIZE, 3), generator=gen,
+                            device=dev)
+        with torch.no_grad():
+            ref = model(video, plain=True)
+            got, counts = counted(lambda: executor(video))
+        steps = executor.route(video.shape, sms)
+        declined = executor.declined[(tuple(video.shape), sms)]
+        blocks = sum(len(ns) for k, ns, _ in steps if k == "block")
+        entries = sum(1 for k, _, _ in steps if k == "entry")
+        want = dict.fromkeys(counts, 0)
+        want.update(fused_block=blocks, fused_entry=entries,
+                    se_gate=blocks + entries,
+                    shift3d=sum(1 for k, _, _ in steps if k == "module"))
+        _, _, rel = errors(got, ref)
+        ok = (rel <= TOL_MODEL_BF16 and counts == want
+              and bool(torch.isfinite(got.float()).all()))
+        print(f"  (e) Small bf16 max_shift {model.max_shift} {batch}x{FRAMES}"
+              f"x{SIZE}x{SIZE}: declined {declined}, launches {counts}, "
+              f"logits vs plain model rel_l2={rel:.3e} [<= "
+              f"{TOL_MODEL_BF16}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"Small at the default max_shift, batch {batch}, failed")
+    del model, executor
+    torch.cuda.empty_cache()
+
+
+def train_script_phase(dev, gen, cpu_gen, name, smi):
+    """Phase 9: the training entry points as a user runs them, on the card:
+    ``rubiksnet_torch.scripts.train`` (synthetic, then resumed; registry),
+    ``test_models`` on its final weights, ``example_finetune``; then the
+    executor's route at 112 px, Small's at the default max_shift, and the
+    SE rule's edge."""
+    import tempfile
+
+    from rubiksnet_torch.models import load_pretrained
+    from rubiksnet_torch.scripts import eval_throughput, example_finetune
+    from rubiksnet_torch.scripts import test_models
+    from rubiksnet_torch.scripts import train as train_script
+
+    bs = TRAIN_SCRIPT_BATCH
+    common = ["--tier", "large", "--batch-size", str(bs), "--log-every",
+              "1", "--num-classes", str(CLASSES), "--frames", str(FRAMES),
+              "--input-size", str(SIZE)]
+    print(f"[train script] RubiksNet-Large float32, {FRAMES}x{SIZE}x{SIZE}, "
+          f"batch {bs} ({name}, {smi})")
+    with tempfile.TemporaryDirectory(prefix="rubiks_train_") as root:
+        # (a) synthetic, cosine schedule, checkpoints, validation; resume.
+        ckpt = f"{root}/synthetic"
+        argv = ["--synthetic", "48", *common, "--steps",
+                str(TRAIN_SCRIPT_STEPS), "--lr-schedule", "cosine",
+                "--warmup-steps", "2", "--total-steps", "8", "--save-every",
+                "2", "--val-every", "4", "--val-size", "8",
+                "--checkpoint-dir", ckpt]
+        args = train_script.build_parser().parse_args(argv)
+        first, counts = counted(lambda: train_script.train(args))
+        label = "(a) synthetic 48 clips, --steps 4, cosine"
+        finite_losses(label, first["losses"])
+        check_train_launches(label, counts, len(first["losses"]),
+                             first["val_batches"])
+        run_stats(label, first["step_s"], first["wait_s"], bs,
+                  first["peak_memory_bytes"], name, smi)
+        del first
+        resumed_at = []
+        args = train_script.build_parser().parse_args(
+            argv[:argv.index("--steps")] + [
+                "--steps", str(TRAIN_SCRIPT_RESUME)]
+            + argv[argv.index("--steps") + 2:] + ["--resume"])
+        second, counts = counted(lambda: train_script.train(
+            args, after_resume=resumed_state_check(resumed_at)))
+        label = "(a) --resume --steps 2"
+        finite_losses(label, second["losses"])
+        check_train_launches(label, counts, len(second["losses"]),
+                             second["val_batches"])
+        ok = (resumed_at == [TRAIN_SCRIPT_STEPS]
+              and second["global_step"]
+              == TRAIN_SCRIPT_STEPS + TRAIN_SCRIPT_RESUME)
+        print(f"  {label}: resumed at step {resumed_at}, global step "
+              f"{second['global_step']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the resumed run did not continue the global step")
+        run_stats(label, second["step_s"], second["wait_s"], bs,
+                  second["peak_memory_bytes"], name, smi)
+        del second
+        torch.cuda.empty_cache()
+
+        # (b) the registry path: somethingv2 over synthetic SSv2-like videos.
+        t0 = time.perf_counter()
+        data = eval_throughput.generate_registry(
+            f"{root}/data", REGISTRY_TRAIN, REGISTRY_VAL, CLASSES, seed=0)
+        print(f"  wrote {REGISTRY_TRAIN} + {REGISTRY_VAL} videos in the "
+              f"somethingv2 layout in {time.perf_counter() - t0:.1f} s")
+        args = train_script.build_parser().parse_args(
+            ["somethingv2", "--root", data, *common, "--steps",
+             str(REGISTRY_TRAIN // bs), "--checkpoint-dir",
+             f"{root}/registry"])
+        reg, counts = counted(lambda: train_script.train(args))
+        label = f"(b) registry, {REGISTRY_TRAIN} videos, PIL decode"
+        finite_losses(label, reg["losses"])
+        check_train_launches(label, counts, len(reg["losses"]),
+                             reg["val_batches"])
+        run_stats(label, reg["step_s"], reg["wait_s"], bs,
+                  reg["peak_memory_bytes"], name, smi)
+        step_alone(reg["model"], reg["step_s"], bs, dev, gen, name, smi)
+        final = reg["final_path"]
+        del reg
+        torch.cuda.empty_cache()
+
+        # (c) the evaluator on (b)'s final weights, 1-clip, bf16.
+        for h, c, _ in BLOCK_SHAPES:
+            checked_plan((bs, FRAMES, h, h, c), False, False, dev)
+        for h, cin, cm in ENTRY_SHAPES:
+            checked_entry_plan((bs, FRAMES, h, h, cin), cm, False, dev)
+        args = test_models.build_parser().parse_args(
+            ["somethingv2", "-p", final, "--root-path", data,
+             "--batch-size", str(bs), "--frames", str(FRAMES), "--dtype",
+             "bfloat16", "--loader", "pil"])
+        result, counts = counted(lambda: test_models.evaluate(
+            args, log=lambda *a: None))
+        st, batches = result["stats"], result["batches"]
+        want = dict.fromkeys(counts, 0)
+        want.update(fused_block=47 * batches, fused_entry=4 * batches)
+        ok = (counts == want and result["logits"].shape
+              == (REGISTRY_VAL, CLASSES))
+        print(f"  (c) test_models on model_final.pth.tar, 1-clip, bf16: "
+              f"{st['videos']} videos, {batches} batches, launches {counts},"
+              f" top1 {result['top1']:.2f}%, {st['sec_per_video']:.5f} "
+              f"s/video, host-wait share {st['host_wait_frac']:.3f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the evaluator on the trained weights failed")
+        plain = load_pretrained(final, device=dev, dtype=torch.bfloat16)
+        first_batch_vs_plain("(c) 1-clip", args, result, bs, 1, plain, dev)
+        del plain
+        torch.cuda.empty_cache()
+
+    # (d) example_finetune.
+    out, counts = counted(lambda: example_finetune.main(
+        ["--tier", "large", "--train-size", "16", "--test-size", "8",
+         "--total-epochs", "1", "--batch-size", str(bs), "--frames",
+         str(FRAMES), "--input-size", str(SIZE), "--device", "cuda"],
+        log=lambda *a: None))
+    label = "(d) example_finetune, 16 + 8 clips"
+    finite_losses(label, out["losses"])
+    check_train_launches(label, counts, len(out["losses"]), 1)
+    run_stats(label, out["step_s"], out["wait_s"], bs,
+              out["peak_memory_bytes"], name, smi)
+    del out
+    torch.cuda.empty_cache()
+
+    # (e) the executor's route per shape, and the SE rule's edge.
+    route_check(dev, gen)
+    small_default_route(dev, gen)
+    se_edge_check(dev, cpu_gen, gen)
+
+
 def train_config(label, tier, variant, want, dev, gen, name, smi):
     """One bf16 train step of a configuration at batch TIME_BATCH, counted
     (its main path), then its throughput at that batch."""
@@ -2130,6 +2531,12 @@ def main() -> int:
                  {"shift3d": 17, "shift3d_inverse": 17, "shift_grad": 17},
                  dev, gen, name, smi)
     print(f"[clock] training done at {time.perf_counter() - started:.0f} s")
+
+    # Phase 9: the training entry points, each run counted inside.
+    train_script_phase(dev, gen, cpu_gen, name, smi)
+    torch.cuda.empty_cache()
+    print(f"[clock] training entry points done at "
+          f"{time.perf_counter() - started:.0f} s")
 
     kernels = []
     for k, (source, replaces) in KERNELS.items():

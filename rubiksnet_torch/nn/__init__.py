@@ -7,6 +7,9 @@ from .layers import (
     RubiksShift2D,
     RubiksShift3D,
     SELayer,
+    create_3d_from_2d,
+    group_shift_init,
+    init_shift1d_nfold,
     uniform_shift_init,
 )
 
@@ -19,5 +22,8 @@ __all__ = [
     "RubiksShift3D",
     "RubiksShiftBlock",
     "SELayer",
+    "create_3d_from_2d",
+    "group_shift_init",
+    "init_shift1d_nfold",
     "uniform_shift_init",
 ]

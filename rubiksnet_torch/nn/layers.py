@@ -48,6 +48,77 @@ def group_shift_init(tensor: torch.Tensor, kernel_size: int) -> torch.Tensor:
     return tensor
 
 
+def _generator(generator):
+    """``generator``, or a CPU generator at seed 0 (the JAX package's
+    default ``PRNGKey(0)``)."""
+    return generator if generator is not None else (
+        torch.Generator().manual_seed(0))
+
+
+def init_shift1d_nfold(shift: torch.Tensor, nfold: int = 8,
+                       noise: float = 1e-3,
+                       generator: torch.Generator | None = None):
+    """The TSM-style init of a (1, C) shift, as a new tensor: the first
+    C // nfold channels shift +1, the next C // nfold shift -1, the rest are
+    drawn from U(-noise, noise). Counterpart of
+    ``rubiksnet_tpu/nn/layers.py::init_shift1d_nfold`` (the reference's
+    rubiks3d/layer.py:25-40), with a ``torch.Generator`` (default: seed 0)
+    for the PRNG key; raises AssertionError for another row count, as it
+    does."""
+    dim, channels = shift.shape
+    if dim != 1:
+        raise AssertionError("only works with rubiks1d")
+    group = channels // nfold
+    out = shift.detach().clone()
+    out[:, :group] = 1.0
+    out[:, group:2 * group] = -1.0
+    jitter = torch.empty((1, channels - 2 * group), dtype=out.dtype)
+    jitter.uniform_(-noise, noise, generator=_generator(generator))
+    out[:, 2 * group:] = jitter.to(out.device)
+    return out
+
+
+def create_3d_from_2d(shift_2d: torch.Tensor, init_mode: str = "tsm",
+                      generator: torch.Generator | None = None):
+    """A (3, C) 3D shift from a (2, C) 2D shift: a new T row on top of the
+    2D rows, by ``init_mode``: ``"tsm"`` (C // 8 channels at +1, the next
+    C // 8 at -1, the rest 0), ``"tsm-g<STD>"`` (the same folds plus
+    N(0, STD) noise, STD 0.01 where it reads 0), ``"uni<MAG>"``
+    (U(-1, 1) * MAG, MAG > 0) or ``"none"`` (NaN: a checkpoint must
+    overwrite it). Counterpart of
+    ``rubiksnet_tpu/nn/layers.py::create_3d_from_2d`` (the reference's
+    rubiks3d/layer.py:110-154), with a ``torch.Generator`` (default: seed
+    0) for the PRNG key; raises NotImplementedError for another mode, as it
+    does."""
+    _, c = shift_2d.shape
+    fold = c // 8
+    dt = shift_2d.dtype
+    if init_mode.startswith("tsm-g"):
+        stddev = float(init_mode[5:]) or 1e-2
+        g = _generator(generator)
+        t = torch.cat([
+            1.0 + torch.randn(fold, generator=g) * stddev,
+            -1.0 + torch.randn(fold, generator=g) * stddev,
+            torch.randn(c - 2 * fold, generator=g) * stddev,
+        ])
+    elif init_mode == "tsm":
+        t = torch.cat([torch.ones(fold), -torch.ones(fold),
+                       torch.zeros(c - 2 * fold)])
+    elif init_mode.startswith("uni"):
+        magnitude = float(init_mode[3:])
+        if not magnitude > 0:
+            raise AssertionError(
+                f"uniform random magnitude must > 0: {magnitude}")
+        t = torch.empty(c, dtype=dt).uniform_(
+            -1, 1, generator=_generator(generator)) * magnitude
+    elif init_mode.lower() == "none":
+        t = torch.full((c,), float("nan"))
+    else:
+        raise NotImplementedError(f"unknown init mode {init_mode}")
+    return torch.cat([t[None, :].to(dt).to(shift_2d.device),
+                      shift_2d.detach()], dim=0)
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
     """Truncated normal (2 std) with variance 1 / fan_in, in place, for a
     dense weight (out, in)."""

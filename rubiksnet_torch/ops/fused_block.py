@@ -67,6 +67,11 @@ def check_shift_bound(shift: torch.Tensor, max_shift: int,
             f"(quantize={quantize}); build the model with a larger max_shift")
 
 
+def kernel_taps(max_shift: int, quantize: bool = False) -> int:
+    """Taps per axis of the tap-weight form (:func:`stack_taps`)."""
+    return 2 * max_shift + 2 if quantize else 2 * max_shift + 1
+
+
 def stack_taps(shift, dtype, max_shift, quantize):
     """(3 * taps_n, C) float32 tap weights of a (3, C) shift.
 
@@ -74,7 +79,7 @@ def stack_taps(shift, dtype, max_shift, quantize):
     |s| <= K. Quantize mode keeps it: a shift in (K+0.5, K+1] rounds onto it.
     """
     check_shift_bound(shift, max_shift, quantize)
-    tn = 2 * max_shift + 2 if quantize else 2 * max_shift + 1
+    tn = kernel_taps(max_shift, quantize)
     return torch.cat([
         shift_tap_weights(shift[a], dtype, max_shift, quantize)[:tn]
         for a in range(3)
@@ -255,6 +260,12 @@ WARP_ROWS = 16          # rows a warp owns: one mma tile
 MAX_WARPS = 16          # warps per block (512 threads of <= 128 registers)
 
 
+class NoPlan(ValueError):
+    """No launch plan of the kernel fits its limits (warps, shared memory)
+    at a shape: the one refusal ``fused_*_supported`` turns into a
+    decline. Every other error of a plan is a fault and propagates."""
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -383,7 +394,8 @@ def _mma_plan(m: int, c: int, sms: int, knobs, k: int | None = None,
     producers unless it pins them too) and ``overlap`` (programmatic
     dependent launch: a launch fetches its weights while the one before it
     still runs) on unless ``knobs`` switch it off; raises for a setting the
-    kernel cannot run. ``k``, ``table``: as :func:`_mma_smem`."""
+    kernel cannot run (:class:`NoPlan`). ``k``, ``table``: as
+    :func:`_mma_smem`."""
     knobs = dict(knobs)
     overlap = bool(knobs.pop("overlap", True))
     unknown = set(knobs) - {"producers", "warps_m", "warps_n"}
@@ -399,9 +411,9 @@ def _mma_plan(m: int, c: int, sms: int, knobs, k: int | None = None,
     smem = _mma_smem(producers, warps_m, warps_n, c, k, table)
     if (min(warps_m, warps_n) < 1 or producers < 0 or warps > MAX_WARPS
             or smem > SMEM_LIMIT or (warps_n > 1 and warps_n >= 2 * groups)):
-        raise ValueError(f"no tensor-core plan for C={c} under {shape}: "
-                         f"{warps} warps (at most {MAX_WARPS}), {smem} bytes "
-                         f"of shared memory (at most {SMEM_LIMIT})")
+        raise NoPlan(f"no tensor-core plan for C={c} under {shape}: "
+                     f"{warps} warps (at most {MAX_WARPS}), {smem} bytes "
+                     f"of shared memory (at most {SMEM_LIMIT})")
     n_split = _ceil_div(groups, warps_n)
     row_tiles = max(1, _ceil_div(m, warps_m * WARP_ROWS))
     return BlockPlan(
@@ -448,6 +460,52 @@ def fused_block_plan(shape, dtype, *, sms=SM_COUNT, route=None,
         raise ValueError(f"shape must be (N, T, H, W, C), got {shape}")
     return _plan(tuple(int(d) for d in shape), dtype, int(sms), route,
                  tuple(sorted(knobs.items())))
+
+
+def se_smem_fits(plan, shape, k: int, taps_n: int, max_shift: int,
+                 stride: int) -> bool:
+    """Whether launch A under ``plan`` (a tensor-core :class:`BlockPlan`
+    of depth ``k``) holds the SE region beside its tile and W: two per-axis
+    weight tables and the row warps' sums of ``shape``'s (N, T, H, W, C)
+    ``mid`` (csrc/tc_se.cuh::tc_se_bytes, placed after W as
+    csrc/fused_block_tc.cu::tc_launch places it). The port's one statement
+    of that rule: the C side checks its own need and refuses a launch past
+    a block's shared memory, and chip_smoke.py holds the two together at
+    the rule's edge."""
+    _, _, h, w, c = shape
+    hw = h * w
+    slots = (plan.rows + hw - 2) // hw + 1
+    lo, hi = max(taps_n - 1 - max_shift, 0), max_shift + stride - 1
+    region = ((2 * (lo + hi + stride) + plan.warps_m * slots)
+              * plan.warps_n * WARP_COLS * 4)
+    t_off = _mma_smem(plan.producers, plan.warps_m, plan.warps_n, c, k=k,
+                      table=0)
+    return t_off + region <= SMEM_LIMIT
+
+
+def fused_block_supported(shape, max_shift, dtype, aq=False, se=False, *,
+                          quantize=False, sms=SM_COUNT) -> bool:
+    """Whether K2 takes a run of blocks on x of ``shape`` (N, T, H, W, C):
+    float32 or bfloat16, at most ``KERNEL_MAX_TAPS`` taps per axis, a launch
+    plan, and with ``se`` on the tensor cores the gate's shared memory
+    beside it. Pure Python from the shape, the dtype and the plan (no
+    launch), so the CPU and the card answer alike; the counterpart of
+    ``rubiksnet_tpu/ops/pallas/fused_block.py::fused_block_supported``.
+    ``quantize``: the rubiks3d quantize mode's extra tap."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0:
+        return False
+    taps_n = kernel_taps(max_shift, quantize and not aq)
+    if taps_n > KERNEL_MAX_TAPS:
+        return False
+    try:
+        plan = fused_block_plan(shape, dtype, sms=sms)
+    except NoPlan:
+        return False
+    if se and plan.route == "mma":
+        return se_smem_fits(plan, shape, shape[4], taps_n, max_shift, 1)
+    return True
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,6 +31,7 @@ from .fused_block import (
     SM_COUNT,
     SMEM_LIMIT,
     BlockPlan,
+    NoPlan,
     _bn_fold,
     _mma_defaults,
     _mma_plan,
@@ -38,9 +39,11 @@ from .fused_block import (
     _sm_count,
     blocks_per_sm,
     conv1x1_matrix,
+    kernel_taps,
     se_gate,
     se_partial_shape,
     se_slices,
+    se_smem_fits,
     stack_taps,
     tap_shift,
     taps_from_rows,
@@ -266,6 +269,35 @@ def fused_entry_plan(shape, cm, dtype, *, sms=SM_COUNT, route=None,
                          f"even, and cm >= 1, got {shape}, {cm}")
     return _plan(tuple(int(d) for d in shape), int(cm), dtype, int(sms),
                  route, tuple(sorted(knobs.items())))
+
+
+def fused_entry_supported(shape, cin, mid, max_shift, dtype, se=False, *,
+                          quantize=False, sms=SM_COUNT) -> bool:
+    """Whether K3 takes an entry block on x of ``shape`` (N, T, H, W, Cin)
+    growing to ``mid`` channels: Cin as the block's, H and W even, float32
+    or bfloat16, at most ``KERNEL_MAX_TAPS`` taps per axis, a launch plan,
+    and with ``se`` on the tensor cores the gate's shared memory in launch
+    A. Pure Python from the shape, the dtype and the plan (no launch), so
+    the CPU and the card answer alike; the counterpart of
+    ``rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_supported``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0:
+        return False
+    _, _, h, w, c = shape
+    if c != cin or h % 2 or w % 2:
+        return False
+    taps_n = kernel_taps(max_shift, quantize)
+    if taps_n > KERNEL_MAX_TAPS:
+        return False
+    try:
+        plan = fused_entry_plan(shape, mid, dtype, sms=sms)
+    except NoPlan:
+        return False
+    if se and plan.route == "mma":
+        return se_smem_fits(plan.a, shape[:4] + (mid,), cin, taps_n,
+                            max_shift, 2)
+    return True
 
 
 def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,

@@ -9,6 +9,8 @@ clips: decode, transform, prefetch, the pinned copy on a side stream, the
 fused executor. Prints videos/s, s/video and the host-wait share of each,
 with the device's name; the reference's eval logs read 0.008 (1 clip) and
 0.024 (2 clips) s/video for Large on an unspecified GPU.
+:func:`generate_registry` writes the same videos in the ``somethingv2``
+registry layout, for the training script.
 
 Usage: python -m rubiksnet_torch.scripts.eval_throughput [--videos 96]
        [--device cpu] [--out stats.json]
@@ -26,37 +28,73 @@ import time
 import numpy as np
 
 TMPL = "{:05d}.jpg"
+REGISTRY_TMPL = "{:06d}.jpg"  # somethingv2's frame names (data/config.py)
 FRAME_W, FRAME_H, QUALITY = 340, 256, 87
 FRAMES_PER_VIDEO = (24, 48)
 REFERENCE_SEC_PER_VIDEO = {"1clip": 0.008, "2clip": 0.024}
+
+
+def write_video(folder, rng, tmpl=TMPL):
+    """One SSv2-like video in ``folder``: 24-48 frames (drawn from
+    ``rng``), 340x256 JPEGs at quality 87 named by ``tmpl`` from 1.
+    Returns the frame count."""
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    frames = int(rng.randint(FRAMES_PER_VIDEO[0], FRAMES_PER_VIDEO[1] + 1))
+    base = rng.randint(0, 200, (8, 11, 3)).astype(np.uint8)
+    img = np.asarray(Image.fromarray(base).resize((FRAME_W, FRAME_H),
+                                                   Image.BILINEAR))
+    for f in range(1, frames + 1):
+        jitter = rng.randint(-10, 10, (1, 1, 3))
+        frame = np.clip(img.astype(np.int16) + jitter, 0, 255)
+        Image.fromarray(frame.astype(np.uint8)).save(
+            os.path.join(folder, tmpl.format(f)), quality=QUALITY)
+    return frames
 
 
 def generate_frames(root, videos, num_classes, seed=0):
     """``videos`` frame folders ``vid00000/00001.jpg ...`` under ``root``
     and their list file ``root/val.txt`` (``<folder> <frames> <label>``).
     Returns the list file's path."""
-    from PIL import Image
-
     rng = np.random.RandomState(seed)
     lines = []
     for vi in range(videos):
         name = f"vid{vi:05d}"
-        d = os.path.join(root, name)
-        os.makedirs(d, exist_ok=True)
-        frames = int(rng.randint(FRAMES_PER_VIDEO[0], FRAMES_PER_VIDEO[1] + 1))
-        base = rng.randint(0, 200, (8, 11, 3)).astype(np.uint8)
-        img = np.asarray(Image.fromarray(base).resize((FRAME_W, FRAME_H),
-                                                       Image.BILINEAR))
-        for f in range(1, frames + 1):
-            jitter = rng.randint(-10, 10, (1, 1, 3))
-            frame = np.clip(img.astype(np.int16) + jitter, 0, 255)
-            Image.fromarray(frame.astype(np.uint8)).save(
-                os.path.join(d, TMPL.format(f)), quality=QUALITY)
+        frames = write_video(os.path.join(root, name), rng)
         lines.append(f"{name} {frames} {vi % num_classes}")
     list_file = os.path.join(root, "val.txt")
     with open(list_file, "w") as f:
         f.write("\n".join(lines) + "\n")
     return list_file
+
+
+def generate_registry(root, train_videos, val_videos, num_classes, seed=0):
+    """The ``somethingv2`` layout of ``data/config.py`` under ``root``,
+    from ``seed``: ``somethingv2/label/category.txt`` (``num_classes``
+    lines), ``train_videofolder.txt`` and ``val_videofolder.txt``
+    (``<id> <frames> <label>``, ids 1, 2, ... with the train videos
+    first), and ``somethingv2/rgb/<id>/000001.jpg ...``, every video as
+    :func:`write_video` writes it, video i labelled i % num_classes.
+    Returns ``root``, for ``--root``."""
+    base = os.path.join(root, "somethingv2")
+    label_dir = os.path.join(base, "label")
+    os.makedirs(label_dir, exist_ok=True)
+    with open(os.path.join(label_dir, "category.txt"), "w") as f:
+        f.write("".join(f"class {k}\n" for k in range(num_classes)))
+    rng = np.random.RandomState(seed)
+    vid = 0
+    for split, count in (("train", train_videos), ("val", val_videos)):
+        lines = []
+        for _ in range(count):
+            vid += 1
+            frames = write_video(os.path.join(base, "rgb", str(vid)), rng,
+                                 REGISTRY_TMPL)
+            lines.append(f"{vid} {frames} {(vid - 1) % num_classes}")
+        with open(os.path.join(label_dir, f"{split}_videofolder.txt"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return root
 
 
 def evaluator_args(ckpt, list_file, root, num_classes, frames, batch_size,

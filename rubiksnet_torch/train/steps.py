@@ -66,11 +66,13 @@ def make_eval_step(model, num_crops: int = 1, fused: bool = False,
     video is (N, crops, T, H, W, 3); the logits are averaged over the crops
     axis (the multi-view consensus). The model runs in eval mode, without
     autograd. ``executor``, a :class:`FusedExecutor` of ``model`` that the
-    caller holds (an evaluator builds one for its run), runs every block on
-    the fused inference kernels with the parameters it folded and stacked
-    once. ``fused=True`` without an executor does the same through
-    ``fused_infer_apply``, stacking the parameters on each call, so a model
-    trained in between is seen as it is. ``normalize=(mean, std)`` takes
+    caller holds (an evaluator builds one for its run), runs each block on
+    the fused inference kernels where the kernel takes it at the clip's
+    shape (else on the module path), with the parameters it folded and
+    stacked once and the route it decided at the first batch of each shape.
+    ``fused=True`` without an executor does the same through
+    ``fused_infer_apply``, stacking the parameters and deciding the route on
+    each call, so a model trained in between is seen as it is. ``normalize=(mean, std)`` takes
     raw uint8 pixels and applies ``(v / 255 - mean) / std`` on the device
     in float32. top1 and top5 are per-clip float32 hits.
     """

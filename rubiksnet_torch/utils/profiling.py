@@ -1,8 +1,8 @@
 """Wall-clock timing and trace capture.
 
 Counterpart of ``rubiksnet_tpu/utils/profiling.py``: a ``Timer`` context
-manager, a ``ThroughputMeter`` that leaves out warm-up batches, and
-``trace``, a ``torch.profiler`` capture of the host and the card written as
+manager, a ``ThroughputMeter`` that leaves out warm-up batches,
+``step_stats`` (a training run's steady step figures), and ``trace``, a ``torch.profiler`` capture of the host and the card written as
 a Chrome trace.
 """
 
@@ -62,6 +62,31 @@ class ThroughputMeter:
         if self._t0 is None or self._items == 0:
             return 0.0
         return self._items / (time.perf_counter() - self._t0)
+
+
+STEADY_MIN_STEPS = 3  # steps after the first that make a steady figure
+
+
+def step_stats(step_s, wait_s, batch: int) -> dict:
+    """The figures of a training run's per-step wall clocks ``step_s`` (each
+    the wait for its batch and the step until its loss is read) and waits
+    ``wait_s``, over the steps after the first: the first builds,
+    allocates and fills the prefetch queue. A run of one step is read as
+    it is. Returns {"steps" (in the window), "median_s", "clips_s",
+    "host_wait_frac" (the waits' share of the window's wall clock),
+    "first_s", "first_wait_s", "steady" (at least STEADY_MIN_STEPS steps
+    after the first: fewer say nothing steady)}."""
+    if not step_s:
+        raise ValueError("no steps")
+    window, waits = (step_s[1:], wait_s[1:]) if len(step_s) > 1 else (
+        step_s, wait_s)
+    wall = sum(window)
+    return dict(steps=len(window),
+                median_s=sorted(window)[len(window) // 2],
+                clips_s=batch * len(window) / max(wall, 1e-9),
+                host_wait_frac=sum(waits) / max(wall, 1e-9),
+                first_s=step_s[0], first_wait_s=wait_s[0],
+                steady=len(step_s) - 1 >= STEADY_MIN_STEPS)
 
 
 @contextlib.contextmanager

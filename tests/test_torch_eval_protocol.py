@@ -9,9 +9,10 @@ a jitted ``make_eval_step``, with the JAX script's accounting (its
 (``state_dict_from_jax`` -> ``.pth.tar`` -> ``load_pretrained``). Both
 protocols, both loaders, ``--prefetch`` 0 and 2, the fused executor and
 the module path. Geometry is cut to T = 4, crop 64, scale 72 (every path
-is size-parametric; 224/256 are the transforms' own tests). The crop is a
-multiple of 32 because the fused entry kernel K3, as its JAX counterpart,
-takes even H and W only (crop 56 reaches the last entry at 7x7).
+is size-parametric; 224/256 are the transforms' own tests), and the
+protocol test also runs at crop 56: there the third entry meets 7x7, which
+the fused entry kernel K3, as its JAX counterpart, declines, so the
+executor runs that block on the module path.
 
 Tolerance: logits float32 within 1e-4 (the JAX script normalizes the PIL
 path on the host, the port on the device; the executor sums in another
@@ -95,11 +96,11 @@ def weights(tmp_path_factory):
 _JAX_RESULTS = {}
 
 
-def jax_evaluator(bundle, root, two_clips, loader):
+def jax_evaluator(bundle, root, two_clips, loader, crop=CROP):
     """The JAX evaluator's pipeline and accounting (scripts/test_models.py:
     transforms, dataset, native loader with uint8 normalized in the step,
     batch_iterator, jitted make_eval_step, AverageMeter, per-class)."""
-    key = (str(root), two_clips, loader)
+    key = (str(root), two_clips, loader, crop)
     if key in _JAX_RESULTS:
         return _JAX_RESULTS[key]
     from rubiksnet_tpu.data import (
@@ -112,9 +113,9 @@ def jax_evaluator(bundle, root, two_clips, loader):
     from rubiksnet_tpu.utils import AverageMeter, per_class_accuracy
 
     if two_clips:
-        cropping = Compose([GroupFullResSample(CROP, SCALE, flip=False)])
+        cropping = Compose([GroupFullResSample(crop, SCALE, flip=False)])
     else:
-        cropping = Compose([GroupScale(SCALE), GroupCenterCrop(CROP)])
+        cropping = Compose([GroupScale(SCALE), GroupCenterCrop(crop)])
     views = 6 if two_clips else 1
     native = loader == "native"
     transform = Compose([cropping, Stack(roll=False), ToClipArray(div=True),
@@ -125,7 +126,7 @@ def jax_evaluator(bundle, root, two_clips, loader):
                        transform=None if native else transform,
                        dense_sample=False, twice_sample=two_clips)
     if native:
-        ds = NativeEvalDataset(ds, SCALE, CROP, INPUT_MEAN, INPUT_STD,
+        ds = NativeEvalDataset(ds, SCALE, crop, INPUT_MEAN, INPUT_STD,
                                two_clips=two_clips, out_dtype="uint8")
     step = jax.jit(jax_eval_step(
         bundle.model, num_crops=views,
@@ -193,15 +194,9 @@ def _agree(got, want):
                                   want["class_accuracy"])
 
 
-@pytest.mark.parametrize("prefetch", [0, 2])
-@pytest.mark.parametrize("loader", ["pil", "native"])
-@pytest.mark.parametrize("two_clips", [False, True],
-                         ids=["1clip", "2clip"])
-def test_evaluator_matches_jax_pipeline(frame_root, weights,
-                                        counted_executors, two_clips, loader,
-                                        prefetch):
-    """Logits within 1e-4 and the same top-1, top-5 and per-class accuracy
-    as the JAX pipeline; one FusedExecutor for the whole run."""
+def _protocol_case(frame_root, weights, counted_executors, two_clips,
+                   loader, prefetch, crop):
+    """The evaluator at ``crop`` against the JAX pipeline; -> its result."""
     from rubiksnet_torch.data import native_loader
 
     if loader == "native" and not native_loader.toolchain_present():
@@ -215,9 +210,23 @@ def test_evaluator_matches_jax_pipeline(frame_root, weights,
     extra = ["--loader", loader, "--prefetch", str(prefetch), "--device",
              "cpu"] + (["--two-clips"] if two_clips else [])
     got = test_models.evaluate(port_args(ckpt, frame_root, *extra),
-                               CROP, SCALE, log=lambda *a: None)
-    want = jax_evaluator(bundle, frame_root, two_clips, loader)
+                               crop, SCALE, log=lambda *a: None)
+    want = jax_evaluator(bundle, frame_root, two_clips, loader, crop)
     _agree(got, want)
+    return got
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("loader", ["pil", "native"])
+@pytest.mark.parametrize("two_clips", [False, True],
+                         ids=["1clip", "2clip"])
+def test_evaluator_matches_jax_pipeline(frame_root, weights,
+                                        counted_executors, two_clips, loader,
+                                        prefetch):
+    """Logits within 1e-4 and the same top-1, top-5 and per-class accuracy
+    as the JAX pipeline; one FusedExecutor for the whole run."""
+    got = _protocol_case(frame_root, weights, counted_executors, two_clips,
+                         loader, prefetch, CROP)
     assert got["logits"].shape == (VIDEOS, NUM_CLASSES)
     assert got["batches"] == 3
     assert counted_executors.built == 1
@@ -225,6 +234,21 @@ def test_evaluator_matches_jax_pipeline(frame_root, weights,
     assert st["videos"] == VIDEOS and st["loader"] == loader
     assert st["views_per_video"] == (6 if two_clips else 1)
     assert st["device"] == "cpu" and st["device_normalize"]
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("loader", ["pil", "native"])
+@pytest.mark.parametrize("two_clips", [False, True],
+                         ids=["1clip", "2clip"])
+def test_evaluator_matches_jax_pipeline_at_crop_56(
+        frame_root, weights, counted_executors, two_clips, loader, prefetch):
+    """The same at crop 56, where the third entry block meets 7x7: the held
+    executor runs it on the module path (the JAX executor's fallback), and
+    the run agrees with the JAX pipeline as at crop 64."""
+    got = _protocol_case(frame_root, weights, counted_executors, two_clips,
+                         loader, prefetch, 56)
+    assert got["logits"].shape == (VIDEOS, NUM_CLASSES)
+    assert got["batches"] == 3 and counted_executors.built == 1
 
 
 @pytest.mark.parametrize("backend,host_normalize", [
