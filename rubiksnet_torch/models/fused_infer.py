@@ -160,18 +160,56 @@ class FusedExecutor:
         self.routes[key], self.declined[key] = steps, declined
         return steps
 
+    def route_for_batches(self, shape, lo, hi, sms=SM_COUNT, step=1):
+        """The one route that clips of ``(N,) + shape`` take at every N of
+        ``range(lo, hi + 1, step)``, by :meth:`route` at each; raises
+        ``ValueError`` naming the first N whose route differs from N =
+        ``lo``'s and the steps that change there. For a program traced at
+        a symbolic batch, which runs one route at every batch."""
+        shape = tuple(int(d) for d in shape)
+        if not 1 <= lo <= hi or step < 1:
+            raise ValueError(f"no batches in range({lo}, {hi + 1}, {step})")
+        first = self.route((lo,) + shape, sms)
+        for n in range(lo + step, hi + 1, step):
+            if self.route((n,) + shape, sms) == first:
+                continue
+            was = self.declined[((lo,) + shape, int(sms))]
+            now = self.declined[((n,) + shape, int(sms))]
+            changes = ", ".join(
+                f"{kind} {'+'.join(names)} "
+                f"{'declined' if (kind, names) in now else 'taken'}"
+                for kind, names, _ in self.steps
+                if ((kind, names) in was) != ((kind, names) in now))
+            raise ValueError(
+                f"the route of clips {shape} changes at batch {n} (from "
+                f"batch {lo}): {changes}; one program cannot serve batches "
+                f"{lo}..{hi}")
+        return first
+
     @torch.no_grad()
-    def __call__(self, video):
+    def __call__(self, video, clips=None):
         """video (N, T, H, W, 3) -> logits (N, num_classes) in the model's
-        compute dtype."""
+        compute dtype. Eagerly, or traced at a fixed N, the route is
+        :meth:`route`'s at N. Traced at a symbolic N, ``clips`` is the
+        ``range`` of clip counts N stands for, and the route is
+        :meth:`route_for_batches`' over it (which raises where it
+        changes)."""
         model = self.model
         if video.ndim != 5 or video.shape[-1] != 3:
             raise ValueError(
                 f"expected (N, T, H, W, 3), got {tuple(video.shape)}")
         sms = (_sm_count(video.device.index) if video.device.type == "cuda"
                else SM_COUNT)
+        if isinstance(video.shape[0], int):
+            steps = self.route(video.shape, sms)
+        elif clips is None:
+            raise ValueError("a symbolic batch needs clips=range(...), the "
+                             "clip counts it stands for")
+        else:
+            steps = self.route_for_batches(video.shape[1:], clips.start,
+                                           clips.stop - 1, sms, clips.step)
         x = model.backbone.conv1(video.to(model.dtype))
-        for kind, _, params in self.route(video.shape, sms):
+        for kind, _, params in steps:
             if kind == "block":
                 x = fused_block_run(x, *params, aq=self.aq,
                                     max_shift=model.max_shift)

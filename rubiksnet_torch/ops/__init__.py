@@ -1,5 +1,6 @@
 """Shift ops and fused block kernels of the PyTorch port."""
 
+from . import library  # registers the rubiksnet:: operators
 from .attention_shift import attention_shift_weights
 from .fused_block import (
     fused_block_run,

@@ -581,12 +581,9 @@ def fused_block_run(x, vt, wm, se=None, *, aq=False, max_shift):
     ``aq=True`` (B, 4 + 3*taps + 3, C) from :func:`stack_block_params_aq`
     (``aq`` is never inferred from the row count: both are multiples of 3
     past the head); wm: (B, 2, C, C) in x's dtype; se: None or (B, 2, C, Cr)
-    float32 from :func:`stack_se_params`. Runs K2 for a CUDA tensor and the
-    plain version for a CPU tensor.
+    float32 from :func:`stack_se_params`. Calls the operator
+    ``rubiksnet::fused_block_run`` (``ops/library.py``): K2 for a CUDA
+    tensor, the plain version for a CPU tensor.
     """
-    if x.device.type == "cuda":
-        return fused_block_kernel(x, vt, wm, se, aq=aq, max_shift=max_shift)
-    if x.device.type == "cpu":
-        _check_args(x, vt, wm, se, aq, max_shift)
-        return fused_block_plain(x, vt, wm, se, aq=aq, max_shift=max_shift)
-    raise ValueError(f"unsupported device {x.device}")
+    return torch.ops.rubiksnet.fused_block_run.default(
+        x, vt, wm, se, aq, max_shift)

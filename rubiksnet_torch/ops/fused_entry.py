@@ -377,11 +377,8 @@ def fused_entry_run(x, params, se=None, *, max_shift):
     """Apply one fused stride-2 entry block to x (N, T, H, W, Cin), H and W
     even; returns (N, T, H/2, W/2, mid). params from
     :func:`stack_entry_params`; se: None or (2, mid, Cr) float32, one entry
-    of ``fused_block.stack_se_params``. Runs K3 for a CUDA tensor and the
-    plain version for a CPU tensor."""
-    if x.device.type == "cuda":
-        return fused_entry_kernel(x, params, se, max_shift=max_shift)
-    if x.device.type == "cpu":
-        _check_args(x, params, se, max_shift)
-        return fused_entry_plain(x, params, se, max_shift=max_shift)
-    raise ValueError(f"unsupported device {x.device}")
+    of ``fused_block.stack_se_params``. Calls the operator
+    ``rubiksnet::fused_entry_run`` (``ops/library.py``): K3 for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    return torch.ops.rubiksnet.fused_entry_run.default(
+        x, *params, se, max_shift)

@@ -410,13 +410,12 @@ def _check_args(x, shift):
 def rubiks_shift_2d_forward(x, shift, stride=(1, 1), padding=(0, 0),
                             quantize=False):
     """Fractional 2D shift of x (N, H, W, C) by shift (2, C), outside
-    autograd. The kernel of csrc/shift2d.cu for a CUDA tensor, the gather
-    form for a CPU tensor; raises for any other device."""
+    autograd. The operator ``rubiksnet::shift2d_forward``
+    (``ops/library.py``): the kernel of csrc/shift2d.cu for a CUDA tensor,
+    the gather form for a CPU tensor; raises for any other device."""
     _check_args(x, shift)
-    if _route(x, plain=False):
-        return shift2d_kernel(x.contiguous(), shift, stride, padding,
-                              quantize)
-    return shift2d_plain(x, shift, stride, padding, quantize)
+    return torch.ops.rubiksnet.shift2d_forward.default(
+        x, shift, _pair(stride), _pair(padding), bool(quantize))
 
 
 @torch.no_grad()
@@ -438,18 +437,21 @@ class _RubiksShift2DFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shift, stride, padding, quantize, normalize_grad,
-                use_kernels):
+                plain):
         ctx.save_for_backward(x, shift)
-        ctx.cfg = (stride, padding, quantize, normalize_grad, use_kernels)
-        if use_kernels:
-            return shift2d_kernel(x.contiguous(), shift, stride, padding,
-                                  quantize)
-        return shift2d_plain(x, shift, stride, padding, quantize)
+        ctx.cfg = (stride, padding, quantize, normalize_grad, plain)
+        if plain:
+            return shift2d_plain(x, shift, stride, padding, quantize)
+        # The operator: the kernel on the card, the plain form on the CPU,
+        # one opaque node under torch.export.
+        return torch.ops.rubiksnet.shift2d_forward.default(
+            x, shift, stride, padding, quantize)
 
     @staticmethod
     def backward(ctx, og):
         x, shift = ctx.saved_tensors
-        stride, padding, quantize, normalize_grad, use_kernels = ctx.cfg
+        stride, padding, quantize, normalize_grad, plain = ctx.cfg
+        use_kernels = _route(x, plain)
         gx = gs = None
         if ctx.needs_input_grad[0]:
             if use_kernels:
@@ -476,4 +478,4 @@ def rubiks_shift_2d(x, shift, stride=1, padding=0, normalize_grad=True,
     _check_args(x, shift)
     return _RubiksShift2DFunction.apply(
         x, shift, _pair(stride), _pair(padding), bool(quantize),
-        bool(normalize_grad), _route(x, plain))
+        bool(normalize_grad), bool(plain))

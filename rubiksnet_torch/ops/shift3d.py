@@ -743,13 +743,13 @@ def rubiks_shift_3d_forward(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
     autograd (the result has no gradient): :func:`rubiks_shift_3d` is the
     op with the reference's gradient.
 
-    Runs K1 for a CUDA tensor and the gather form for a CPU tensor; raises
-    for any other device.
+    The operator ``rubiksnet::shift3d_forward`` (``ops/library.py``): K1
+    for a CUDA tensor and the gather form for a CPU tensor; raises for any
+    other device.
     """
     _check_args(x, shift)
-    if _route(x, plain=False):
-        return shift3d_kernel(x, shift, stride, padding, quantize)
-    return shift3d_plain(x, shift, stride, padding, quantize)
+    return torch.ops.rubiksnet.shift3d_forward.default(
+        x, shift, _triple(stride), _triple(padding), bool(quantize))
 
 
 class _RubiksShift3DFunction(torch.autograd.Function):
@@ -758,20 +758,23 @@ class _RubiksShift3DFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shift, stride, padding, quantize, normalize_grad,
-                normalize_t_factor, use_kernels):
+                normalize_t_factor, plain):
         ctx.save_for_backward(x, shift)
         ctx.cfg = (stride, padding, quantize, normalize_grad,
-                   normalize_t_factor, use_kernels)
-        if use_kernels:
-            return shift3d_kernel(x.contiguous(), shift, stride, padding,
-                                  quantize)
-        return shift3d_plain(x, shift, stride, padding, quantize)
+                   normalize_t_factor, plain)
+        if plain:
+            return shift3d_plain(x, shift, stride, padding, quantize)
+        # The operator: K1 on the card, the plain form on the CPU, one
+        # opaque node under torch.export.
+        return torch.ops.rubiksnet.shift3d_forward.default(
+            x, shift, stride, padding, quantize)
 
     @staticmethod
     def backward(ctx, og):
         x, shift = ctx.saved_tensors
         (stride, padding, quantize, normalize_grad, normalize_t_factor,
-         use_kernels) = ctx.cfg
+         plain) = ctx.cfg
+        use_kernels = _route(x, plain)
         gx = gs = None
         if use_kernels:
             og, x = og.contiguous(), x.contiguous()
@@ -810,4 +813,4 @@ def rubiks_shift_3d(x, shift, stride=1, padding=0, normalize_grad=True,
             f"{normalize_t_factor!r}")
     return _RubiksShift3DFunction.apply(
         x, shift, _triple(stride), _triple(padding), bool(quantize),
-        bool(normalize_grad), float(normalize_t_factor), _route(x, plain))
+        bool(normalize_grad), float(normalize_t_factor), bool(plain))

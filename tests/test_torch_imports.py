@@ -48,5 +48,7 @@ def test_every_port_module_is_covered():
     names = {str(p.relative_to(REPO)) for p in FILES}
     for module in ("rubiksnet_torch/data/device.py",
                    "rubiksnet_torch/scripts/test_models.py",
-                   "rubiksnet_torch/ops/fused_block.py", "chip_smoke.py"):
+                   "rubiksnet_torch/ops/fused_block.py",
+                   "rubiksnet_torch/serving/export.py",
+                   "rubiksnet_torch/scripts/export_model.py", "chip_smoke.py"):
         assert module in names
