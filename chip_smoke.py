@@ -66,8 +66,21 @@ no model, its launches counted there (the kernels are the rubiksnet::
 operators of ops/library.py) and its logits held against the live route
 (equal, or within rel-L2 1e-3 with a line saying why) and the plain model;
 then the exported Large programs timed beside the live executor at batch
-1, 8 and 32. Fails (non-zero exit, no result line) on the first problem,
-and without a CUDA device.
+1, 8 and 32. Last, phase 11, parallelism (rubiksnet_torch.parallel): two
+ranks spawned on the one card, which share it through gloo: (a) a DDP
+train step of Large in f32 at 4 clips a rank against one process at 8
+from one state (loss, gradients, BN statistics; 51 K1, K1-inverse and K4
+a rank), (b) Large and Large-AQ bf16 eval at batch 8 with T 8 over the
+two ranks (halo exchange, the module path) against the unsharded module
+path, (c) the temporal shift op (halo, K1, K1-inverse, K4) at Large's
+five stage shapes against the unsharded kernels, fractional and
+quantized, f32 and bf16, (d) test_models with the batch sharded against
+one process, every collective on CUDA tensors through gloo; then one
+NCCL rank at world size 1 takes a DDP step. Its times (DDP step, sharded eval
+batch, the halo's cat, trim and exchange) stand beside the one-process
+figures and describe the code path on one shared card, not a multi-card
+run. Fails (non-zero exit, no result line) on the first problem, and
+without a CUDA device.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel results as {"kernels": [...]}: for each kernel its launches
@@ -97,6 +110,7 @@ import math
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -304,7 +318,9 @@ SHIFT_SHAPES = [(h, c, 1) for h, c, _ in BLOCK_SHAPES] + [
 # staged rows wraps. Every staged call after check_shift_staged runs under
 # a plan that passed there at its own configuration, or fails the run
 # before its kernel launches (BwdPlanGuard).
-BWD_BATCHES = sorted({BATCH_CHECK, TIME_BATCH, *TRAIN_BATCHES})
+DDP_LOCAL_BATCH = 4  # phase 11 (a): rows a rank of TIME_BATCH
+BWD_BATCHES = sorted({BATCH_CHECK, TIME_BATCH, DDP_LOCAL_BATCH,
+                      *TRAIN_BATCHES})
 TINY = dict(classes=4, batch=8, size=32, frames=4)  # (a)'s overfit
 
 
@@ -2663,6 +2679,505 @@ def export_phase(dev, gen, cpu_gen, errs, name, smi):
     return rows
 
 
+# Phase 11: parallelism. Two ranks on the one card (gloo: they share it),
+# spawned from the script, then one NCCL rank at world size 1. (a) the DDP
+# train step, Large f32 8x224x224, two ranks at local batch 4 against one
+# process at batch 8 from one state (the tolerances of the Large f32 step
+# above); (b) time-sharded eval, Large and Large-AQ bf16 at batch 8, T = 8
+# over 2 shards, against the unsharded module path; (c) the temporal shift
+# op (halo, K1, K1-inverse, K4) at Large's five stage shapes against the
+# unsharded kernels; (d) test_models with the batch sharded, 16 videos,
+# against one process.
+PARALLEL_RANKS = 2
+PARALLEL_TIMED = 3  # timed steps or batches after one warm-up
+# (d): the ranks' global batch of 16 is 8 a rank, the one process's batch,
+# so each K2 and K3 launch sees the same clips at a checked plan.
+# Ten classes, so that random weights hit some labels (top-1 near 10%,
+# top-5 near 50%) and the accuracies compared are not all zero.
+PARALLEL_VIDEOS, PARALLEL_EVAL_BATCH, PARALLEL_CLASSES = 16, 16, 10
+PARALLEL_TIMEOUT_S = 600
+
+
+def shift_inputs(batch, frames):
+    """(shape, stride) of each of Large's 51 3D shift inputs, forward
+    order aside: its stride-1 blocks and the mid tensors of its entries."""
+    calls = [((batch, frames, h, h, c), 1) for h, c, n in BLOCK_SHAPES
+             for _ in range(n)]
+    return calls + [((batch, frames, h, h, cm), 2)
+                    for h, _, cm in ENTRY_SHAPES]
+
+
+def large_train_model(dev):
+    """Large f32 from seed 0, BN statistics randomized (seed 1), train
+    mode: phase 11 (a)'s state, alike in every process."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+
+    m = create_rubiksnet("large", CLASSES, FRAMES, "rubiks3d",
+                         max_shift=MAX_SHIFT, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    return randomize_bn(m, torch.Generator().manual_seed(1)).to(dev).train()
+
+
+def parallel_batch(dev, seed):
+    """(8, 8, 224, 224, 3) clips and labels from a CPU seed, alike in every
+    process."""
+    g = torch.Generator().manual_seed(seed)
+    video = torch.randn((TIME_BATCH, FRAMES, SIZE, SIZE, 3), generator=g)
+    labels = torch.randint(0, CLASSES, (TIME_BATCH,), generator=g)
+    return video.to(dev), labels.to(dev)
+
+
+def wall_ms(fn, timed=PARALLEL_TIMED):
+    """Host milliseconds of each of ``timed`` calls of ``fn()`` after one
+    warm-up, each ended by a device synchronize (every rank calls it
+    alike: the calls hold collectives)."""
+    out = []
+    for i in range(timed + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def step_state(model, metrics):
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    stats = {n: b.detach().cpu() for n, b in model.named_buffers()
+             if not n.endswith("num_batches_tracked")}
+    return float(metrics["loss"]), grads, stats
+
+
+def job_temporal_op(rank, group, spec, dev):
+    """(c) The temporal shift at Large's five stage shapes, f32 and bf16,
+    fractional and quantized (a third of the T shifts in (K + 0.5, K + 1],
+    a third in [-K - 1, -K - 0.5), +-(K + 1) among them): forward, input gradient and raw shift
+    gradient of the sharded op against the unsharded kernels on the whole
+    clip (every rank draws the same clip)."""
+    from rubiksnet_torch.ops import shift3d as s3
+    from rubiksnet_torch.parallel import (
+        temporal_rubiks_shift_3d, time_shard_clip,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = []
+    for h, c, _ in BLOCK_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for q in (False, True):
+                x = randn((BATCH_CHECK, FRAMES, h, h, c), dt, gen, dev)
+                og = randn(x.shape, dt, gen, dev)
+                shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
+                if q:
+                    third = c // 3
+                    far = torch.rand((2, third), generator=gen, device=dev)
+                    shift[0, :third] = MAX_SHIFT + 0.51 + 0.49 * far[0]
+                    shift[0, third:2 * third] = -(MAX_SHIFT + 0.51
+                                                  + 0.49 * far[1])
+                    shift[0, 0], shift[0, third] = (MAX_SHIFT + 1,
+                                                    -MAX_SHIFT - 1)
+                y = s3.shift3d_kernel(x, shift, 1, 0, q)
+                gx = s3.shift3d_input_grad_kernel(og, shift, x.shape, 1, 0,
+                                                  q)
+                gs = s3.shift3d_shift_grad_kernel(og, x, shift, 1, 0)
+                xl = time_shard_clip(x, group).requires_grad_()
+                sl = shift.clone().requires_grad_()
+                yl = temporal_rubiks_shift_3d(xl, sl, group, 1,
+                                              normalize_grad=False,
+                                              quantize=q,
+                                              max_shift=MAX_SHIFT)
+                yl.backward(time_shard_clip(og, group))
+                mine = slice(rank * FRAMES // PARALLEL_RANKS,
+                             (rank + 1) * FRAMES // PARALLEL_RANKS)
+                label = (f"{h}x{h}x{c} {str(dt)[6:]} "
+                         f"{'quantize' if q else 'fractional'}")
+                rows.append((label, torch.equal(yl.detach(), y[:, mine]),
+                             errors(yl.detach(), y[:, mine]),
+                             errors(xl.grad, gx[:, mine]),
+                             errors(sl.grad, gs)))
+    return rows
+
+
+def job_ddp(rank, group, spec, dev):
+    """(a) One DDP train step at local batch 4, counted, then timed."""
+    from rubiksnet_torch.parallel import shard_batch
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
+
+    model = large_train_model(dev)
+    step = make_train_step(model, sgd_with_shift_mult(model, 0.01),
+                           data_group=group)
+    video, labels = shard_batch(parallel_batch(dev, 2), group)
+    metrics, counts = counted(lambda: step(video, labels))
+    loss, grads, stats = step_state(model, metrics)
+    out = dict(loss=loss, counts=counts,
+               ms=wall_ms(lambda: step(video, labels)))
+    if rank == 0:
+        out.update(grads=grads, stats=stats)
+    return out
+
+
+def job_sequence_eval(rank, group, spec, dev):
+    """(b) Large and Large-AQ bf16 at batch 8 with T over the ranks, on the
+    module path: logits and launches of one batch, then timed; and the
+    halo exchanges (all-reduce) of one forward alone."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.parallel import (
+        sequence_parallel_eval, time_shard_clip,
+    )
+    from rubiksnet_torch.parallel.temporal import _exchange, halo_width
+
+    out = {}
+    video = time_shard_clip(parallel_batch(dev, 3)[0], group)
+    for variant in ("rubiks3d", "rubiks3d-aq"):
+        model = create_rubiksnet("large", CLASSES, FRAMES, variant,
+                                 max_shift=MAX_SHIFT, device=dev,
+                                 dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+        fn = sequence_parallel_eval(model, group)
+        logits, counts = counted(lambda: fn(video))
+        out[variant] = dict(logits=logits.float().cpu(), counts=counts,
+                            ms=wall_ms(lambda: fn(video)))
+        del model, fn
+    k = halo_width(MAX_SHIFT)
+    blocks = [torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+              for shape, _ in shift_inputs(TIME_BATCH,
+                                           FRAMES // PARALLEL_RANKS)]
+    out["exchange_ms"] = wall_ms(lambda: [_exchange(b, k, group)
+                                          for b in blocks])
+    return out
+
+
+def job_test_models(rank, group, spec, dev):
+    """(d) The evaluator with the batch sharded, counted."""
+    from rubiksnet_torch.scripts import test_models
+
+    args = test_models.build_parser().parse_args(spec["eval_argv"])
+    result, counts = counted(lambda: test_models.evaluate(
+        args, log=lambda *a: None))
+    return dict(counts=counts, batches=result["batches"],
+                **{k: result[k] for k in ("logits", "labels", "top1", "top5",
+                                          "class_accuracy")})
+
+
+def job_nccl_step(rank, group, spec, dev):
+    """One DDP train step of the tiny model (TINY's shapes) on the NCCL
+    group of one rank, counted."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
+
+    model = create_rubiksnet("tiny", TINY["classes"], TINY["frames"],
+                             max_shift=MAX_SHIFT, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, sgd_with_shift_mult(model, 0.05),
+                           data_group=group)
+    g = torch.Generator(device=dev).manual_seed(4)
+    video = torch.randn((TINY["batch"], TINY["frames"], TINY["size"],
+                         TINY["size"], 3), generator=g, device=dev)
+    labels = torch.arange(TINY["batch"], device=dev) % TINY["classes"]
+    metrics, counts = counted(lambda: step(video, labels))
+    return dict(loss=float(metrics["loss"]), counts=counts)
+
+
+PARALLEL_JOBS = {"temporal_op": job_temporal_op, "ddp": job_ddp,
+                 "sequence_eval": job_sequence_eval,
+                 "test_models": job_test_models, "nccl_step": job_nccl_step}
+
+
+def parallel_rank(rank, world, store, out, spec):
+    """One spawned rank of phase 11: joins the group (the backend by
+    ``initialize_distributed``'s rule), runs ``spec["jobs"]`` on the card
+    and saves what they return."""
+    import torch.distributed as dist
+
+    from rubiksnet_torch.ops import _build
+    from rubiksnet_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(
+        init_method=f"file://{store}", world_size=world, rank=rank,
+        device="cuda",
+        log=lambda m: print(f"  [rank {rank}] {m}", flush=True))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    group = dist.group.WORLD
+    _build.load_library()
+    result = {"backend": dist.get_backend(group)}
+    for job in spec["jobs"]:
+        result[job] = PARALLEL_JOBS[job](rank, group, spec, dev)
+        torch.cuda.empty_cache()
+    torch.save(result, f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world, spec):
+    """``parallel_rank`` on ``world`` spawned processes; their results in
+    rank order. A rank that raises or exits fails the run (the others are
+    stopped), and so do ranks still running after PARALLEL_TIMEOUT_S."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="rubiks_ranks_") as tmp:
+        ctx = mp.start_processes(parallel_rank,
+                                 args=(world, f"{tmp}/store", tmp, spec),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    fail(f"{world} ranks still running after "
+                         f"{PARALLEL_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def median(ms):
+    return ms[len(ms) // 2]
+
+
+def parallel_phase(dev, gen, name, smi):
+    """Phase 11 (see its comment above). Returns each kernel's launches
+    on one rank's parallel paths: the DDP step (K1, K1-inverse, K4), the
+    time-sharded Large forward (K1) and a sharded evaluator batch (K2,
+    K3)."""
+    import tempfile
+
+    from rubiksnet_torch.data import native_loader
+    from rubiksnet_torch.models import save_pretrained
+    from rubiksnet_torch.models.rubiksnet import TIERS, create_rubiksnet
+    from rubiksnet_torch.parallel.temporal import halo_width
+    from rubiksnet_torch.scripts import eval_throughput, test_models
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
+
+    t_phase = time.perf_counter()
+    print(f"[parallel] phase 11: {PARALLEL_RANKS} ranks on one card through "
+          f"gloo, then one NCCL rank; {name} ({smi}). The ranks share the "
+          f"card, so the times below describe the code path, not a "
+          f"multi-card run")
+
+    # The one-process references, before the ranks take the card.
+    model = large_train_model(dev)
+    step = make_train_step(model, sgd_with_shift_mult(model, 0.01))
+    video, labels = parallel_batch(dev, 2)
+    ref_loss, ref_grads, ref_stats = step_state(model, step(video, labels))
+    ref_step_ms = wall_ms(lambda: step(video, labels))
+    del model, step, video, labels
+    ref_eval = {}
+    video = parallel_batch(dev, 3)[0]
+    for variant in ("rubiks3d", "rubiks3d-aq"):
+        model = create_rubiksnet("large", CLASSES, FRAMES, variant,
+                                 max_shift=MAX_SHIFT, device=dev,
+                                 dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            ref_eval[variant] = (model(video).float().cpu(),
+                                 wall_ms(lambda: model(video)))
+        del model
+    # The halo's cat and slice alone, per forward (one rank's blocks).
+    k = halo_width(MAX_SHIFT)
+    calls = shift_inputs(TIME_BATCH, FRAMES // PARALLEL_RANKS)
+    blocks = [torch.zeros(s, dtype=torch.bfloat16, device=dev)
+              for s, _ in calls]
+    slabs = [b[:, :k].clone() for b in blocks]
+    outs = [torch.zeros((s[0], s[1] + 2 * k, (s[2] + st - 1) // st,
+                         (s[3] + st - 1) // st, s[4]), dtype=torch.bfloat16,
+                        device=dev) for s, st in calls]
+    cat_ms = median(cuda_call_times_ms(
+        lambda: [torch.cat([a, b, a], dim=1) for a, b in zip(slabs, blocks)],
+        iters=5))
+    trim_ms = median(cuda_call_times_ms(
+        lambda: [o[:, k:o.shape[1] - k].contiguous() for o in outs],
+        iters=5))
+    del blocks, slabs, outs, video
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="rubiks_par_eval_") as root:
+        list_file = eval_throughput.generate_frames(
+            root, PARALLEL_VIDEOS, PARALLEL_CLASSES, seed=5)
+        eval_model = create_rubiksnet(
+            "large", PARALLEL_CLASSES, FRAMES, max_shift=MAX_SHIFT,
+            device="cpu",
+            generator=torch.Generator().manual_seed(0))
+        ckpt = f"{root}/large.pth.tar"
+        save_pretrained(randomize_bn(eval_model,
+                                     torch.Generator().manual_seed(1)), ckpt)
+        loader = "native" if native_loader.toolchain_present() else "pil"
+        local = PARALLEL_EVAL_BATCH // PARALLEL_RANKS
+        for h, c, _ in BLOCK_SHAPES:
+            checked_plan((local, FRAMES, h, h, c), False, False, dev)
+        for h, cin, cm in ENTRY_SHAPES:
+            checked_entry_plan((local, FRAMES, h, h, cin), cm, False, dev)
+        eval_argv, one_argv = (eval_throughput.evaluator_args(
+            ckpt, list_file, root, PARALLEL_CLASSES, FRAMES, bs, False,
+            loader=loader, prefetch=2)
+            for bs in (PARALLEL_EVAL_BATCH, local))
+        ref_models = test_models.evaluate(
+            test_models.build_parser().parse_args(one_argv),
+            log=lambda *a: None)
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks(PARALLEL_RANKS, dict(
+            jobs=["temporal_op", "ddp", "sequence_eval", "test_models"],
+            eval_argv=eval_argv))
+
+    zero = dict.fromkeys(ranks[0]["ddp"]["counts"], 0)
+    print(f"[parallel] backend of the {PARALLEL_RANKS} ranks on one card: "
+          f"{[r['backend'] for r in ranks]}")
+    if any(r["backend"] != "gloo" for r in ranks):
+        fail("ranks that share a card must take gloo")
+
+    # (c) The temporal op.
+    print(f"[parallel] (c) the temporal shift on {PARALLEL_RANKS} shards, "
+          f"halo {k} frames ({halo_width(MAX_SHIFT, True)} quantized), "
+          f"against the unsharded kernels (forward, input "
+          f"gradient, raw shift gradient)")
+    for r, res in enumerate(ranks):
+        for label, same, fwd, gx, gs in res["temporal_op"]:
+            dt = torch.float32 if "float32" in label else torch.bfloat16
+            tol = (TOL_F32_REL_MAX, 1) if dt == torch.float32 else (
+                TOL_BF16_REL_L2, 2)
+            tol_gs = TOL_SHIFT_GRAD[str(dt)[6:]]
+            ok = (fwd[tol[1]] <= tol[0] and gx[tol[1]] <= tol[0]
+                  and gs[2] <= tol_gs)
+            if r == 0 or not ok:
+                print(f"  rank {r} {label}: forward "
+                      f"{'bit-identical' if same else f'rel_max {fwd[1]:.2e}'}"
+                      f"; input gradient rel_max {gx[1]:.2e} rel_l2 "
+                      f"{gx[2]:.2e}; shift gradient rel_l2 {gs[2]:.2e} "
+                      f"[{'rel_max' if tol[1] == 1 else 'rel_l2'} <= "
+                      f"{tol[0]}, shift rel_l2 <= {tol_gs}] "
+                      f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"(c) temporal shift {label} on rank {r} disagrees "
+                     f"with the unsharded kernels")
+
+    # (a) DDP.
+    shifts = len(calls)
+    n_blocks = sum(n for _, _, n in BLOCK_SHAPES)
+    want = dict(zero, shift3d=shifts, shift3d_inverse=shifts,
+                shift_grad=shifts)
+    ddp = [r["ddp"] for r in ranks]
+    for r, res in enumerate(ddp):
+        print(f"[parallel] (a) rank {r}: launches of one DDP train step at "
+              f"local batch {DDP_LOCAL_BATCH}: {res['counts']}")
+        if res["counts"] != want:
+            fail(f"DDP step launches on rank {r} {res['counts']} != {want}")
+    mask = {n: g.norm(dim=0) > SHIFT_CHANNEL_FLOOR * g.norm(dim=0).max()
+            for n, g in ref_grads.items() if n.endswith(".shift")}
+    loss_rel = max(abs(res["loss"] - ref_loss) / abs(ref_loss)
+                   for res in ddp)
+    g_worst = max((errors(ddp[0]["grads"][n][:, mask[n]] if n in mask
+                          else ddp[0]["grads"][n],
+                          g[:, mask[n]] if n in mask else g)[2], n)
+                  for n, g in ref_grads.items())
+    bn_worst = max((errors(ddp[0]["stats"][n], b)[1], n)
+                   for n, b in ref_stats.items())
+    ok = (loss_rel <= TOL_STEP_LOSS and g_worst[0] <= TOL_STEP_GRAD_E2E
+          and bn_worst[0] <= TOL_STEP_BN)
+    print(f"  (a) DDP on {PARALLEL_RANKS} ranks x {DDP_LOCAL_BATCH} vs one "
+          f"process x {TIME_BATCH}, Large f32: loss {ddp[0]['loss']:.6f} vs "
+          f"{ref_loss:.6f} (rel {loss_rel:.3e} [<= {TOL_STEP_LOSS}]); worst "
+          f"gradient rel_l2 {g_worst[0]:.3e} ({g_worst[1]}) "
+          f"[<= {TOL_STEP_GRAD_E2E}]; worst BN statistic rel_max "
+          f"{bn_worst[0]:.3e} ({bn_worst[1]}) [<= {TOL_STEP_BN}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the DDP step disagrees with the one-process step")
+    print(f"[parallel] (a) train step, Large f32 {FRAMES}x{SIZE}x{SIZE}: DDP "
+          f"{PARALLEL_RANKS} ranks x {DDP_LOCAL_BATCH} on one card (gloo) "
+          f"median {median(ddp[0]['ms']):.1f} ms/step (rank 0, "
+          f"{ddp[0]['ms']}); one process x {TIME_BATCH} median "
+          f"{median(ref_step_ms):.1f} ms/step ({ref_step_ms}); host clock "
+          f"around synchronized steps, {name} ({smi})")
+
+    # (b) Time-sharded eval.
+    seq = [r["sequence_eval"] for r in ranks]
+    for variant, kern in (("rubiks3d", "shift3d"), ("rubiks3d-aq",
+                                                    "shift2d")):
+        want = dict(zero, **{kern: shifts})
+        ref_logits, ref_ms = ref_eval[variant]
+        for r, res in enumerate(seq):
+            got = res[variant]
+            same = torch.equal(got["logits"], ref_logits)
+            _, rel_max, rel_l2 = errors(got["logits"], ref_logits)
+            ok = (got["counts"] == want and rel_l2 <= TOL_MODEL_BF16
+                  and torch.isfinite(got["logits"]).all())
+            print(f"[parallel] (b) rank {r} Large {variant} bf16 batch "
+                  f"{TIME_BATCH}, T {FRAMES} over {PARALLEL_RANKS} shards "
+                  f"(module path): launches {got['counts']}; logits vs "
+                  f"unsharded {'bit-identical' if same else 'differ'} "
+                  f"(rel_max {rel_max:.3e}, rel_l2 {rel_l2:.3e} "
+                  f"[<= {TOL_MODEL_BF16}]) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"(b) time-sharded {variant} on rank {r}: launches "
+                     f"{got['counts']} != {want} or logits disagree")
+        print(f"[parallel] (b) eval batch, Large {variant} bf16 x "
+              f"{TIME_BATCH}: T over {PARALLEL_RANKS} ranks on one card "
+              f"(gloo) median {median(seq[0][variant]['ms']):.1f} ms "
+              f"({seq[0][variant]['ms']}); unsharded module path median "
+              f"{median(ref_ms):.1f} ms ({ref_ms}); {name} ({smi})")
+    print(f"[parallel] halo per forward, Large bf16 x {TIME_BATCH}, "
+          f"{FRAMES // PARALLEL_RANKS} frames a shard, {k}-frame halo, "
+          f"{shifts} shifts: cat {cat_ms:.3f} ms + trim {trim_ms:.3f} ms (events); "
+          f"the exchanges (gloo all_reduce of the boundary slabs) median "
+          f"{median(seq[0]['exchange_ms']):.1f} ms (host clock); {name} "
+          f"({smi})")
+
+    # (d) test_models with the batch sharded.
+    want = dict(zero, fused_block=n_blocks, fused_entry=len(ENTRY_SHAPES))
+    for r, res in enumerate(ranks):
+        got = res["test_models"]
+        ok = (got["top1"] == ref_models["top1"]
+              and got["top5"] == ref_models["top5"]
+              and np.array_equal(got["class_accuracy"],
+                                 ref_models["class_accuracy"], equal_nan=True)
+              and (got["labels"] == ref_models["labels"]).all()
+              and got["counts"] == {k_: v * got["batches"]
+                                    for k_, v in want.items()})
+        same = (got["logits"] == ref_models["logits"]).all()
+        _, _, rel = errors(torch.from_numpy(got["logits"]),
+                           torch.from_numpy(ref_models["logits"]))
+        print(f"[parallel] (d) rank {r}: test_models over {PARALLEL_VIDEOS} "
+              f"videos of {PARALLEL_CLASSES} classes, batch {PARALLEL_EVAL_BATCH} sharded ({local} a "
+              f"rank): top1 {got['top1']:.2f} top5 {got['top5']:.2f} (one "
+              f"process at batch {local}: {ref_models['top1']:.2f} "
+              f"{ref_models['top5']:.2f}), logits "
+              f"{'bit-identical' if same else f'rel_l2 {rel:.3e}'}, "
+              f"launches {got['counts']} in {got['batches']} batch(es) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"(d) the sharded evaluator on rank {r} disagrees with one "
+                 f"process")
+    print("[parallel] gloo on CUDA tensors of one card: all_reduce and "
+          "broadcast, the only collectives the port issues (halo "
+          "exchanges, BN sums, shift gradients, DDP's buckets), took "
+          "every call above")
+
+    # One NCCL rank at world size 1.
+    nccl = spawn_ranks(1, dict(jobs=["nccl_step"]))[0]
+    tiny = 1 + sum(TIERS["tiny"][1])
+    want = dict(zero, shift3d=tiny, shift3d_inverse=tiny, shift_grad=tiny)
+    ok = (nccl["backend"] == "nccl" and math.isfinite(nccl["nccl_step"]["loss"])
+          and nccl["nccl_step"]["counts"] == want)
+    print(f"[parallel] one rank, world size 1: backend {nccl['backend']}, "
+          f"DDP step of the tiny model: loss {nccl['nccl_step']['loss']:.4f}, "
+          f"launches {nccl['nccl_step']['counts']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the NCCL rank did not initialize and step")
+    print(f"[parallel] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"shift3d": ddp[0]["counts"]["shift3d"],
+            "shift3d_inverse": ddp[0]["counts"]["shift3d_inverse"],
+            "shift_grad": ddp[0]["counts"]["shift_grad"],
+            "fused_block": ranks[0]["test_models"]["counts"]["fused_block"],
+            "fused_entry": ranks[0]["test_models"]["counts"]["fused_entry"],
+            "shift2d": seq[0]["rubiks3d-aq"]["counts"]["shift2d"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2832,6 +3347,14 @@ def main() -> int:
     print(f"[clock] serving export done at "
           f"{time.perf_counter() - started:.0f} s")
 
+    # Phase 11: parallelism, ranks spawned on the card.
+    t_phase = time.perf_counter()
+    parallel_launches = parallel_phase(dev, gen, name, smi)
+    torch.cuda.empty_cache()
+    print(f"[clock] parallelism done at "
+          f"{time.perf_counter() - started:.0f} s (phase 11: "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+
     kernels = []
     for k, (source, replaces) in KERNELS.items():
         row = timer.rows[k]
@@ -2857,6 +3380,8 @@ def main() -> int:
             kernels[-1].update(launch_a_added_ms=row["launch_a_added_ms"])
         if k in exported_launches:
             kernels[-1].update(exported_launches=exported_launches[k])
+        if k in parallel_launches:
+            kernels[-1].update(parallel_launches=parallel_launches[k])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -251,6 +251,16 @@ class RubiksDataset:
             # degenerate retry of core.py:58-74: fall back to frame 2
             return Image.open(self._frame_path(record, 2)).convert("RGB")
 
+    def _frame_size(self, record: VideoRecord, idx: int):
+        """(w, h) of a frame from its header alone (PIL decodes lazily),
+        with :meth:`_load_image`'s fall-back."""
+        try:
+            with Image.open(self._frame_path(record, idx)) as img:
+                return img.size
+        except Exception:
+            with Image.open(self._frame_path(record, 2)) as img:
+                return img.size
+
     def indices_for(self, record: VideoRecord) -> np.ndarray:
         if not self.test_mode:
             # dense/all take precedence over the normal train/val samplers and
@@ -295,6 +305,17 @@ class RubiksDataset:
         data = self.transform(images) if self.transform else images
         return data, record.label
 
+    def skip(self, index: int) -> None:
+        """Make the random draws of ``self[index]``, the sampler's and then
+        the transform's, without decoding a frame: the transform (a
+        ``Compose`` whose members have ``skip``) draws for the first
+        frame's size, read from its header. A rank of a data group skips
+        the other ranks' clips, so that its own get one process's draws."""
+        record = self.video_list[index]
+        indices = self.indices_for(record)
+        if self.transform is not None:
+            self.transform.skip(self._frame_size(record, int(indices[0])))
+
     def __iter__(self):
         for i in range(len(self)):
             yield self[i]
@@ -306,6 +327,9 @@ def batch_iterator(
     num_crops: int,
     num_frames: int,
     drop_remainder: bool = False,
+    rank: int = 0,
+    world: int = 1,
+    skip: Optional[Callable[[int], None]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (video, labels, valid) batches of one fixed shape.
 
@@ -314,7 +338,21 @@ def batch_iterator(
     device); the transform output (num_crops * T, H, W, 3) is reshaped view
     by view, as the reference evaluator does. The final short batch is
     zero-padded, and `valid` marks its real entries.
+
+    With ``world > 1`` each global batch of ``batch_size`` clips is split
+    into ``world`` contiguous parts of B = batch_size / world rows, and
+    only part ``rank`` is read (by index) and yielded: every rank yields
+    as many batches, its part of the last one padded (possibly all
+    padding). Where the dataset draws randomness per clip (a training
+    sampler, random transforms), pass ``skip`` (``RubiksDataset.skip``):
+    it is called, in index order, for every clip that this rank does not
+    read, the dropped remainder's included, so that the rank's clips get
+    one process's draws.
     """
+    if world > 1:
+        yield from _rank_batches(dataset, batch_size, num_crops, num_frames,
+                                 drop_remainder, rank, world, skip)
+        return
     buf_v, buf_l = [], []
 
     def emit(valid_n):
@@ -325,14 +363,7 @@ def batch_iterator(
         return video, labels, valid
 
     for clip, label in dataset:
-        clip = np.asarray(clip)
-        if clip.dtype != np.uint8:
-            clip = clip.astype(np.float32, copy=False)
-        total, h, w, ch = clip.shape
-        assert total == num_crops * num_frames, (
-            f"transform produced {total} frames, expected {num_crops}x{num_frames}"
-        )
-        buf_v.append(clip.reshape(num_crops, num_frames, h, w, ch))
+        buf_v.append(_views(clip, num_crops, num_frames))
         buf_l.append(label)
         if len(buf_v) == batch_size:
             yield emit(batch_size)
@@ -343,3 +374,48 @@ def batch_iterator(
         buf_v.extend([np.zeros_like(buf_v[0])] * pad)
         buf_l.extend([0] * pad)
         yield emit(n)
+
+
+def _views(clip, num_crops, num_frames):
+    clip = np.asarray(clip)
+    if clip.dtype != np.uint8:
+        clip = clip.astype(np.float32, copy=False)
+    total, h, w, ch = clip.shape
+    assert total == num_crops * num_frames, (
+        f"transform produced {total} frames, expected {num_crops}x{num_frames}"
+    )
+    return clip.reshape(num_crops, num_frames, h, w, ch)
+
+
+def _rank_batches(dataset, batch_size, num_crops, num_frames,
+                  drop_remainder, rank, world, skip):
+    """:func:`batch_iterator`'s batches of one rank of ``world``."""
+    if batch_size % world:
+        raise ValueError(f"a batch of {batch_size} clips does not divide "
+                         f"over {world} ranks")
+    local = batch_size // world
+    n = len(dataset)
+    stop = n - n % batch_size if drop_remainder else n
+    template = None
+    for start in range(0, stop, batch_size):
+        lo = start + rank * local
+        rows = []
+        for i in range(start, min(start + batch_size, n)):
+            if lo <= i < lo + local:
+                rows.append(dataset[i])
+            elif skip is not None:
+                skip(i)
+        views = [_views(clip, num_crops, num_frames) for clip, _ in rows]
+        if template is None:
+            template = np.zeros_like(
+                views[0] if views else _views(dataset[start][0], num_crops,
+                                              num_frames))
+        valid = np.zeros((local,), np.float32)
+        valid[:len(rows)] = 1.0
+        labels = np.zeros((local,), np.int32)
+        labels[:len(rows)] = [label for _, label in rows]
+        views += [template] * (local - len(rows))
+        yield np.stack(views), labels, valid
+    if skip is not None:
+        for i in range(stop, n):
+            skip(i)

@@ -59,6 +59,17 @@ class Compose:
             x = t(x)
         return x
 
+    def skip(self, size):
+        """Make the random draws of a call on frames of ``size`` (w, h)
+        without touching pixels; -> the output's (w, h). Every transform
+        must have ``skip``."""
+        for t in self.transforms:
+            if not hasattr(t, "skip"):
+                raise TypeError(f"{type(t).__name__} cannot skip a clip "
+                                f"without its frames")
+            size = t.skip(size)
+        return size
+
 
 # --------------------------------------------------------------- primitives
 
@@ -203,6 +214,13 @@ class GroupRandomCrop:
         oh = random.randint(0, h - th)
         return crop_view(clip, ow, oh, tw, th)
 
+    def skip(self, size):
+        w, h = size
+        th, tw = self.size
+        random.randint(0, w - tw)
+        random.randint(0, h - th)
+        return tw, th
+
 
 class GroupRandomHorizontalFlip:
     """50% horizontal flip of the whole clip (flow x-frames inverted)."""
@@ -215,6 +233,10 @@ class GroupRandomHorizontalFlip:
         if random.random() < 0.5:
             return _flip_lr(clip, self.is_flow)
         return clip
+
+    def skip(self, size):
+        random.random()
+        return size
 
 
 class GroupFullResSample:
@@ -302,6 +324,10 @@ class GroupMultiScaleCrop:
             oh = random.randint(0, image_h - ch)
         return cw, ch, ow, oh
 
+    def skip(self, size):
+        self._choose_geometry(*size)
+        return self.input_size
+
     def __call__(self, img_group):
         w, h = img_group[0].size
         cw, ch, ow, oh = self._choose_geometry(w, h)
@@ -385,6 +411,9 @@ class Stack:
     def __call__(self, frames):
         clip = as_clip_array(frames)
         return clip[:, :, :, ::-1] if self.roll else clip
+
+    def skip(self, size):
+        return size
 
 
 class ToClipArray:

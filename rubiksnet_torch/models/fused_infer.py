@@ -49,6 +49,7 @@ from ..ops.fused_entry import (
     fused_entry_supported,
     stack_entry_params,
 )
+from ..parallel.temporal import active_time_group
 
 
 def _half(d: int) -> int:
@@ -195,6 +196,11 @@ class FusedExecutor:
         :meth:`route_for_batches`' over it (which raises where it
         changes)."""
         model = self.model
+        if active_time_group() is not None:
+            raise RuntimeError(
+                "the fused executor cannot serve a time-sharded clip: K2 and "
+                "K3 run the 3D shift inside their bodies and take no halo; "
+                "use parallel.sequence_parallel_eval (the module path)")
         if video.ndim != 5 or video.shape[-1] != 3:
             raise ValueError(
                 f"expected (N, T, H, W, 3), got {tuple(video.shape)}")

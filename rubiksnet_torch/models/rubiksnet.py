@@ -13,6 +13,7 @@ from torch import nn
 
 from ..nn.backbone import VARIANTS, RubiksNetBackbone
 from ..nn.layers import lecun_normal_
+from ..parallel.temporal import time_mean
 
 TIERS = {
     # tier -> (width, repeats, use_se)
@@ -102,8 +103,9 @@ class RubiksNet(nn.Module):
 
     def head(self, x):
         """Last stage's (N, T, H, W, C) -> (N, num_classes): bn_last, ReLU,
-        spatial mean, new_fc per frame, mean over frames (TSN consensus)."""
-        return self.new_fc(self.backbone.pool(x)).mean(dim=1)
+        spatial mean, new_fc per frame, mean over frames (TSN consensus;
+        under a time group over the whole clip, ``parallel.time_mean``)."""
+        return time_mean(self.new_fc(self.backbone.pool(x)))
 
     def forward(self, video, plain=False):
         """video (N, T, H, W, 3) -> logits (N, num_classes) in the compute
@@ -114,7 +116,7 @@ class RubiksNet(nn.Module):
             raise ValueError(
                 f"expected (N, T, H, W, 3), got {tuple(video.shape)}")
         feats = self.backbone(video.to(self.dtype), plain=plain)
-        return self.new_fc(feats).mean(dim=1)
+        return time_mean(self.new_fc(feats))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_block import BN_EPS, fold_bn
+from ..parallel.mesh import all_reduce_sum, group_size
+from ..parallel.temporal import reduction_groups
 from .layers import AttentionShift, Rubiks3DWrap, RubiksShift2D, SELayer
 
 VARIANTS = ("rubiks3d", "rubiks3d-aq")
@@ -39,8 +41,12 @@ class BN(nn.Module):
     Train mode normalizes with the batch statistics over every axis but the
     last, computed in at least float32 (flax's rule), and updates the running statistics in place:
     ``running = 0.9 * running + 0.1 * batch`` with the biased batch variance
-    (torch's ``batch_norm`` would use the unbiased one). Eval mode uses the
-    running statistics. Either way the output is in the input's dtype.
+    (torch's ``batch_norm`` would use the unbiased one). Under an active
+    data or time group (``parallel``) the statistics are those of the
+    global batch and clip: the sums are reduced over the groups with a
+    differentiable all-reduce, so the backward is the global one too, as
+    in a jitted JAX step over a sharded batch. Eval mode uses the running
+    statistics. Either way the output is in the input's dtype.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
@@ -59,14 +65,35 @@ class BN(nn.Module):
                                   self.running_var, self.eps)
             return (x.float() * scale + bias).to(x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        var, mean = torch.var_mean(xf, dim=tuple(range(x.ndim - 1)),
-                                   correction=0)
+        dims = tuple(range(x.ndim - 1))
+        groups = reduction_groups()
+        if groups:
+            var, mean = global_var_mean(xf, dims, groups)
+        else:
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)
             self.num_batches_tracked += 1
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
         return (y + self.bias).to(x.dtype)
+
+
+def global_var_mean(x, dims, groups):
+    """Biased variance and mean of x over ``dims`` and over the ranks of
+    every group (equal shards), in two passes, each sum all-reduced with
+    its gradient."""
+    count = math.prod(x.shape[d] for d in dims)
+    total = x.sum(dims)
+    for g in groups:
+        total = all_reduce_sum(total, g)
+        count *= group_size(g)
+    mean = total / count
+    d = x - mean
+    sq = (d * d).sum(dims)
+    for g in groups:
+        sq = all_reduce_sum(sq, g)
+    return sq / count, mean
 
 
 class Conv1x1(nn.Module):

@@ -6,6 +6,12 @@ the rubiks3d-aq variant; SELayer of the SE tiers. The shifts run on the
 CUDA kernels for a CUDA tensor; AttentionShift and SELayer are plain torch
 ops here, as they are XLA compositions in the JAX package (the fused
 inference kernels compute both inside their own bodies).
+
+Inside a ``parallel.time_parallel`` block the 3D shift and the attention
+shift route to their halo-exchange forms (``parallel/temporal.py``), as the
+JAX layers do under a time-axis ``shard_map``; the shifts' raw gradients
+are reduced over the active data and time groups before their
+normalization.
 """
 
 from __future__ import annotations
@@ -19,6 +25,12 @@ from torch import nn
 from ..ops.attention_shift import TEMPERATURE, attention_shift
 from ..ops.shift2d import rubiks_shift_2d
 from ..ops.shift3d import rubiks_shift_3d
+from ..parallel.temporal import (
+    active_time,
+    shift_grad_reduction,
+    temporal_attention_shift,
+    temporal_rubiks_shift_3d,
+)
 
 
 def uniform_shift_init(tensor: torch.Tensor, generator: torch.Generator,
@@ -153,10 +165,24 @@ class RubiksShift3D(nn.Module):
     def forward(self, x, plain=False):
         """plain=True runs the gather form and its plain gradients on any
         device (the reference route); otherwise K1, K1-inverse and K4 on
-        CUDA and the plain forms on the CPU."""
+        CUDA and the plain forms on the CPU. Under a time group, the
+        halo-exchange form (stride (1, s, s) and padding 0 only)."""
+        shards = active_time()
+        if shards is not None:
+            st, sh, sw = self.stride
+            if st != 1 or any(self.padding):
+                raise ValueError(
+                    f"the sequence-parallel shift takes stride (1, s, s) "
+                    f"and padding 0, got stride {self.stride} padding "
+                    f"{self.padding}")
+            return temporal_rubiks_shift_3d(
+                x, self.shift, shards.group, (sh, sw), self.normalize_grad,
+                self.normalize_t_factor, self.quantize,
+                max_shift=shards.max_shift, plain=plain)
         return rubiks_shift_3d(x, self.shift, self.stride, self.padding,
                                self.normalize_grad, self.normalize_t_factor,
-                               self.quantize, plain=plain)
+                               self.quantize, plain=plain,
+                               reduce_grad=shift_grad_reduction())
 
 
 class Rubiks3DWrap(nn.Module):
@@ -210,7 +236,8 @@ class RubiksShift2D(nn.Module):
             lead = x.shape[:2]
             x = x.reshape((-1,) + tuple(x.shape[2:]))
         out = rubiks_shift_2d(x, self.shift, self.stride, self.padding,
-                              self.normalize_grad, self.quantize, plain=plain)
+                              self.normalize_grad, self.quantize, plain=plain,
+                              reduce_grad=shift_grad_reduction())
         if lead is not None:
             out = out.reshape(tuple(lead) + tuple(out.shape[1:]))
         return out
@@ -231,6 +258,8 @@ class AttentionShift(nn.Module):
                 self.weight.uniform_(0.0, 1.0, generator=generator)
 
     def forward(self, x):
+        if active_time() is not None:
+            return temporal_attention_shift(x, self.weight, TEMPERATURE)
         return attention_shift(x, self.weight, TEMPERATURE)
 
 

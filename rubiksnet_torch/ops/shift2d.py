@@ -437,9 +437,10 @@ class _RubiksShift2DFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shift, stride, padding, quantize, normalize_grad,
-                plain):
+                plain, reduce_grad):
         ctx.save_for_backward(x, shift)
-        ctx.cfg = (stride, padding, quantize, normalize_grad, plain)
+        ctx.cfg = (stride, padding, quantize, normalize_grad, plain,
+                   reduce_grad)
         if plain:
             return shift2d_plain(x, shift, stride, padding, quantize)
         # The operator: the kernel on the card, the plain form on the CPU,
@@ -450,7 +451,8 @@ class _RubiksShift2DFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, og):
         x, shift = ctx.saved_tensors
-        stride, padding, quantize, normalize_grad, plain = ctx.cfg
+        stride, padding, quantize, normalize_grad, plain, reduce_grad = (
+            ctx.cfg)
         use_kernels = _route(x, plain)
         gx = gs = None
         if ctx.needs_input_grad[0]:
@@ -463,19 +465,24 @@ class _RubiksShift2DFunction(torch.autograd.Function):
                                               padding, quantize)
         if ctx.needs_input_grad[1]:
             gs = rubiks_shift_2d_shift_grad(og, x, shift, stride, padding)
+            if reduce_grad is not None:
+                gs = reduce_grad(gs)
             if normalize_grad:
                 gs = normalize_shift_grad_2d(gs)
             gs = gs.to(shift.dtype)
-        return gx, gs, None, None, None, None, None
+        return gx, gs, None, None, None, None, None, None
 
 
 def rubiks_shift_2d(x, shift, stride=1, padding=0, normalize_grad=True,
-                    quantize=False, plain=False):
+                    quantize=False, plain=False, reduce_grad=None):
     """The 2D shift as an autograd op (the reference's functional signature
     on channel-last input). Forward and input gradient run the kernels of
     csrc/shift2d.cu on a CUDA tensor and the gather forms on a CPU tensor
-    or with ``plain=True``; the shift gradient is plain PyTorch."""
+    or with ``plain=True``; the shift gradient is plain PyTorch.
+    ``reduce_grad`` (``parallel.temporal.shift_grad_reduction``) takes the
+    raw shift gradient to the one of the whole batch and clip, over the
+    ranks of a data or time group, before the normalization."""
     _check_args(x, shift)
     return _RubiksShift2DFunction.apply(
         x, shift, _pair(stride), _pair(padding), bool(quantize),
-        bool(normalize_grad), bool(plain))
+        bool(normalize_grad), bool(plain), reduce_grad)

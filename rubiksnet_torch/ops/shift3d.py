@@ -758,10 +758,10 @@ class _RubiksShift3DFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shift, stride, padding, quantize, normalize_grad,
-                normalize_t_factor, plain):
+                normalize_t_factor, plain, reduce_grad):
         ctx.save_for_backward(x, shift)
         ctx.cfg = (stride, padding, quantize, normalize_grad,
-                   normalize_t_factor, plain)
+                   normalize_t_factor, plain, reduce_grad)
         if plain:
             return shift3d_plain(x, shift, stride, padding, quantize)
         # The operator: K1 on the card, the plain form on the CPU, one
@@ -773,7 +773,7 @@ class _RubiksShift3DFunction(torch.autograd.Function):
     def backward(ctx, og):
         x, shift = ctx.saved_tensors
         (stride, padding, quantize, normalize_grad, normalize_t_factor,
-         plain) = ctx.cfg
+         plain, reduce_grad) = ctx.cfg
         use_kernels = _route(x, plain)
         gx = gs = None
         if use_kernels:
@@ -786,14 +786,17 @@ class _RubiksShift3DFunction(torch.autograd.Function):
             fn = (shift3d_shift_grad_kernel if use_kernels
                   else shift3d_shift_grad_plain)
             gs = fn(og, x, shift, stride, padding)
+            if reduce_grad is not None:
+                gs = reduce_grad(gs)
             if normalize_grad:
                 gs = normalize_shift_grad_3d(gs, normalize_t_factor)
             gs = gs.to(shift.dtype)
-        return gx, gs, None, None, None, None, None, None
+        return gx, gs, None, None, None, None, None, None, None
 
 
 def rubiks_shift_3d(x, shift, stride=1, padding=0, normalize_grad=True,
-                    normalize_t_factor=1.0, quantize=False, plain=False):
+                    normalize_t_factor=1.0, quantize=False, plain=False,
+                    reduce_grad=None):
     """The shift as an autograd op (the reference's functional signature on
     channel-last input).
 
@@ -803,6 +806,9 @@ def rubiks_shift_3d(x, shift, stride=1, padding=0, normalize_grad=True,
     :func:`normalize_shift_grad_3d` when ``normalize_grad``.
     ``normalize_t_factor`` is a number or ``"auto"`` (T / H of x). Kernels on
     a CUDA tensor, plain forms on a CPU tensor or with ``plain=True``.
+    ``reduce_grad`` (``parallel.temporal.shift_grad_reduction``) takes the
+    raw shift gradient to the one of the whole batch, over the ranks of a
+    data group and of a time group, before the normalization.
     """
     _check_args(x, shift)
     if normalize_t_factor == "auto":
@@ -813,4 +819,5 @@ def rubiks_shift_3d(x, shift, stride=1, padding=0, normalize_grad=True,
             f"{normalize_t_factor!r}")
     return _RubiksShift3DFunction.apply(
         x, shift, _triple(stride), _triple(padding), bool(quantize),
-        bool(normalize_grad), float(normalize_t_factor), bool(plain))
+        bool(normalize_grad), float(normalize_t_factor), bool(plain),
+        reduce_grad)

@@ -13,9 +13,17 @@ Clips travel as uint8 and are normalized on the device, with either loader,
 unless ``--host-normalize``. Weights come from a reference-format
 ``.pth.tar`` (``load_pretrained``).
 
+Under ``torchrun`` (a world size above 1) the batch is sharded, as the JAX
+evaluator shards it over its data mesh: each rank decodes and evaluates
+its contiguous rows of every batch (``--batch-size`` is the global batch
+and divides by the world size) through its own FusedExecutor, the logits
+are gathered in order (``parallel.gather_rows``), and every rank computes
+the accuracies of the whole batch; rank 0 logs.
+
 Usage:
   python -m rubiksnet_torch.scripts.test_models somethingv2 -p ckpt.pth.tar \\
       --root-path /data [--two-clips] [--batch-size 80] [--device cpu]
+  torchrun --nproc_per_node 2 -m rubiksnet_torch.scripts.test_models ...
 """
 
 from __future__ import annotations
@@ -46,6 +54,14 @@ from ..data import (
 )
 from ..models import INPUT_MEAN, INPUT_STD, FusedExecutor, load_pretrained
 from ..models.rubiksnet import resolve_device
+from ..parallel import (
+    create_mesh,
+    gather_rows,
+    group_rank,
+    group_size,
+    initialize_distributed,
+    rank0_log,
+)
 from ..train.steps import make_eval_step
 from ..utils import AverageMeter, per_class_accuracy
 
@@ -164,8 +180,13 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     ``crop_size`` and ``scale_size`` are the protocols' geometry (224 and
     256, the reference's). Returns {"logits" (videos, classes) float32,
     "labels", "top1", "top5", "class_accuracy", "batches", "stats"}; writes
-    ``args.stats_out`` when given."""
+    ``args.stats_out`` when given (rank 0 under a process group, whose
+    every rank returns the same accuracies)."""
     device = resolve_device(args.device)
+    initialize_distributed(device=device, log=log)
+    group = create_mesh()
+    rank, world = group_rank(group), group_size(group)
+    log = rank0_log(log, group)
     dataset, num_classes, num_views, loader, device_norm = build_dataset(
         args, crop_size, scale_size, log)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -188,7 +209,8 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     first_batch_s = None  # host + device of batch 0 (warm-up)
     seen = first_videos = batches = 0
     feed = device_batches(
-        batch_iterator(dataset, args.batch_size, num_views, args.frames),
+        batch_iterator(dataset, args.batch_size, num_views, args.frames,
+                       rank=rank, world=world),
         device)
     if args.prefetch > 0:
         feed = prefetch(feed, depth=args.prefetch)
@@ -203,8 +225,16 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
             td0 = time.time()
             video, labels = batch.take()
             out = eval_step(video, labels)
+            logits = out["logits"]
             n_valid = int(batch.valid.sum())
-            logits = out["logits"][:n_valid].cpu().numpy()
+            if group is not None:
+                # Every rank's valid rows lead its part, so the batch's
+                # valid rows lead the gathered batch.
+                logits = gather_rows(logits, group)
+                labels = gather_rows(labels, group)
+                n_valid = int(gather_rows(torch.tensor(
+                    [n_valid], device=device), group).sum())
+            logits = logits[:n_valid].cpu().numpy()
             device_time += time.time() - td0
             if first_batch_s is None:
                 first_batch_s = time.time() - t0
@@ -271,7 +301,7 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
         "top5": top5.avg,
         "device": device_name,
     }
-    if args.stats_out:
+    if args.stats_out and not rank:
         with open(args.stats_out, "w") as f:
             json.dump(stats, f, indent=2)
         log(json.dumps(stats))

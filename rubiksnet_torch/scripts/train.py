@@ -1,7 +1,8 @@
 """Training entry point of the PyTorch port: dataset -> prefetch -> the card
 -> train step -> checkpoint/resume -> validation.
 
-Counterpart of scripts/train.py, on one device:
+Counterpart of scripts/train.py, on one card or on the ranks of a data
+group:
 
   * registry datasets (``data/config.py``) or ``--synthetic N``, a
     data-free run on label-correlated random clips (the same
@@ -35,7 +36,20 @@ The JAX script's TPU options are not accepted: ``--model-parallel`` (a
 tensor-parallel mesh axis), ``--shift-backend`` (the TPU shift
 formulations; the port has one kernel per op), ``--scan-blocks`` and
 ``--no-remat`` (the TPU compiler's graph size and memory).
-``--data-parallel`` above 1 raises until the port has data parallelism.
+
+Data parallelism: ``torchrun --nproc_per_node D -m
+rubiksnet_torch.scripts.train --data-parallel D ...`` (0 takes the
+launch's world size; D must equal it). ``--batch-size`` is the global batch
+and divides by D. Every rank draws the one-process run's batches (same
+seeds) and keeps its contiguous rows: the synthetic clips are drawn whole;
+a registry dataset's clips are decoded by their rank only, the others'
+train clips skipped with the same draws (``RubiksDataset.skip``: the
+sampler's, and the transforms' for the first frame's size, read from its
+header). The step is ``make_train_step(..., data_group=...)``: the
+one-process step at the global batch (DDP, BN statistics and the shifts'
+normalized gradients of the global batch). Rank 0 logs and saves; validation sums over the
+ranks; ``--resume`` loads on every rank. NCCL with a card per rank, gloo on
+the CPU or where ranks share a card (``parallel.initialize_distributed``).
 
 Examples:
   python -m rubiksnet_torch.scripts.train --synthetic 512 --tier tiny \\
@@ -55,6 +69,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import (
     Compose,
@@ -73,6 +88,14 @@ from ..data import (
 )
 from ..models import create_rubiksnet, load_pretrained, save_pretrained
 from ..models.rubiksnet import resolve_device
+from ..parallel import (
+    create_mesh,
+    group_rank,
+    group_size,
+    initialize_distributed,
+    rank0_log,
+    shard_batch,
+)
 from ..train import (
     load_train_state,
     lr_schedule,
@@ -123,8 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--data-parallel", type=int, default=0, metavar="D",
-                   help="devices to train on; one (0 or 1) until the port "
-                        "has data parallelism")
+                   help="ranks of the data group (0 = the launch's world "
+                        "size; launch D ranks with torchrun)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--save-every", type=int, default=500, metavar="STEPS")
     p.add_argument("--resume", action="store_true",
@@ -229,10 +252,12 @@ class DataFeed:
                 self.feed.close()
 
 
-def build_data(args):
+def build_data(args, group=None):
     """-> (num_classes, steps_per_epoch, train_epoch_iter(epoch),
     val_iter()), the iterators yielding host ``(video, labels, valid)``
-    batches: float32 clips for --synthetic, uint8 for a registry dataset."""
+    batches: float32 clips for --synthetic, uint8 for a registry dataset;
+    under a data ``group`` this rank's rows of each (module docstring)."""
+    rank, world = group_rank(group), group_size(group)
     if args.synthetic:
         num_classes = args.num_classes
         steps_per_epoch = max(args.synthetic // args.batch_size, 1)
@@ -241,14 +266,18 @@ def build_data(args):
             for video, labels in synthetic_batches(
                     args.synthetic, num_classes, args.frames,
                     args.input_size, args.batch_size, seed=args.seed + epoch):
-                yield video, labels, np.ones((len(labels),), np.float32)
+                yield shard_batch(
+                    (video, labels, np.ones((len(labels),), np.float32)),
+                    group)
 
         def val_iter():
             for video, labels in synthetic_batches(
                     max(args.val_size, args.batch_size), num_classes,
                     args.frames, args.input_size, args.batch_size,
                     seed=args.seed + 10_000):
-                yield video, labels, np.ones((len(labels),), np.float32)
+                yield shard_batch(
+                    (video, labels, np.ones((len(labels),), np.float32)),
+                    group)
 
         return num_classes, steps_per_epoch, train_epoch_iter, val_iter
 
@@ -266,16 +295,19 @@ def build_data(args):
     def train_epoch_iter(epoch):
         for video, labels, valid in batch_iterator(
                 train_ds, args.batch_size, num_crops=1,
-                num_frames=args.frames, drop_remainder=True):
+                num_frames=args.frames, drop_remainder=True, rank=rank,
+                world=world, skip=train_ds.skip):
             yield video[:, 0], labels, valid
 
     def val_iter():
+        # Counted in whole global batches, alike on every rank: only the
+        # last batch is short, and it ends the loop anyway.
         count = 0
         for video, labels, valid in batch_iterator(
                 val_ds, args.batch_size, num_crops=1,
-                num_frames=args.frames):
+                num_frames=args.frames, rank=rank, world=world):
             yield video[:, 0], labels, valid
-            count += int(valid.sum())
+            count += args.batch_size
             if args.val_size and count >= args.val_size:
                 return
 
@@ -294,17 +326,22 @@ def build_model(args, num_classes, device):
         generator=torch.Generator().manual_seed(args.seed))
 
 
-def validate(eval_step, batches, log, step):
-    """Top-1 and top-5 over the valid clips of ``batches``; -> (top1 %,
-    top5 %, clips, batches)."""
+def validate(eval_step, batches, log, step, group=None):
+    """Top-1 and top-5 over the valid clips of ``batches``, summed over the
+    ranks of ``group``; -> (top1 %, top5 %, clips, batches)."""
     top1_m, top5_m = AverageMeter(), AverageMeter()
     count = 0
     for video, labels, valid in batches:
         out = eval_step(video[:, None], labels)
         v = torch.as_tensor(valid, device=video.device)
-        n = max(int(valid.sum()), 1)
-        top1_m.update(float((out["top1"] * v).sum()) / n, n)
-        top5_m.update(float((out["top5"] * v).sum()) / n, n)
+        hits = torch.stack([(out["top1"] * v).sum(), (out["top5"] * v).sum(),
+                            v.sum()])
+        if group is not None:
+            dist.all_reduce(hits, group=group)
+        top1, top5, n = hits.tolist()
+        n = max(int(n), 1)
+        top1_m.update(top1 / n, n)
+        top5_m.update(top5 / n, n)
         count += 1
     log(f"[val @ step {step}] top1 {top1_m.avg * 100:.2f}% "
         f"top5 {top5_m.avg * 100:.2f}% ({top1_m.count} clips)")
@@ -326,14 +363,17 @@ def train(args, log=print, after_resume=None):
     if not args.synthetic and not args.dataset:
         raise SystemExit("either a registry dataset name or --synthetic N "
                          "is required")
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1: the port trains on one device until it "
-            "has data parallelism")
     device = resolve_device(args.device)
+    initialize_distributed(device=device, log=log)
+    group = create_mesh(args.data_parallel or None)
+    rank, world = group_rank(group), group_size(group)
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} does not divide "
+                         f"over {world} ranks")
+    log = rank0_log(log, group)
     random.seed(args.seed)
     num_classes, steps_per_epoch, train_epoch_iter, val_iter = build_data(
-        args)
+        args, group)
     model = build_model(args, num_classes, device)
     total_steps = args.total_steps or args.steps or (
         args.epochs * steps_per_epoch)
@@ -341,7 +381,8 @@ def train(args, log=print, after_resume=None):
         model, lr_schedule(args.lr_schedule, args.lr, args.warmup_steps,
                            total_steps),
         args.lr_shift_mult, args.momentum, args.weight_decay)
-    train_step = make_train_step(model, optimizer, scheduler)
+    train_step = make_train_step(model, optimizer, scheduler,
+                                 data_group=group)
     eval_step = make_eval_step(model, num_crops=1)
 
     start_step = 0
@@ -363,7 +404,8 @@ def train(args, log=print, after_resume=None):
                    if device.type == "cuda" else str(device))
     log(f"device: {device_name} | tier={model.tier} "
         f"variant={model.variant} classes={num_classes} "
-        f"bs={args.batch_size} schedule={args.lr_schedule}")
+        f"bs={args.batch_size} ({world} rank(s)) "
+        f"schedule={args.lr_schedule}")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -375,12 +417,12 @@ def train(args, log=print, after_resume=None):
     def run_validation(step):
         *metrics, batches = validate(
             eval_step, DataFeed(val_iter(), device, args.prefetch_depth),
-            log, step)
+            log, step, group)
         result["val"].append((step, *metrics))
         result["val_batches"] += batches
 
     def maybe_save(step, epoch):
-        if args.checkpoint_dir:
+        if args.checkpoint_dir and not rank:
             os.makedirs(args.checkpoint_dir, exist_ok=True)
             path = checkpoint_path(args.checkpoint_dir, step)
             save_train_state(
@@ -413,9 +455,10 @@ def train(args, log=print, after_resume=None):
             result["losses"].append(loss)
             result["accuracies"].append(acc)
             step += 1
-            loss_m.update(loss, len(labels))
-            acc_m.update(acc, len(labels))
-            c_log += len(labels)
+            clips = len(labels) * world
+            loss_m.update(loss, clips)
+            acc_m.update(acc, clips)
+            c_log += clips
             if step % args.log_every == 0:
                 dt = time.perf_counter() - t_log
                 wait = sum(result["wait_s"][i_log:])
@@ -441,7 +484,8 @@ def train(args, log=print, after_resume=None):
         maybe_save(step, args.epochs - 1)
     if args.checkpoint_dir:
         final = os.path.join(args.checkpoint_dir, "model_final.pth.tar")
-        save_pretrained(model, final)
+        if not rank:
+            save_pretrained(model, final)
         result["final_path"] = final
         log(f"=> saved final weights to {final}")
     log(f"done: {step - start_step} steps this run (global step {step}), "
@@ -457,7 +501,11 @@ def train(args, log=print, after_resume=None):
 
 
 def main(argv=None):
-    return train(build_parser().parse_args(argv))
+    try:
+        return train(build_parser().parse_args(argv))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -2,15 +2,25 @@
 
 Counterpart of ``rubiksnet_tpu/train/steps.py``. PyTorch runs eagerly and
 updates in place, so a step is a callable that owns the model and
-optimizer instead of a pure function of a train state.
+optimizer instead of a pure function of a train state. A step over a data
+group (``parallel.create_mesh``) wraps the model in
+``DistributedDataParallel`` and equals the one-process step at the global
+batch, as JAX's jitted step over a batch-sharded array does; one over a
+time group runs each rank's frames of the same clips.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.fused_infer import fused_infer_apply
+from ..parallel.mesh import data_parallel, group_size, replicated
+from ..parallel.temporal import time_parallel
+from .optim import param_groups
 
 
 def cross_entropy(logits, labels):
@@ -31,32 +41,92 @@ class TrainStep:
     labels (N,). The metrics are 0-dim float32 tensors on the model's
     device. ``plain=True`` runs every op as plain PyTorch (the reference
     route the kernels are held to).
+
+    ``data_group``: this rank takes its rows of the global batch; the
+    model (``self.model`` stays the bare module, so checkpoints carry no
+    ``module.`` prefix) runs wrapped in ``DistributedDataParallel``
+    (``self.net``), BN uses the global batch's statistics, and the shifts,
+    which DDP leaves alone, average their raw gradients over the group
+    before the normalization (``parallel.temporal.reduce_shift_grad``).
+    ``time_group``: this rank takes its frames of every clip; the shifts
+    exchange halos, the consensus sums over the group, and every other
+    gradient, each rank's part of one loss, is summed over it after the
+    backward. Either way the metrics are the global batch's, and the
+    parameters start from the group's first rank.
     """
 
-    def __init__(self, model, optimizer, scheduler=None, plain=False):
+    def __init__(self, model, optimizer, scheduler=None, plain=False,
+                 data_group=None, time_group=None):
         self.model, self.optimizer, self.scheduler = model, optimizer, (
             scheduler)
         self.plain = plain
         self.step = 0
+        self.data_group, self.time_group = data_group, time_group
+        shifts = {id(p) for p in param_groups(model)["shift"]}
+        self.net = model
+        if data_group is not None:
+            self.net = _ddp(model, data_group, shifts)
+        if time_group is not None:
+            replicated(model, time_group)
+            self.summed = [p for p in model.parameters()
+                           if id(p) not in shifts]
+
+    def _groups(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(data_parallel(self.data_group))
+        if self.time_group is not None:
+            stack.enter_context(time_parallel(self.time_group,
+                                              self.model.max_shift))
+        return stack
 
     def __call__(self, video, labels):
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(video, plain=self.plain)
-        loss = cross_entropy(logits, labels)
-        loss.backward()
+        with self._groups():
+            logits = self.net(video, plain=self.plain)
+            loss = cross_entropy(logits, labels)
+            loss.backward()
+        if self.time_group is not None:
+            for p in self.summed:
+                if p.grad is not None:
+                    dist.all_reduce(p.grad, group=self.time_group)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         self.step += 1
         with torch.no_grad():
-            acc = (logits.argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "accuracy": acc}
+            acc = (logits.argmax(-1) == labels).to(loss.dtype).mean()
+            metrics = torch.stack([loss.detach(), acc])
+            if self.data_group is not None:
+                dist.all_reduce(metrics, group=self.data_group)
+                metrics /= group_size(self.data_group)
+        return {"loss": metrics[0], "accuracy": metrics[1].float()}
 
 
-def make_train_step(model, optimizer, scheduler=None, plain=False):
-    """A :class:`TrainStep` over ``model`` and ``optimizer``."""
-    return TrainStep(model, optimizer, scheduler, plain)
+def _ddp(model, group, shifts):
+    """``model`` in ``DistributedDataParallel`` over ``group``, its
+    parameters first broadcast from the group's first rank; the shift
+    parameters (ids ``shifts``) are left out of DDP's buckets, since their
+    ops reduce their raw gradients before normalizing them, and the
+    buffers are not re-broadcast (BN's running statistics come from the
+    global batch, alike on every rank)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    replicated(model, group)
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+        model, [n for n, p in model.named_parameters() if id(p) in shifts])
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        process_group=group, broadcast_buffers=False)
+
+
+def make_train_step(model, optimizer, scheduler=None, plain=False,
+                    data_group=None, time_group=None):
+    """A :class:`TrainStep` over ``model`` and ``optimizer``, on the ranks
+    of ``data_group`` and ``time_group`` where given."""
+    return TrainStep(model, optimizer, scheduler, plain, data_group,
+                     time_group)
 
 
 def make_eval_step(model, num_crops: int = 1, fused: bool = False,

@@ -380,7 +380,8 @@ def test_pretrained_replaces_the_head(tmp_path):
 
 
 def test_options_the_port_does_not_take():
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    # --data-parallel D needs D ranks (tests/test_torch_parallel.py runs 2).
+    with pytest.raises(ValueError, match="data axis of 2 needs 2 ranks"):
         run(base_argv(None, "--data-parallel", "2"))
     for tpu_only in (["--model-parallel", "2"], ["--shift-backend", "mix"],
                      ["--scan-blocks", "on"], ["--no-remat"]):
