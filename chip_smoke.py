@@ -79,8 +79,21 @@ one process, every collective on CUDA tensors through gloo; then one
 NCCL rank at world size 1 takes a DDP step. Its times (DDP step, sharded eval
 batch, the halo's cat, trim and exchange) stand beside the one-process
 figures and describe the code path on one shared card, not a multi-card
-run. Fails (non-zero exit, no result line) on the first problem, and
-without a CUDA device.
+run. Then phase 12, tensor parallelism (the model group of
+rubiksnet_torch.parallel): two ranks spawned on the card, through gloo, a
+1 x 2 data x model mesh, Large sharded by JAX's default partition (79
+weights: the largest 1x1 convs and new_fc): (a) one f32 train step at
+batch 8 against one process from one state (loss and BN statistics
+within 1e-6, every gradient gathered within 5e-2, the replicated
+gradients bit-identical on both ranks, and which of them differed before
+the step's broadcast), (b) its launches and collectives a rank (51 K1,
+K1-inverse and K4, 79 channel gathers, 79 model-group all-reduces),
+(c) its time beside one process's, (d) Large-AQ bf16 eval at batch 8
+under the model group against unsharded (51 2D shifts, 79 gathers a
+rank), (e) train.py --model-parallel 2 --synthetic for 2 steps, its
+checkpoint loaded in one process equal to the gathered state; its times
+describe the code path on one shared card too. Fails (non-zero exit, no
+result line) on the first problem, and without a CUDA device.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel results as {"kernels": [...]}: for each kernel its launches
@@ -88,7 +101,9 @@ on its main path, its error against the plain version, its time beside the
 plain version's, its bound (the larger of bytes moved over the memory rate
 and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
-exists (a depthwise convolution for the shifts). K1's, K1-inverse's and
+exists (a depthwise convolution for the shifts); the rows of the kernels
+on phase 11's and phase 12's paths also carry their launches a rank there
+(parallel_launches, tensor_parallel_launches). K1's, K1-inverse's and
 K4's rows, K2's three and K3's two carry their device time by the profiler
 and the time of the route they replaced (for K1, K1-inverse and K4 their
 first forms, shift3d.cu and shift_grad.cu; for K2 and K3 in bf16 the SIMT
@@ -107,6 +122,7 @@ import functools
 import importlib.util
 import json
 import math
+import os
 import sys
 import time
 
@@ -2878,9 +2894,6 @@ def job_nccl_step(rank, group, spec, dev):
     return dict(loss=float(metrics["loss"]), counts=counts)
 
 
-PARALLEL_JOBS = {"temporal_op": job_temporal_op, "ddp": job_ddp,
-                 "sequence_eval": job_sequence_eval,
-                 "test_models": job_test_models, "nccl_step": job_nccl_step}
 
 
 def parallel_rank(rank, world, store, out, spec):
@@ -3178,6 +3191,299 @@ def parallel_phase(dev, gen, name, smi):
             "shift2d": seq[0]["rubiks3d-aq"]["counts"]["shift2d"]}
 
 
+# Phase 12: tensor parallelism (rubiksnet_torch.parallel's model group).
+# Two ranks spawned on the one card as phase 11's are, through gloo, on a
+# 1 x 2 (data x model) mesh: Large f32 at 8x224x224, max_shift 1, seed 0,
+# sharded by JAX's default partition (the 71 + 2 + 5 largest 1x1 convs and
+# new_fc, 79 weights). (a) One train step at batch 8 on each rank against
+# one process from the same state: loss within 1e-6 relative, BN running
+# statistics within 1e-6 of the largest entry (the products' reduction
+# length is unchanged, only their output columns split), every gradient
+# gathered within the header's 5e-2 (TOL_STEP_GRAD_E2E; the input
+# gradients' all-reduce sums the ranks' parts in another order, which the
+# ReLU kinks and the shifts' normalization magnify, phase 11 (a)), and the
+# replicated parameters' gradients of the step bit-identical on both ranks
+# (the step broadcasts the first rank's; the raw ones that differed before
+# are printed); (b) the launches
+# and the model group's collectives of that step counted on each rank;
+# (c) the step timed beside one process's; (d) Large-AQ bf16 at batch 8
+# in eval mode under the model group against unsharded; (e) the training
+# entry point, train.py --model-parallel 2 --synthetic, whose checkpoint
+# loads in one process and equals the gathered state.
+TP_RANKS = 2
+TOL_TP_LOSS, TOL_TP_BN = 1e-6, 1e-6
+TP_SHARDED = 79  # weights JAX's default partition shards in Large
+TP_SCRIPT_STEPS = 2
+
+
+def counted_collectives(fn):
+    """``counted(fn)`` with the model group's collectives counted too."""
+    from rubiksnet_torch.parallel import collective_counters
+
+    ctrs = collective_counters()
+    for ctr in ctrs.values():
+        ctr.reset()
+    out, counts = counted(fn)
+    counts.update({k: c.count for k, c in ctrs.items()})
+    return out, counts
+
+
+def job_tp_step(rank, group, spec, dev):
+    """(a)-(c) One train step of Large f32 sharded over the model group,
+    counted, its gradients gathered; then timed."""
+    from rubiksnet_torch.parallel import (
+        create_mesh, gather_shard, model_parallel, shard_params,
+        sharded_modules,
+    )
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
+    from rubiksnet_torch.train.steps import cross_entropy
+
+    mesh = create_mesh(1, TP_RANKS)
+    model = shard_params(large_train_model(dev), mesh.model)
+    shards = {f"{n}.weight": m.shard for n, m in sharded_modules(model)}
+    step = make_train_step(model, sgd_with_shift_mult(model, 0.01),
+                           model_group=mesh.model)
+    video, labels = parallel_batch(dev, 2)
+    metrics, counts = counted_collectives(lambda: step(video, labels))
+    loss, grads, stats = step_state(model, metrics)
+    grads = {n: gather_shard(g.to(dev), shards[n], mesh.model).cpu()
+             if n in shards else g for n, g in grads.items()}
+    # The replicated parameters' gradients as each rank computes them,
+    # before the step sets them to the first rank's.
+    model.zero_grad(set_to_none=True)
+    with model_parallel(mesh.model):
+        cross_entropy(model(video), labels).backward()
+    raw = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+           if n not in shards}
+    return dict(loss=loss, counts=counts, grads=grads, stats=stats,
+                raw=raw, sharded=sorted(shards),
+                ms=wall_ms(lambda: step(video, labels)))
+
+
+def job_tp_eval_aq(rank, group, spec, dev):
+    """(d) Large-AQ bf16 at batch 8 through the eval step under the model
+    group (the module path), counted."""
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.parallel import create_mesh, shard_params
+    from rubiksnet_torch.train import make_eval_step
+
+    mesh = create_mesh(1, TP_RANKS)
+    model = create_rubiksnet("large", CLASSES, FRAMES, "rubiks3d-aq",
+                             max_shift=MAX_SHIFT, device=dev,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+    shard_params(model, mesh.model)
+    video, labels = parallel_batch(dev, 3)
+    fn = make_eval_step(model, model_group=mesh.model)
+    out, counts = counted_collectives(lambda: fn(video[:, None], labels))
+    return dict(logits=out["logits"].cpu(), counts=counts,
+                ms=wall_ms(lambda: fn(video[:, None], labels)))
+
+
+def job_tp_script(rank, group, spec, dev):
+    """(e) train.py --model-parallel 2 on synthetic clips, counted; the
+    final state gathered over the model group (the world here)."""
+    import torch.distributed as dist
+
+    from rubiksnet_torch.parallel import gather_params
+    from rubiksnet_torch.scripts import train as train_script
+
+    args = train_script.build_parser().parse_args(spec["tp_script_argv"])
+    result, counts = counted_collectives(lambda: train_script.train(
+        args, log=lambda *a: None))
+    state = gather_params(result["model"], dist.group.WORLD)
+    return dict(counts=counts, losses=result["losses"],
+                val_batches=result["val_batches"],
+                step_s=result["step_s"], wait_s=result["wait_s"],
+                checkpoint=result["checkpoint"],
+                state={k: v.cpu() for k, v in state.items()} if not rank
+                else None)
+
+
+PARALLEL_JOBS = {"temporal_op": job_temporal_op, "ddp": job_ddp,
+                 "sequence_eval": job_sequence_eval,
+                 "test_models": job_test_models, "nccl_step": job_nccl_step,
+                 "tp_step": job_tp_step, "tp_eval_aq": job_tp_eval_aq,
+                 "tp_script": job_tp_script}
+
+
+def tensor_parallel_phase(dev, name, smi):
+    """Phase 12 (see its comment above). Returns each kernel's launches on
+    one rank's tensor-parallel paths: the train step (K1, K1-inverse, K4)
+    and the Large-AQ eval batch (the 2D shift)."""
+    import tempfile
+
+    from rubiksnet_torch.models.rubiksnet import create_rubiksnet
+    from rubiksnet_torch.parallel import param_partition_spec
+    from rubiksnet_torch.scripts.train import latest_checkpoint
+    from rubiksnet_torch.train import (
+        load_train_state, make_eval_step, make_train_step,
+        sgd_with_shift_mult,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"[tensor parallel] phase 12: {TP_RANKS} ranks on one card through "
+          f"gloo, a 1 x {TP_RANKS} (data x model) mesh; {name} ({smi}). "
+          f"The ranks share the card, so the times below describe the code "
+          f"path, not a multi-card run")
+
+    # The one-process references, before the ranks take the card.
+    model = large_train_model(dev)
+    spec = param_partition_spec(model, TP_RANKS)
+    if sum(d == 0 for d in spec.values()) != TP_SHARDED:
+        fail(f"Large's partition shards {sum(d == 0 for d in spec.values())} "
+             f"weights, not {TP_SHARDED}")
+    step = make_train_step(model, sgd_with_shift_mult(model, 0.01))
+    video, labels = parallel_batch(dev, 2)
+    ref_loss, ref_grads, ref_stats = step_state(model, step(video, labels))
+    ref_step_ms = wall_ms(lambda: step(video, labels))
+    del model, step, video, labels
+    model = create_rubiksnet("large", CLASSES, FRAMES, "rubiks3d-aq",
+                             max_shift=MAX_SHIFT, device=dev,
+                             dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+    video, labels = parallel_batch(dev, 3)
+    fn = make_eval_step(model)
+    ref_aq = fn(video[:, None], labels)["logits"].cpu()
+    ref_aq_ms = wall_ms(lambda: fn(video[:, None], labels))
+    del model, fn, video, labels
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="rubiks_tp_") as root:
+        argv = ["--synthetic", str(TP_SCRIPT_STEPS * TIME_BATCH),
+                "--tier", "large", "--num-classes", str(CLASSES),
+                "--frames", str(FRAMES), "--input-size", str(SIZE),
+                "--batch-size", str(TIME_BATCH), "--steps",
+                str(TP_SCRIPT_STEPS), "--save-every", str(TP_SCRIPT_STEPS),
+                "--log-every", "1", "--model-parallel", str(TP_RANKS),
+                "--checkpoint-dir", f"{root}/run", "--device", str(dev)]
+        ranks = spawn_ranks(TP_RANKS, dict(
+            jobs=["tp_step", "tp_eval_aq", "tp_script"],
+            tp_script_argv=argv))
+        path = latest_checkpoint(f"{root}/run")
+        one = create_rubiksnet("large", CLASSES, FRAMES, device="cpu")
+        loaded_step = load_train_state(path, one,
+                                       sgd_with_shift_mult(one, 0.01))[0]
+        loaded = one.state_dict()
+    print(f"[tensor parallel] backend of the {TP_RANKS} ranks: "
+          f"{[r['backend'] for r in ranks]}")
+    if any(r["backend"] != "gloo" for r in ranks):
+        fail("ranks that share a card must take gloo")
+
+    # (b) The launches and collectives of one step.
+    shifts = len(shift_inputs(TIME_BATCH, FRAMES))
+    steps = [r["tp_step"] for r in ranks]
+    zero = {k: 0 for k in steps[0]["counts"]}
+    want = dict(zero, shift3d=shifts, shift3d_inverse=shifts,
+                shift_grad=shifts, gather_channels=TP_SHARDED,
+                model_all_reduce=TP_SHARDED)
+    for r, res in enumerate(steps):
+        print(f"[tensor parallel] (b) rank {r}: launches and collectives of "
+              f"one train step at batch {TIME_BATCH}: {res['counts']}")
+        if res["counts"] != want:
+            fail(f"TP step on rank {r}: {res['counts']} != {want}")
+        if res["sharded"] != sorted(n for n, d in spec.items() if d == 0):
+            fail(f"rank {r} sharded other weights than the partition")
+
+    # (a) The step against one process.
+    mask = {n: g.norm(dim=0) > SHIFT_CHANNEL_FLOOR * g.norm(dim=0).max()
+            for n, g in ref_grads.items() if n.endswith(".shift")}
+    loss_rel = max(abs(res["loss"] - ref_loss) / abs(ref_loss)
+                   for res in steps)
+    g_worst = max((errors(steps[0]["grads"][n][:, mask[n]] if n in mask
+                          else steps[0]["grads"][n],
+                          g[:, mask[n]] if n in mask else g)[2], n)
+                  for n, g in ref_grads.items())
+    bn_worst = max((errors(res["stats"][n], b)[1], n)
+                   for res in steps for n, b in ref_stats.items())
+    unlike = [n for n in ref_grads if spec[n] is None and not torch.equal(
+        steps[0]["grads"][n], steps[1]["grads"][n])]
+    raw_unlike = [(errors(steps[1]["raw"][n], steps[0]["raw"][n])[2], n)
+                  for n in steps[0]["raw"]
+                  if not torch.equal(steps[0]["raw"][n], steps[1]["raw"][n])]
+    ok = (loss_rel <= TOL_TP_LOSS and g_worst[0] <= TOL_STEP_GRAD_E2E
+          and bn_worst[0] <= TOL_TP_BN and not unlike)
+    print(f"  (a) 1 x {TP_RANKS} model-sharded step vs one process, Large "
+          f"f32 x {TIME_BATCH}: loss {steps[0]['loss']:.6f} vs "
+          f"{ref_loss:.6f} (rel {loss_rel:.3e} [<= {TOL_TP_LOSS}]); worst "
+          f"gradient rel_l2 {g_worst[0]:.3e} ({g_worst[1]}) [<= "
+          f"{TOL_STEP_GRAD_E2E}]; worst BN statistic rel_max "
+          f"{bn_worst[0]:.3e} ({bn_worst[1]}) [<= {TOL_TP_BN}]; replicated "
+          f"gradients of the step on the two ranks "
+          f"{'bit-identical' if not unlike else f'differ in {unlike}'}"
+          f" {'ok' if ok else 'FAIL'}")
+    print(f"  (a) the replicated gradients as each rank computes them, "
+          f"before the step's broadcast of the first rank's: "
+          f"{len(raw_unlike)} of {len(steps[0]['raw'])} differ between the "
+          f"ranks {sorted(raw_unlike, reverse=True)[:5]} (rel_l2, name)")
+    if not ok:
+        fail("the model-sharded step disagrees with the one-process step")
+    print(f"[tensor parallel] (c) train step, Large f32 {FRAMES}x{SIZE}x{SIZE} "
+          f"x {TIME_BATCH}: 1 x {TP_RANKS} model-sharded on one card (gloo) "
+          f"median {median(steps[0]['ms']):.1f} ms/step (rank 0, "
+          f"{steps[0]['ms']}); one process median {median(ref_step_ms):.1f} "
+          f"ms/step ({ref_step_ms}); host clock around synchronized steps, "
+          f"{name} ({smi})")
+
+    # (d) Large-AQ eval under the model group.
+    aq = [r["tp_eval_aq"] for r in ranks]
+    want = dict(zero, shift2d=shifts, gather_channels=TP_SHARDED)
+    for r, res in enumerate(aq):
+        same = torch.equal(res["logits"], ref_aq)
+        _, rel_max, rel_l2 = errors(res["logits"], ref_aq)
+        ok = (res["counts"] == want and rel_l2 <= TOL_MODEL_BF16
+              and bool(torch.isfinite(res["logits"]).all()))
+        print(f"[tensor parallel] (d) rank {r} Large rubiks3d-aq bf16 eval "
+              f"x {TIME_BATCH} under the model group (module path): "
+              f"launches {res['counts']}; logits vs unsharded "
+              f"{'bit-identical' if same else 'differ'} (rel_max "
+              f"{rel_max:.3e}, rel_l2 {rel_l2:.3e} [<= {TOL_MODEL_BF16}]) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"(d) model-sharded Large-AQ eval on rank {r}: launches "
+                 f"{res['counts']} != {want} or logits disagree")
+    print(f"[tensor parallel] (d) eval batch, Large rubiks3d-aq bf16 x "
+          f"{TIME_BATCH}: 1 x {TP_RANKS} model-sharded median "
+          f"{median(aq[0]['ms']):.1f} ms ({aq[0]['ms']}); unsharded module "
+          f"path median {median(ref_aq_ms):.1f} ms ({ref_aq_ms}); {name} "
+          f"({smi})")
+
+    # (e) The training entry point.
+    script = [r["tp_script"] for r in ranks]
+    for r, res in enumerate(script):
+        n_steps, n_val = len(res["losses"]), res["val_batches"]
+        want = dict(zero, shift3d=shifts * (n_steps + n_val),
+                    shift3d_inverse=shifts * n_steps,
+                    shift_grad=shifts * n_steps,
+                    gather_channels=TP_SHARDED * (n_steps + n_val),
+                    model_all_reduce=TP_SHARDED * n_steps)
+        ok = (n_steps == TP_SCRIPT_STEPS and res["counts"] == want
+              and all(math.isfinite(x) for x in res["losses"]))
+        print(f"[tensor parallel] (e) rank {r}: train.py --model-parallel "
+              f"{TP_RANKS} --synthetic, {n_steps} steps + {n_val} validation "
+              f"batch(es): losses {[round(x, 4) for x in res['losses']]}, "
+              f"step s {[round(x, 3) for x in res['step_s']]}, launches "
+              f"{res['counts']} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"(e) train.py --model-parallel on rank {r}: {res['counts']}"
+                 f" != {want} or a loss not finite")
+    state = script[0]["state"]
+    same = (loaded_step == TP_SCRIPT_STEPS and loaded.keys() == state.keys()
+            and all(torch.equal(loaded[k], v) for k, v in state.items()))
+    print(f"[tensor parallel] (e) checkpoint {os.path.basename(path)} (step "
+          f"{loaded_step}) loaded in one process "
+          f"{'equals' if same else 'DIFFERS from'} the gathered state bit "
+          f"for bit ({len(state)} entries)")
+    if not same:
+        fail("(e) the model-parallel checkpoint does not load as the "
+             "gathered state")
+    print(f"[tensor parallel] phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: steps[0]["counts"][k]
+            for k in ("shift3d", "shift3d_inverse", "shift_grad")} | {
+        "shift2d": aq[0]["counts"]["shift2d"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3355,6 +3661,14 @@ def main() -> int:
           f"{time.perf_counter() - started:.0f} s (phase 11: "
           f"{time.perf_counter() - t_phase:.1f} s)")
 
+    # Phase 12: tensor parallelism, ranks spawned on the card.
+    t_phase = time.perf_counter()
+    tp_launches = tensor_parallel_phase(dev, name, smi)
+    torch.cuda.empty_cache()
+    print(f"[clock] tensor parallelism done at "
+          f"{time.perf_counter() - started:.0f} s (phase 12: "
+          f"{time.perf_counter() - t_phase:.1f} s)")
+
     kernels = []
     for k, (source, replaces) in KERNELS.items():
         row = timer.rows[k]
@@ -3382,6 +3696,8 @@ def main() -> int:
             kernels[-1].update(exported_launches=exported_launches[k])
         if k in parallel_launches:
             kernels[-1].update(parallel_launches=parallel_launches[k])
+        if k in tp_launches:
+            kernels[-1].update(tensor_parallel_launches=tp_launches[k])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

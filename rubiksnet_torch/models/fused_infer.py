@@ -49,6 +49,7 @@ from ..ops.fused_entry import (
     fused_entry_supported,
     stack_entry_params,
 )
+from ..parallel.mesh import active_model_group, sharded_modules
 from ..parallel.temporal import active_time_group
 
 
@@ -73,6 +74,10 @@ class FusedExecutor:
     def __init__(self, model):
         if model.training:
             raise ValueError("FusedExecutor runs inference: call .eval()")
+        if sharded_modules(model):
+            raise ValueError(
+                "the fused executor serves an unsharded model: load the "
+                "state of parallel.gather_params into one")
         if model.variant not in VARIANTS:
             raise ValueError(f"unknown variant {model.variant!r}")
         self.model = model
@@ -201,6 +206,11 @@ class FusedExecutor:
                 "the fused executor cannot serve a time-sharded clip: K2 and "
                 "K3 run the 3D shift inside their bodies and take no halo; "
                 "use parallel.sequence_parallel_eval (the module path)")
+        if active_model_group() is not None:
+            raise RuntimeError(
+                "the fused executor does not run under a model group: K2 "
+                "and K3 take whole weights; a sharded model runs the module "
+                "path (make_eval_step(model_group=...))")
         if video.ndim != 5 or video.shape[-1] != 3:
             raise ValueError(
                 f"expected (N, T, H, W, 3), got {tuple(video.shape)}")

@@ -16,7 +16,9 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import gather_params
 from .rubiksnet import RubiksNet, resolve_device
 
 
@@ -104,17 +106,22 @@ def max_int_shift(state_dict) -> int:
     return bound
 
 
-def save_pretrained(model: RubiksNet, path) -> None:
+def save_pretrained(model: RubiksNet, path, model_group=None) -> None:
     """Write ``model`` as a reference-format checkpoint (``.pth.tar``):
     ``{tier, num_classes, num_frames, variant, model: state_dict}`` with
-    float32 CPU tensors."""
+    float32 CPU tensors. In a process group only the world's first rank
+    writes. A model sharded over ``model_group`` is written whole: every
+    rank of the group calls this alike, and the state is gathered over it
+    (``parallel.gather_params``)."""
+    state = gather_params(model, model_group)
+    if dist.is_initialized() and dist.get_rank():
+        return
     torch.save({
         "tier": model.tier,
         "num_classes": model.num_classes,
         "num_frames": model.num_frames,
         "variant": model.variant,
-        "model": {k: v.detach().cpu() for k, v in
-                  model.state_dict().items()},
+        "model": {k: v.detach().cpu() for k, v in state.items()},
     }, path)
 
 

@@ -13,6 +13,7 @@ from torch import nn
 
 from ..nn.backbone import VARIANTS, RubiksNetBackbone
 from ..nn.layers import lecun_normal_
+from ..parallel.mesh import column_parallel
 from ..parallel.temporal import time_mean
 
 TIERS = {
@@ -31,7 +32,12 @@ INPUT_SIZE = 224
 
 
 class Linear(nn.Module):
-    """Dense layer, weight (out, in) lecun-normal, bias zero."""
+    """Dense layer, weight (out, in) lecun-normal, bias zero. Under tensor
+    parallelism the weight's output rows are sharded as
+    ``nn.backbone.Conv1x1``'s and the replicated bias is added after the
+    gather."""
+
+    shard = None  # this rank's output rows, set by parallel.shard_params
 
     def __init__(self, in_features, out_features, *, generator=None):
         super().__init__()
@@ -42,6 +48,10 @@ class Linear(nn.Module):
             lecun_normal_(self.weight, generator)
 
     def forward(self, x):
+        if self.shard is not None:
+            y = column_parallel(
+                self.shard, x, lambda v: F.linear(v, self.weight.to(v.dtype)))
+            return y + self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 

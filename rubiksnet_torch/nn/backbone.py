@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_block import BN_EPS, fold_bn
-from ..parallel.mesh import all_reduce_sum, group_size
+from ..parallel.mesh import all_reduce_sum, column_parallel, group_size
 from ..parallel.temporal import reduction_groups
 from .layers import AttentionShift, Rubiks3DWrap, RubiksShift2D, SELayer
 
@@ -98,7 +98,12 @@ def global_var_mean(x, dims, groups):
 
 class Conv1x1(nn.Module):
     """Bias-free 1x1 conv on channel-last input, weight (out, in, 1, 1);
-    stride s samples rows and columns 0, s, 2s, ..."""
+    stride s samples rows and columns 0, s, 2s, ... Under tensor
+    parallelism (``parallel.shard_params``) the weight holds this rank's
+    output rows (``shard``) and the output's channels are gathered over
+    the model group."""
+
+    shard = None  # this rank's output rows, set by parallel.shard_params
 
     def __init__(self, in_planes, out_planes, stride=1, *, generator=None):
         super().__init__()
@@ -112,12 +117,17 @@ class Conv1x1(nn.Module):
         if self.stride > 1:
             x = x[:, :, ::self.stride, ::self.stride]
         w = self.weight.reshape(self.weight.shape[0], -1)
+        if self.shard is not None:
+            return column_parallel(self.shard, x,
+                                   lambda v: v @ w.t().to(v.dtype))
         return x @ w.t().to(x.dtype)
 
 
 class StemConv(nn.Module):
     """Bias-free 3x3 stride-2 pad-1 conv of (N, T, H, W, 3) frames, weight
-    (out, 3, 3, 3), in the input's dtype."""
+    (out, 3, 3, 3), in the input's dtype; sharded as :class:`Conv1x1`."""
+
+    shard = None  # this rank's output rows, set by parallel.shard_params
 
     def __init__(self, out_planes, *, generator=None):
         super().__init__()
@@ -127,6 +137,11 @@ class StemConv(nn.Module):
             he_fan_out_normal_(self.weight, generator)
 
     def forward(self, video):
+        if self.shard is not None:
+            return column_parallel(self.shard, video, self._conv)
+        return self._conv(video)
+
+    def _conv(self, video):
         n, t, h, w, c = video.shape
         y = F.conv2d(video.reshape(n * t, h, w, c).permute(0, 3, 1, 2),
                      self.weight.to(video.dtype), stride=2, padding=1)

@@ -25,6 +25,7 @@ from torch import nn
 from ..ops.attention_shift import TEMPERATURE, attention_shift
 from ..ops.shift2d import rubiks_shift_2d
 from ..ops.shift3d import rubiks_shift_3d
+from ..parallel.mesh import column_parallel
 from ..parallel.temporal import (
     active_time,
     shift_grad_reduction,
@@ -264,7 +265,10 @@ class AttentionShift(nn.Module):
 
 
 class Dense(nn.Module):
-    """Bias-free dense layer, weight (out, in) lecun-normal."""
+    """Bias-free dense layer, weight (out, in) lecun-normal; under tensor
+    parallelism its output rows are sharded as ``nn.backbone.Conv1x1``'s."""
+
+    shard = None  # this rank's output rows, set by parallel.shard_params
 
     def __init__(self, in_features, out_features, *, generator=None):
         super().__init__()
@@ -274,6 +278,9 @@ class Dense(nn.Module):
             lecun_normal_(self.weight, generator)
 
     def forward(self, x):
+        if self.shard is not None:
+            return column_parallel(
+                self.shard, x, lambda v: F.linear(v, self.weight.to(v.dtype)))
         return F.linear(x, self.weight.to(x.dtype))
 
 

@@ -46,6 +46,7 @@ from ..ops import shift3d as s3d
 from ..ops.attention_shift import TEMPERATURE, attention_shift
 from .mesh import (
     active_data_group,
+    active_model_group,
     all_reduce_sum,
     group_rank,
     group_size,
@@ -75,7 +76,11 @@ def time_parallel(group, max_shift: int):
     shift exchange halos, BN in train mode reduces its statistics over the
     group, the consensus sums over it, and the fused executor refuses to
     run. The counterpart of JAX's time-axis ``shard_map``
-    (``active_time_axis``)."""
+    (``active_time_axis``). Raises under an active model group
+    (``parallel.model_parallel``)."""
+    if group is not None and active_model_group() is not None:
+        raise ValueError("a time group and a model group cannot be active "
+                         "together")
     token = _TIME.set(TimeShards(group, int(max_shift)))
     try:
         yield group

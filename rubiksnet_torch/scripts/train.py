@@ -32,24 +32,32 @@ group:
     spent waiting for the next batch.
 
 The card by default; ``--device cpu`` runs the kernels' plain versions.
-The JAX script's TPU options are not accepted: ``--model-parallel`` (a
-tensor-parallel mesh axis), ``--shift-backend`` (the TPU shift
-formulations; the port has one kernel per op), ``--scan-blocks`` and
-``--no-remat`` (the TPU compiler's graph size and memory).
+The JAX script's TPU options are not accepted: ``--shift-backend`` (the
+TPU shift formulations; the port has one kernel per op), ``--scan-blocks``
+and ``--no-remat`` (the TPU compiler's graph size and memory).
 
-Data parallelism: ``torchrun --nproc_per_node D -m
-rubiksnet_torch.scripts.train --data-parallel D ...`` (0 takes the
-launch's world size; D must equal it). ``--batch-size`` is the global batch
-and divides by D. Every rank draws the one-process run's batches (same
-seeds) and keeps its contiguous rows: the synthetic clips are drawn whole;
-a registry dataset's clips are decoded by their rank only, the others'
-train clips skipped with the same draws (``RubiksDataset.skip``: the
-sampler's, and the transforms' for the first frame's size, read from its
-header). The step is ``make_train_step(..., data_group=...)``: the
-one-process step at the global batch (DDP, BN statistics and the shifts'
-normalized gradients of the global batch). Rank 0 logs and saves; validation sums over the
-ranks; ``--resume`` loads on every rank. NCCL with a card per rank, gloo on
-the CPU or where ranks share a card (``parallel.initialize_distributed``).
+Data and tensor parallelism: ``torchrun --nproc_per_node D*M -m
+rubiksnet_torch.scripts.train --data-parallel D --model-parallel M ...``
+(``--data-parallel 0`` takes the launch's world size over M; D x M must
+equal it). The ranks form a row-major (data, model) grid
+(``parallel.create_mesh``): the M ranks of a row are a model group, which
+shares its rows of every batch and splits the large 1x1 convs and the
+head by output channel (``parallel.shard_params``, JAX's
+``param_partition_spec`` rule); the D ranks of a column are a data group.
+``--batch-size`` is the global batch and divides by D. Every data rank
+draws the one-process run's batches (same seeds) and keeps its contiguous
+rows: the synthetic clips are drawn whole; a registry dataset's clips are
+decoded by their data rank only, the others' train clips skipped with the
+same draws (``RubiksDataset.skip``: the sampler's, and the transforms' for
+the first frame's size, read from its header). The step is
+``make_train_step(..., data_group=..., model_group=...)``: the
+one-process step at the global batch (DDP over the data group, BN
+statistics and the shifts' normalized gradients of the global batch).
+The world's rank 0 logs and writes the checkpoints, whole (the shards
+gathered); validation runs the module path and sums over the data group;
+``--resume`` loads on every rank, each model rank keeping its rows. NCCL
+with a card per rank, gloo on the CPU or where ranks share a card
+(``parallel.initialize_distributed``).
 
 Examples:
   python -m rubiksnet_torch.scripts.train --synthetic 512 --tier tiny \\
@@ -95,6 +103,7 @@ from ..parallel import (
     initialize_distributed,
     rank0_log,
     shard_batch,
+    shard_params,
 )
 from ..train import (
     load_train_state,
@@ -146,8 +155,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--data-parallel", type=int, default=0, metavar="D",
-                   help="ranks of the data group (0 = the launch's world "
-                        "size; launch D ranks with torchrun)")
+                   help="ranks of a data group (0 = the launch's world "
+                        "size / M; launch D x M ranks with torchrun)")
+    p.add_argument("--model-parallel", type=int, default=1, metavar="M",
+                   help="ranks of a model group (tensor parallelism: the "
+                        "large 1x1 convs and the head split by output "
+                        "channel)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--save-every", type=int, default=500, metavar="STEPS")
     p.add_argument("--resume", action="store_true",
@@ -365,16 +378,21 @@ def train(args, log=print, after_resume=None):
                          "is required")
     device = resolve_device(args.device)
     initialize_distributed(device=device, log=log)
-    group = create_mesh(args.data_parallel or None)
-    rank, world = group_rank(group), group_size(group)
-    if args.batch_size % world:
+    mp = args.model_parallel
+    mesh = create_mesh(args.data_parallel or None, mp)
+    group, model_group = mesh if mp > 1 else (mesh, None)
+    world = dist.group.WORLD if dist.is_initialized() else None
+    dp = group_size(group)
+    if args.batch_size % dp:
         raise ValueError(f"--batch-size {args.batch_size} does not divide "
-                         f"over {world} ranks")
-    log = rank0_log(log, group)
+                         f"over {dp} data ranks")
+    log = rank0_log(log, world)
     random.seed(args.seed)
     num_classes, steps_per_epoch, train_epoch_iter, val_iter = build_data(
         args, group)
     model = build_model(args, num_classes, device)
+    if model_group is not None:
+        shard_params(model, model_group)
     total_steps = args.total_steps or args.steps or (
         args.epochs * steps_per_epoch)
     optimizer, scheduler = sgd_with_shift_mult(
@@ -382,8 +400,8 @@ def train(args, log=print, after_resume=None):
                            total_steps),
         args.lr_shift_mult, args.momentum, args.weight_decay)
     train_step = make_train_step(model, optimizer, scheduler,
-                                 data_group=group)
-    eval_step = make_eval_step(model, num_crops=1)
+                                 data_group=group, model_group=model_group)
+    eval_step = make_eval_step(model, num_crops=1, model_group=model_group)
 
     start_step = 0
     if args.resume:
@@ -404,7 +422,7 @@ def train(args, log=print, after_resume=None):
                    if device.type == "cuda" else str(device))
     log(f"device: {device_name} | tier={model.tier} "
         f"variant={model.variant} classes={num_classes} "
-        f"bs={args.batch_size} ({world} rank(s)) "
+        f"bs={args.batch_size} ({dp} x {mp} rank(s)) "
         f"schedule={args.lr_schedule}")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -422,15 +440,17 @@ def train(args, log=print, after_resume=None):
         result["val_batches"] += batches
 
     def maybe_save(step, epoch):
-        if args.checkpoint_dir and not rank:
-            os.makedirs(args.checkpoint_dir, exist_ok=True)
+        if args.checkpoint_dir:
+            if not group_rank(world):
+                os.makedirs(args.checkpoint_dir, exist_ok=True)
             path = checkpoint_path(args.checkpoint_dir, step)
             save_train_state(
                 path, model, optimizer, step,
                 metadata={"tier": model.tier, "variant": model.variant,
                           "num_classes": num_classes, "epoch": epoch,
                           "frames": args.frames,
-                          "input_size": args.input_size})
+                          "input_size": args.input_size},
+                model_group=model_group)
             result["checkpoint"] = path
             log(f"=> saved checkpoint @ step {step}")
 
@@ -455,7 +475,7 @@ def train(args, log=print, after_resume=None):
             result["losses"].append(loss)
             result["accuracies"].append(acc)
             step += 1
-            clips = len(labels) * world
+            clips = len(labels) * dp
             loss_m.update(loss, clips)
             acc_m.update(acc, clips)
             c_log += clips
@@ -484,8 +504,7 @@ def train(args, log=print, after_resume=None):
         maybe_save(step, args.epochs - 1)
     if args.checkpoint_dir:
         final = os.path.join(args.checkpoint_dir, "model_final.pth.tar")
-        if not rank:
-            save_pretrained(model, final)
+        save_pretrained(model, final, model_group)
         result["final_path"] = final
         log(f"=> saved final weights to {final}")
     log(f"done: {step - start_step} steps this run (global step {step}), "

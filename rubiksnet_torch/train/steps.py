@@ -6,7 +6,10 @@ optimizer instead of a pure function of a train state. A step over a data
 group (``parallel.create_mesh``) wraps the model in
 ``DistributedDataParallel`` and equals the one-process step at the global
 batch, as JAX's jitted step over a batch-sharded array does; one over a
-time group runs each rank's frames of the same clips.
+model group (tensor parallelism: a model sharded by
+``parallel.shard_params``) runs the same rows on every rank of the group,
+each computing its own output channels of the sharded layers, and equals
+it too; one over a time group runs each rank's frames of the same clips.
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.fused_infer import fused_infer_apply
-from ..parallel.mesh import data_parallel, group_size, replicated
+from ..parallel.mesh import (
+    data_parallel,
+    group_size,
+    model_parallel,
+    replicated,
+    sharded_modules,
+)
 from ..parallel.temporal import time_parallel
 from .optim import param_groups
 
@@ -53,15 +62,30 @@ class TrainStep:
     gradient, each rank's part of one loss, is summed over it after the
     backward. Either way the metrics are the global batch's, and the
     parameters start from the group's first rank.
+    ``model_group``: the model is sharded over it (``parallel.
+    shard_params``) and every rank of it takes the same rows; the sharded
+    layers gather their output channels and sum their input gradients over
+    it, and everything else is computed alike on every rank (DDP and the
+    first rank's parameters are the data group's only: a broadcast of the
+    parameters over the model group would overwrite each rank's shard).
+    The replicated parameters' gradients are then set to the group's first
+    rank's (one broadcast of a flat buffer), so the replicas stay
+    identical where a kernel's rounding is not deterministic (on an H100
+    the stem's cuDNN weight gradient differed between two ranks in
+    rounding). A model group and a time group together raise.
     """
 
     def __init__(self, model, optimizer, scheduler=None, plain=False,
-                 data_group=None, time_group=None):
+                 data_group=None, time_group=None, model_group=None):
+        if model_group is not None and time_group is not None:
+            raise ValueError("a model group and a time group cannot be "
+                             "used together")
         self.model, self.optimizer, self.scheduler = model, optimizer, (
             scheduler)
         self.plain = plain
         self.step = 0
         self.data_group, self.time_group = data_group, time_group
+        self.model_group = model_group
         shifts = {id(p) for p in param_groups(model)["shift"]}
         self.net = model
         if data_group is not None:
@@ -70,10 +94,15 @@ class TrainStep:
             replicated(model, time_group)
             self.summed = [p for p in model.parameters()
                            if id(p) not in shifts]
+        if model_group is not None:
+            sharded = {id(m.weight) for _, m in sharded_modules(model)}
+            self.unsharded = [p for p in model.parameters()
+                              if id(p) not in sharded]
 
     def _groups(self):
         stack = contextlib.ExitStack()
         stack.enter_context(data_parallel(self.data_group))
+        stack.enter_context(model_parallel(self.model_group))
         if self.time_group is not None:
             stack.enter_context(time_parallel(self.time_group,
                                               self.model.max_shift))
@@ -90,6 +119,8 @@ class TrainStep:
             for p in self.summed:
                 if p.grad is not None:
                     dist.all_reduce(p.grad, group=self.time_group)
+        if self.model_group is not None:
+            _first_rank_grads(self.unsharded, self.model_group)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
@@ -101,6 +132,17 @@ class TrainStep:
                 dist.all_reduce(metrics, group=self.data_group)
                 metrics /= group_size(self.data_group)
         return {"loss": metrics[0], "accuracy": metrics[1].float()}
+
+
+def _first_rank_grads(params, group):
+    """The gradients of ``params`` set, in place, to the group's first
+    rank's: one broadcast of them flattened into one buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch._utils._flatten_dense_tensors(grads)
+    dist.broadcast(flat, dist.get_global_rank(group, 0), group=group)
+    for g, v in zip(grads, torch._utils._unflatten_dense_tensors(flat,
+                                                                 grads)):
+        g.copy_(v)
 
 
 def _ddp(model, group, shifts):
@@ -122,15 +164,15 @@ def _ddp(model, group, shifts):
 
 
 def make_train_step(model, optimizer, scheduler=None, plain=False,
-                    data_group=None, time_group=None):
+                    data_group=None, time_group=None, model_group=None):
     """A :class:`TrainStep` over ``model`` and ``optimizer``, on the ranks
-    of ``data_group`` and ``time_group`` where given."""
+    of ``data_group``, ``time_group`` and ``model_group`` where given."""
     return TrainStep(model, optimizer, scheduler, plain, data_group,
-                     time_group)
+                     time_group, model_group)
 
 
 def make_eval_step(model, num_crops: int = 1, fused: bool = False,
-                   normalize=None, executor=None):
+                   normalize=None, executor=None, model_group=None):
     """``eval_step(video, labels) -> {"logits", "top1", "top5"}``.
 
     video is (N, crops, T, H, W, 3); the logits are averaged over the crops
@@ -144,7 +186,10 @@ def make_eval_step(model, num_crops: int = 1, fused: bool = False,
     ``fused_infer_apply``, stacking the parameters and deciding the route on
     each call, so a model trained in between is seen as it is. ``normalize=(mean, std)`` takes
     raw uint8 pixels and applies ``(v / 255 - mean) / std`` on the device
-    in float32. top1 and top5 are per-clip float32 hits.
+    in float32. top1 and top5 are per-clip float32 hits. ``model_group``:
+    the model is sharded over it, and the module path runs inside
+    ``parallel.model_parallel`` (the fused executor refuses a sharded
+    model).
     """
     del num_crops  # the crops axis comes from the video's shape
     if executor is not None and executor.model is not model:
@@ -166,7 +211,8 @@ def make_eval_step(model, num_crops: int = 1, fused: bool = False,
         elif fused:
             logits = fused_infer_apply(model, flat)
         else:
-            logits = model(flat)
+            with model_parallel(model_group):
+                logits = model(flat)
         logits = logits.float().reshape(n, crops, -1).mean(dim=1)
         labels = labels.long()
         top1 = logits.argmax(-1) == labels

@@ -50,12 +50,14 @@ def _randomize(tree, rng, lo, hi):
 
 
 def tiny_bundle(quantize=False, seed=0, dtype=jnp.float32, tier="tiny",
-                variant="rubiks3d"):
+                variant="rubiks3d", num_classes=11):
     """JAX model of ``tier`` and ``variant`` (default tiny rubiks3d), 4
-    frames, 32 px, with non-trivial BN: running mean U(-0.2, 0.2), var
-    U(0.5, 2), BN weight U(0.5, 1.5), bias U(-0.3, 0.3). ``dtype`` is the
-    compute dtype; parameters are float32."""
-    bundle = jax_create(tier, num_classes=11, num_frames=4, input_size=32,
+    frames, 32 px, ``num_classes`` classes, with non-trivial BN: running
+    mean U(-0.2, 0.2), var U(0.5, 2), BN weight U(0.5, 1.5), bias
+    U(-0.3, 0.3). ``dtype`` is the compute dtype; parameters are
+    float32."""
+    bundle = jax_create(tier, num_classes=num_classes, num_frames=4,
+                        input_size=32,
                         quantize=quantize, shift_max_shift=1, variant=variant,
                         rng=jax.random.PRNGKey(seed), dtype=dtype)
     rng = np.random.default_rng(seed)

@@ -102,7 +102,7 @@ def test_backend_rule():
 
 
 def test_mesh_refuses_what_it_cannot_build():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         create_mesh(model=2)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         create_mesh(2)

@@ -188,14 +188,27 @@ def temporal_job(rank, world, group, case):
     return out
 
 
-def train_steps(model, optimizer, clips, group=None):
+def gathered(model, group, tensors):
+    """``tensors`` {parameter name: tensor of the parameter's shape} with
+    each sharded weight's gathered over the model ``group`` (as it is
+    without one)."""
+    from rubiksnet_torch.parallel import gather_shard, sharded_modules
+
+    shards = {f"{n}.weight": m.shard for n, m in sharded_modules(model)}
+    return {n: gather_shard(t, shards[n], group) if n in shards else t
+            for n, t in tensors.items()}
+
+
+def train_steps(model, optimizer, clips, group=None, model_group=None):
     """``make_train_step`` over ``clips`` [(video, labels) numpy, global
-    batches], on this rank's rows of each where ``group`` is given; ->
-    (losses, step-1 gradients, final state dict, momentum by name)."""
-    from rubiksnet_torch.parallel import shard_batch
+    batches], on this rank's rows of each where ``group`` is given, the
+    model sharded over ``model_group`` where given; -> (losses, step-1
+    gradients, final state dict, momentum by name), whole (gathered)."""
+    from rubiksnet_torch.parallel import gather_params, shard_batch
     from rubiksnet_torch.train import make_train_step
 
-    step = make_train_step(model, optimizer, data_group=group)
+    step = make_train_step(model, optimizer, data_group=group,
+                           model_group=model_group)
     losses, grads = [], None
     for video, labels in clips:
         batch = (torch.from_numpy(video), torch.from_numpy(labels).long())
@@ -203,10 +216,12 @@ def train_steps(model, optimizer, clips, group=None):
             batch = shard_batch(batch, group)
         losses.append(float(step(*batch)["loss"]))
         if grads is None:
-            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-    momentum = {n: optimizer.state[p]["momentum_buffer"].clone()
-                for n, p in model.named_parameters()}
-    return losses, grads, model.state_dict(), momentum
+            grads = gathered(model, model_group, {
+                n: p.grad.clone() for n, p in model.named_parameters()})
+    momentum = gathered(model, model_group, {
+        n: optimizer.state[p]["momentum_buffer"].clone()
+        for n, p in model.named_parameters()})
+    return (losses, grads, gather_params(model, model_group), momentum)
 
 
 def data_job(rank, world, group, case):
@@ -252,6 +267,147 @@ def data_job(rank, world, group, case):
     out["test_models"] = {k: result[k] for k in (
         "logits", "labels", "top1", "top5", "class_accuracy")}
     return out
+
+
+# ------------------------------------------------------------ tensor parallel
+
+
+def tp_model(case, variant, classes=None, tier="tiny", seed=0):
+    """The float64 model every rank of a tensor-parallel job builds alike
+    (tests/test_torch_tensor_parallel.py builds the same one in one
+    process)."""
+    from rubiksnet_torch.models import create_rubiksnet
+
+    return as_float64(create_rubiksnet(
+        tier, classes or case["classes"], case["frames"], variant,
+        max_shift=1, device="cpu",
+        generator=torch.Generator().manual_seed(seed)))
+
+
+def tp_steps(case, mesh, variant, min_size, classes=None, tier="tiny"):
+    """Two float64 steps of ``tp_model`` sharded over ``mesh.model`` at
+    ``min_size``, rows over ``mesh.data``; -> train_steps' result, the
+    model group's collectives counted over both steps, and the last
+    step's gradients of the replicated parameters as this rank holds
+    them."""
+    from rubiksnet_torch.parallel import (
+        collective_counters, group_size, param_partition_spec, shard_params,
+    )
+    from rubiksnet_torch.train import sgd_with_shift_mult
+
+    model = tp_model(case, variant, classes, tier)
+    spec = param_partition_spec(model, group_size(mesh.model), min_size)
+    shard_params(model, mesh.model, spec)
+    counters = collective_counters()
+    for c in counters.values():
+        c.reset()
+    result = train_steps(model, sgd_with_shift_mult(model, 0.05, 0.1),
+                         case["clips"], mesh.data, mesh.model)
+    counts = {k: c.count for k, c in counters.items()}
+    replicated_grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                        if spec[n] is None}
+    return result, counts, replicated_grads
+
+
+def mesh_ranks(group):
+    import torch.distributed as dist
+
+    return dist.get_process_group_ranks(group)
+
+
+def tensor_job(rank, world, group, case):
+    """The tensor-parallel checks of tests/test_torch_tensor_parallel.py
+    on one rank of ``world`` (2: a 1 x 2 mesh; 4: 2 x 2 and 1 x 4)."""
+    from rubiksnet_torch.models import FusedExecutor, create_rubiksnet
+    from rubiksnet_torch.parallel import (
+        create_mesh, gather_params, model_parallel, shard_batch,
+        shard_params, time_parallel,
+    )
+    from rubiksnet_torch.train import (
+        make_eval_step, make_train_step, sgd_with_shift_mult,
+    )
+
+    out = {}
+    if world == 2:
+        mesh = create_mesh(1, 2)
+        out["groups"] = (mesh.data, mesh_ranks(mesh.model))
+        model = tp_model(case, "rubiks3d")
+        full = {k: v.clone() for k, v in model.state_dict().items()}
+        shard_params(model, mesh.model)
+        out["shard_rows"] = {n: p.detach().clone()
+                             for n, p in model.named_parameters()}
+        out["round_trip"] = (full, gather_params(model, mesh.model))
+        for variant, min_size, tier in case["steps_1x2"]:
+            out[f"1x2 {variant} {min_size} {tier}"] = tp_steps(
+                case, mesh, variant, min_size, tier=tier)
+        model = create_rubiksnet("tiny", case["even_classes"],
+                                 case["frames"], max_shift=1, device="cpu")
+        model.load_state_dict(case["eval_state"])
+        shard_params(model, mesh.model, case["eval_spec"])
+        video = torch.from_numpy(case["eval_video"])
+        labels = torch.from_numpy(case["eval_labels"])
+        out["eval_logits"] = make_eval_step(
+            model, model_group=mesh.model)(video, labels)["logits"]
+        refusals = {}
+        for what, fn in (
+                ("time_in_model", lambda: _enter(
+                    model_parallel(mesh.model), time_parallel(group, 1))),
+                ("model_in_time", lambda: _enter(
+                    time_parallel(group, 1), model_parallel(mesh.model))),
+                ("step_with_both", lambda: make_train_step(
+                    model, sgd_with_shift_mult(model, 0.1),
+                    time_group=group, model_group=mesh.model)),
+                ("executor_sharded", lambda: FusedExecutor(model)),
+                ("executor_under_model", lambda: _under(
+                    model_parallel(mesh.model), FusedExecutor(
+                        unsharded(case)), video[:, 0])),
+                ("sharded_outside", lambda: model(video[:, 0]))):
+            try:
+                fn()
+                refusals[what] = None
+            except (ValueError, RuntimeError) as e:
+                refusals[what] = str(e)
+        out["refusals"] = refusals
+        out["script"] = train_script_float64(case["train_argv"])
+        out["script_resumed"] = train_script_float64(case["resume_argv"])
+    else:
+        mesh = create_mesh(2, 2)
+        out["groups"] = (mesh_ranks(mesh.data), mesh_ranks(mesh.model))
+        for variant in ("rubiks3d", "rubiks3d-aq"):
+            out[f"2x2 {variant}"] = tp_steps(case, mesh, variant, 1 << 12)
+        model = as_float64(create_rubiksnet(
+            "tiny", case["even_classes"], case["frames"], max_shift=1,
+            device="cpu"))
+        model.load_state_dict(case["jax_state"])
+        shard_params(model, mesh.model, case["jax_spec"])
+        out["2x2 vs jax"] = train_steps(
+            model, sgd_with_shift_mult(model, *case["parity_sgd"]),
+            case["parity_clips"], mesh.data, mesh.model)
+        wide = create_mesh(1, 4)
+        out["wide_groups"] = (wide.data, mesh_ranks(wide.model))
+        out["1x4 174"] = tp_steps(case, wide, "rubiks3d", 1 << 16,
+                                  classes=174)
+    return out
+
+
+def _enter(*contexts):
+    import contextlib
+
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+
+
+def _under(context, fn, *args):
+    with context:
+        return fn(*args)
+
+
+def unsharded(case):
+    from rubiksnet_torch.models import create_rubiksnet
+
+    return create_rubiksnet("tiny", case["classes"], case["frames"],
+                            max_shift=1, device="cpu")
 
 
 # ------------------------------------------------------------ collectives

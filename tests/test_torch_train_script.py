@@ -380,11 +380,14 @@ def test_pretrained_replaces_the_head(tmp_path):
 
 
 def test_options_the_port_does_not_take():
-    # --data-parallel D needs D ranks (tests/test_torch_parallel.py runs 2).
+    # --data-parallel D needs D ranks (tests/test_torch_parallel.py runs 2),
+    # --model-parallel M needs M (tests/test_torch_tensor_parallel.py).
     with pytest.raises(ValueError, match="data axis of 2 needs 2 ranks"):
         run(base_argv(None, "--data-parallel", "2"))
-    for tpu_only in (["--model-parallel", "2"], ["--shift-backend", "mix"],
-                     ["--scan-blocks", "on"], ["--no-remat"]):
+    with pytest.raises(ValueError, match="model axis of 2 needs 2 ranks"):
+        run(base_argv(None, "--model-parallel", "2"))
+    for tpu_only in (["--shift-backend", "mix"], ["--scan-blocks", "on"],
+                     ["--no-remat"]):
         with pytest.raises(SystemExit):
             port_train.build_parser().parse_args(base_argv() + tpu_only)
     with pytest.raises(SystemExit):
