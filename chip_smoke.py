@@ -92,8 +92,18 @@ K1-inverse and K4, 79 channel gathers, 79 model-group all-reduces),
 under the model group against unsharded (51 2D shifts, 79 gathers a
 rank), (e) train.py --model-parallel 2 --synthetic for 2 steps, its
 checkpoint loaded in one process equal to the gathered state; its times
-describe the code path on one shared card too. Fails (non-zero exit, no
-result line) on the first problem, and without a CUDA device.
+describe the code path on one shared card too. Last, phase 13, the
+measurement entry points in this process (rubiksnet_torch.scripts.bench,
+shift_microbench, data_pipeline_bench): Large bf16 serving through the
+fused executor at batch 8 and 64 (K2's and K3's plans at 64 held against
+plain first) and a Large bf16 train step at batch 8, each line correct,
+its launches a call those of the phases above, its mfu and busy share in
+(0, 1]; the shift microbench at 14x14x288, batch 64, every mode and route
+held against plain; the data-pipeline bench over 8 videos, the native
+loader built exactly where the toolchain probe says it can be. Every
+process it starts (nvcc, the ranks, the serving process) is waited for,
+and it checks that none is left before the result lines. Fails (non-zero
+exit, no result line) on the first problem, and without a CUDA device.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the per-kernel results as {"kernels": [...]}: for each kernel its launches
@@ -120,6 +130,7 @@ import argparse
 import contextlib
 import functools
 import importlib.util
+import io
 import json
 import math
 import os
@@ -128,16 +139,30 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from rubiksnet_torch.utils import (
     cuda_call_times_ms,
     cuda_kernel_times,
     cuda_queued_time_ms,
 )
+# The yardstick: the card's peaks and the work of each kernel call, from
+# which every bound below is computed, and the library calls the shifts
+# are timed beside.
+from rubiksnet_torch.utils.roofline import (
+    FRAMES,
+    HBM_BYTES_PER_S,
+    PEAK_F32,
+    block_work,
+    bound_times_ms,
+    channel_last,
+    entry_work,
+    library_shift,
+    shift_grad_work,
+    shift_work,
+)
 
 BATCH_CHECK = 2  # clips per kernel / model check
-FRAMES, SIZE, CLASSES, MAX_SHIFT = 8, 224, 174, 1
+SIZE, CLASSES, MAX_SHIFT = 224, 174, 1
 SERVE_BATCHES = (1, 8, 32)
 SERVE_ITERS = 10
 TIME_BATCH = 8  # clips per kernel timing (bf16)
@@ -201,15 +226,6 @@ ENTRY_SHAPES = [(112, 72, 72), (56, 72, 144), (28, 144, 288),
 SMALL_BLOCK_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 3), (14, 288, 5),
                       (7, 576, 2)]
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense): device
-# memory 3.35 TB/s, bf16 tensor cores 989 TFLOP/s, float32 outside the
-# tensor cores 67 TFLOP/s. A bound is the larger of bytes / memory rate and
-# operations / peak: each input read once, each output written once;
-# matrix products of bf16 operands at the tensor-core peak, everything else
-# (interpolation weights, bn, relu, sums) at the float32 peak.
-HBM_BYTES_PER_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
-FLOPS_PER_CORNER = 4  # weight product and multiply-add per corner read
-
 # Every kernel of the JSON line: where it lives and what it replaces.
 KERNELS = {
     # The 3D shift on its staged route (one device body, three kernels:
@@ -253,6 +269,18 @@ KERNELS = {
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def child_processes():
+    """PIDs of this process's children that have not been waited for,
+    running or exited (Linux ``/proc``)."""
+    import glob
+
+    pids = []
+    for path in glob.glob(f"/proc/{os.getpid()}/task/*/children"):
+        with open(path) as f:
+            pids += f.read().split()
+    return pids
 
 
 def errors(got, ref):
@@ -338,6 +366,12 @@ DDP_LOCAL_BATCH = 4  # phase 11 (a): rows a rank of TIME_BATCH
 BWD_BATCHES = sorted({BATCH_CHECK, TIME_BATCH, DDP_LOCAL_BATCH,
                       *TRAIN_BATCHES})
 TINY = dict(classes=4, batch=8, size=32, frames=4)  # (a)'s overfit
+# Phase 13: the measurement entry points. Serving at TIME_BATCH and at the
+# JAX bench's first production batch, training at TIME_BATCH; the shift
+# microbench at one stage (name, H, C) at its default batch.
+MEASURE_SERVE_BATCHES = (TIME_BATCH, 64)
+MICRO_STAGE, MICRO_BATCH = ("stage3", 14, 288), 64
+MEASURE_VIDEOS = 8
 
 
 STAGED_NAMES = {"forward": "K1", "input_grad": "K1-inverse",
@@ -449,6 +483,10 @@ def check_shift_staged(errs, gen, dev):
              for h, c, s in SHIFT_SHAPES]
     todo += [(f"tiny stride {stride}", *shape, stride, padding, "mixed")
              for shape, stride, padding in tiny_shift_calls()]
+    # Phase 13: the shift microbench's stage (stride 1) at its batch.
+    _, h, c = MICRO_STAGE
+    todo += [(f"{h}x{h}x{c} stride 1 (the shift microbench)", MICRO_BATCH,
+              FRAMES, h, h, c, (1, 1, 1), (0, 0, 0), "mixed")]
     # Phase 9 (e): the last entry of Large at ROUTE_SIZE px meets 7 x 7 and
     # runs on the module path, its shift on K1.
     todo += [(f"7x7x576 stride 2 (the last entry at {ROUTE_SIZE} px)",
@@ -1102,92 +1140,6 @@ def check_block_cases(errs, gen, cpu_gen, dev):
                 never in nm for nm in names):
             fail(f"K2 {dt}: expected {want} kernels and no {never}, got "
                  f"{names}")
-
-
-# ------------------------------------------------ bounds from the shapes
-
-
-def shift_work(written, read, itemsize, corners):
-    """(bytes, matrix-product operations, other operations) of one shift
-    call that writes ``written`` elements from ``read`` elements."""
-    return ((written + read) * itemsize, 0,
-            written * corners * FLOPS_PER_CORNER)
-
-
-def shift_grad_work(n_out, n_in, itemsize):
-    """K4: og and x read once; about 40 operations per output element (8
-    corners, three derivative sums)."""
-    return (n_out + n_in) * itemsize, 0, n_out * 40
-
-
-def block_work(n, h, c, itemsize, rows, aq=False, se=False):
-    """One stride-1 block on (n, FRAMES, h, h, c): x read, out written, the
-    parameters read; `mid` is the kernel's own intermediate."""
-    m = n * FRAMES * h * h
-    nbytes = 2 * m * c * itemsize + 2 * c * c * itemsize + rows * c * 4
-    if se:
-        nbytes += 2 * c * (c // 12) * 4
-    other = m * c * (6 + FLOPS_PER_CORNER * (4 if aq else 8)
-                     + (6 if aq else 0) + (3 if se else 0))
-    return nbytes, 4 * m * c * c, other
-
-
-def entry_work(n, h, cin, cm, itemsize, rows, se=False):
-    """One stride-2 entry block on (n, FRAMES, h, h, cin)."""
-    m, mo = n * FRAMES * h * h, n * FRAMES * (h // 2) * (h // 2)
-    nbytes = (m * cin + mo * cm + 2 * cin * cm + cm * cm) * itemsize + (
-        2 * cin + rows * cm) * 4
-    if se:
-        nbytes += 2 * cm * (cm // 12) * 4
-    other = (m * 2 * (cin + cm) + mo * cm * 8 * FLOPS_PER_CORNER
-             + (3 * m * cm if se else 0))
-    return nbytes, 2 * m * cin * cm + 2 * mo * (cm + cin) * cm, other
-
-
-def bound_times_ms(work, dtype):
-    """(ms for the bytes, ms for the operations) of one call."""
-    nbytes, mm, other = work
-    mm_peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    return (1e3 * nbytes / HBM_BYTES_PER_S,
-            1e3 * (mm / mm_peak + other / PEAK_F32))
-
-
-# -------------------------------------- library yardsticks (never called
-# by the port): the shift as one depthwise convolution over its tap
-# weights, the input gradient as the transposed convolution.
-
-
-def depthwise_weight(shift, dtype, axes):
-    """(C, 1, 3, ...) depthwise kernel of a shift with |s| < 1: the outer
-    product of the per-axis tap weights at offsets -1, 0, 1."""
-    from rubiksnet_torch.ops.shift3d import shift_tap_weights
-
-    taps = [shift_tap_weights(shift[a], dtype, 1, False)[:3].float()
-            for a in axes]
-    eq = "tc,hc,wc->cthw" if len(taps) == 3 else "hc,wc->chw"
-    return torch.einsum(eq, *taps)[:, None].to(dtype).contiguous()
-
-
-def library_shift(x, shift, s, inverse=False, in_hw=None):
-    """A closure running the depthwise (transposed) convolution on the
-    channel-first view of channel-last x (no copy), 3D for a (3, C) shift
-    on (N, T, H, W, C) and 2D for a (2, C) shift on (N, H, W, C)."""
-    three = shift.shape[0] == 3
-    w = depthwise_weight(shift, x.dtype, range(shift.shape[0]))
-    c = x.shape[-1]
-    xp = x.permute(0, 4, 1, 2, 3) if three else x.permute(0, 3, 1, 2)
-    stride = (1, s, s) if three else (s, s)
-    if not inverse:
-        conv = F.conv3d if three else F.conv2d
-        return lambda: conv(xp, w, stride=stride, padding=1, groups=c)
-    conv = F.conv_transpose3d if three else F.conv_transpose2d
-    pad_out = (0, s - 1, s - 1) if three else (s - 1, s - 1)
-    return lambda: conv(xp, w, stride=stride, padding=1,
-                        output_padding=pad_out, groups=c)
-
-
-def channel_last(y):
-    return y.permute(0, 2, 3, 4, 1) if y.ndim == 5 else y.permute(0, 2, 3, 1)
 
 
 PROFILER_MISSES = []  # labels whose device time is not the profiler's
@@ -2922,30 +2874,59 @@ def parallel_rank(rank, world, store, out, spec):
     dist.destroy_process_group()
 
 
-def spawn_ranks(world, spec):
-    """``parallel_rank`` on ``world`` spawned processes; their results in
-    rank order. A rank that raises or exits fails the run (the others are
-    stopped), and so do ranks still running after PARALLEL_TIMEOUT_S."""
-    import tempfile
+# A rank's process: this script imported as a module, one call of
+# parallel_rank(rank, world, store, out, spec).
+RANK_MAIN = """\
+import sys, torch
+from chip_smoke import parallel_rank
+parallel_rank(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+              torch.load(sys.argv[5], weights_only=False))
+"""
 
-    import torch.multiprocessing as mp
+
+def spawn_ranks(world, spec):
+    """``parallel_rank`` on ``world`` processes; their results in rank
+    order. Each rank is a ``subprocess`` of this script, waited for before
+    this returns, not a ``multiprocessing`` child, whose resource tracker
+    would outlive the script. A rank that exits with an error fails the run
+    (the others are stopped), and so do ranks still running after
+    PARALLEL_TIMEOUT_S."""
+    import subprocess
+    import tempfile
+    from pathlib import Path
 
     with tempfile.TemporaryDirectory(prefix="rubiks_ranks_") as tmp:
-        ctx = mp.start_processes(parallel_rank,
-                                 args=(world, f"{tmp}/store", tmp, spec),
-                                 nprocs=world, join=False,
-                                 start_method="spawn")
+        torch.save(spec, f"{tmp}/spec.pt")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_MAIN, str(r), str(world),
+             f"{tmp}/store", tmp, f"{tmp}/spec.pt"],
+            cwd=str(Path(__file__).resolve().parent))
+            for r in range(world)]
         deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
         try:
-            while not ctx.join(timeout=5):
+            while True:
+                codes = [p.poll() for p in procs]
+                failed = [(r, c) for r, c in enumerate(codes)
+                          if c not in (None, 0)]
+                if failed:
+                    fail(f"rank {failed[0][0]} of {world} exited with "
+                         f"{failed[0][1]}")
+                if all(c == 0 for c in codes):
+                    break
                 if time.perf_counter() > deadline:
                     fail(f"{world} ranks still running after "
                          f"{PARALLEL_TIMEOUT_S} s")
+                time.sleep(0.5)
         finally:
-            for p in ctx.processes:
-                if p.is_alive():
+            for p in procs:
+                if p.poll() is None:
                     p.terminate()
-                p.join()
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
         return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
                 for r in range(world)]
 
@@ -3484,6 +3465,142 @@ def tensor_parallel_phase(dev, name, smi):
         "shift2d": aq[0]["counts"]["shift2d"]}
 
 
+# ---------------------------------------- phase 13: measurement entry points
+
+
+def entry_point(label, module, argv):
+    """``module.main(argv)`` in this process, as a user runs the script: its
+    lines printed indented, its last line parsed; fails unless it exits 0
+    with ``correct`` true."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = module.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines[:-1]:
+        print(f"  {ln}")
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError) as err:
+        fail(f"{label}: the last line is not one JSON object ({err})")
+    print(f"  {label}: exit {code}, correct {line.get('correct')}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if code != 0 or line.get("correct") is not True:
+        fail(f"{label} exited {code} or is not correct")
+    return line
+
+
+def check_bench_line(label, line, name, want):
+    """A bench line of the card: every point's launches those of phases
+    1-8, its mfu and busy share in (0, 1]."""
+    detail = line["detail"]
+    if detail["device"] != name:
+        fail(f"{label}: device {detail['device']!r}, not {name!r}")
+    zero = dict.fromkeys(("shift3d", "shift3d_inverse", "shift_grad",
+                          "fused_block", "fused_entry", "se_gate", "shift2d",
+                          "shift2d_inverse"), 0)
+    for batch, p in detail["points"].items():
+        if p["launches"] != dict(zero, **want):
+            fail(f"{label} batch {batch}: launches {p['launches']} != "
+                 f"{want}")
+        for key in ("mfu", "busy_share"):
+            if p[key] is None or not 0 < p[key] <= 1:
+                fail(f"{label} batch {batch}: {key} {p[key]} outside (0, 1]")
+        print(f"  {label} batch {batch}: median {p['ms']['median']:.3f} ms "
+              f"(p10 {p['ms']['p10']:.3f}, p90 {p['ms']['p90']:.3f}, "
+              f"n={p['ms']['n']}), {p['clips_per_s']:.1f} clips/s, mfu "
+              f"{p['mfu']:.4f}, hbm_share {p['hbm_share']:.4f}, busy share "
+              f"{p['busy_share']:.3f}, peak {p['peak_memory_gib']:.2f} GiB; "
+              f"launches as phases 1-8 ({name}, {detail['card']})")
+
+
+def measurement_phase(errs, gen, cpu_gen, dev, name, smi):
+    """Phase 13: the three measurement entry points of the port, in this
+    process, on the card: the bench serving Large bf16 through the fused
+    executor at MEASURE_SERVE_BATCHES (K2's and K3's plans there first held
+    against plain) and training it at TIME_BATCH, the shift microbench at
+    MICRO_STAGE (every mode and route), the data-pipeline bench over
+    MEASURE_VIDEOS videos."""
+    from rubiksnet_torch.data import native_loader
+    from rubiksnet_torch.scripts import bench, data_pipeline_bench
+    from rubiksnet_torch.scripts import shift_microbench
+    from rubiksnet_torch.utils import fused_block_probe, fused_entry_probe
+
+    t_phase = time.perf_counter()
+    print(f"[measure] phase 13: the measurement entry points, {name} ({smi})")
+    bf = torch.bfloat16
+    new = [b for b in MEASURE_SERVE_BATCHES if (
+        (b, FRAMES, 14, 14, 288), False, False) not in CHECKED_PLANS]
+    for label, n, t, h, w, c, k, kind, blocks in (
+            fused_block_probe.served_cases(new)):
+        ok, max_abs, text, plan = fused_block_probe.check_case(
+            label, (n, t, h, w, c), k, kind, blocks, False, False, bf, gen,
+            cpu_gen, dev)
+        print("  " + text)
+        if not ok:
+            fail(f"K2 {label} bf16 failed")
+        CHECKED_PLANS[(n, t, h, w, c), False, False] = plan
+        errs["fused_block"].append(max_abs)
+    for label, n, t, h, w, cin, cm, k, kind in (
+            fused_entry_probe.served_cases(new)):
+        ok, max_abs, text, plan = fused_entry_probe.check_case(
+            label, (n, t, h, w, cin), cm, k, kind, False, bf, gen, cpu_gen,
+            dev)
+        print("  " + text)
+        if not ok:
+            fail(f"K3 {label} bf16 failed")
+        CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, False] = plan
+        errs["fused_entry"].append(max_abs)
+    for b in MEASURE_SERVE_BATCHES:
+        for h, c, _ in BLOCK_SHAPES:
+            checked_plan((b, FRAMES, h, h, c), False, False, dev)
+        for h, cin, cm in ENTRY_SHAPES:
+            checked_entry_plan((b, FRAMES, h, h, cin), cm, False, dev)
+    torch.cuda.empty_cache()
+
+    line = entry_point("bench infer", bench, [
+        "--tier", "large", "--batch-sizes",
+        *map(str, MEASURE_SERVE_BATCHES), "--iters", "5"])
+    check_bench_line("bench infer Large bf16 fused", line, name,
+                     {"fused_block": 47, "fused_entry": 4})
+    torch.cuda.empty_cache()
+    line = entry_point("bench train", bench, [
+        "--tier", "large", "--mode", "train", "--batch-sizes",
+        str(TIME_BATCH), "--iters", "3"])
+    check_bench_line("bench train Large bf16", line, name,
+                     {"shift3d": 51, "shift3d_inverse": 51, "shift_grad": 51})
+    torch.cuda.empty_cache()
+
+    stage = MICRO_STAGE[0]
+    line = entry_point("shift_microbench", shift_microbench, [
+        "--stages", stage, "--batch", str(MICRO_BATCH), "--rounds", "2"])
+    if line["device"] != name:
+        fail(f"shift_microbench: device {line['device']!r}, not {name!r}")
+    want = {"fwd": {"kernel", "previous", "plain", "library"},
+            "bwd": {"kernel", "previous", "plain"},
+            "input_grad": {"kernel", "previous", "plain", "library"},
+            "shift_grad": {"kernel", "previous", "plain"}}
+    for mode, routes in want.items():
+        cell = line["cases"][stage][mode]
+        if set(cell["routes"]) != routes:
+            fail(f"shift_microbench {mode}: routes {sorted(cell['routes'])}")
+        print(f"  shift_microbench {stage} {mode}: " + ", ".join(
+            f"{r} {row['median_ms']:.4f} ms" for r, row in
+            cell["routes"].items()) + f"; winner {cell['winner']}, bound "
+            f"{cell['bound_ms']:.4f} ms ({cell['bound_by']})")
+    torch.cuda.empty_cache()
+
+    line = entry_point("data_pipeline_bench", data_pipeline_bench, [
+        "--videos", str(MEASURE_VIDEOS)])
+    if line["device"] != name:
+        fail(f"data_pipeline_bench: device {line['device']!r}")
+    built = native_loader.toolchain_present()
+    if line["native_built"] != built:
+        fail(f"data_pipeline_bench: native built {line['native_built']}, "
+             f"the toolchain probe says {built}")
+    print(f"[measure] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3668,6 +3785,15 @@ def main() -> int:
     print(f"[clock] tensor parallelism done at "
           f"{time.perf_counter() - started:.0f} s (phase 12: "
           f"{time.perf_counter() - t_phase:.1f} s)")
+
+    # Phase 13: the measurement entry points, in this process.
+    measurement_phase(errs, gen, cpu_gen, dev, name, smi)
+    torch.cuda.empty_cache()
+    print(f"[clock] measurement entry points done at "
+          f"{time.perf_counter() - started:.0f} s")
+    left = child_processes()
+    if left:
+        fail(f"processes started by this script still there: {left}")
 
     kernels = []
     for k, (source, replaces) in KERNELS.items():

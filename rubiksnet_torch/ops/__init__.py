@@ -1,7 +1,7 @@
 """Shift ops and fused block kernels of the PyTorch port."""
 
 from . import library  # registers the rubiksnet:: operators
-from .attention_shift import attention_shift_weights
+from .attention_shift import attention_shift, attention_shift_weights
 from .fused_block import (
     fused_block_run,
     stack_block_params,
@@ -10,27 +10,40 @@ from .fused_block import (
 )
 from .fused_entry import fused_entry_run, stack_entry_params
 from .shift2d import (
+    compute_output_shape_2d,
     normalize_shift_grad_2d,
     rubiks_shift_2d,
     rubiks_shift_2d_forward,
+    rubiks_shift_2d_input_grad,
+    rubiks_shift_2d_shift_grad,
 )
 from .shift3d import (
+    compute_output_shape_3d,
     normalize_shift_grad_3d,
     rubiks_shift_3d,
     rubiks_shift_3d_forward,
+    rubiks_shift_3d_input_grad,
+    rubiks_shift_3d_shift_grad,
     shift_tap_weights,
 )
 
 __all__ = [
+    "attention_shift",
     "attention_shift_weights",
+    "compute_output_shape_2d",
+    "compute_output_shape_3d",
     "fused_block_run",
     "fused_entry_run",
     "normalize_shift_grad_2d",
     "normalize_shift_grad_3d",
     "rubiks_shift_2d",
     "rubiks_shift_2d_forward",
+    "rubiks_shift_2d_input_grad",
+    "rubiks_shift_2d_shift_grad",
     "rubiks_shift_3d",
     "rubiks_shift_3d_forward",
+    "rubiks_shift_3d_input_grad",
+    "rubiks_shift_3d_shift_grad",
     "shift_tap_weights",
     "stack_block_params",
     "stack_block_params_aq",

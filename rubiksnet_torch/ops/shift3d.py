@@ -23,7 +23,10 @@ forward and inverse, ``csrc/shift_grad.cu``) stay callable as
 is unit-normalized per channel (:func:`normalize_shift_grad_3d`): the
 reference's rule, which is not the true derivative of the forward. A CUDA
 tensor runs the kernels and a CPU tensor the plain forms; ``plain=True``
-runs the plain forms on any device.
+runs the plain forms on any device. :func:`rubiks_shift_3d_input_grad` and
+:func:`rubiks_shift_3d_shift_grad` are the two gradients as public
+functions (the JAX package's signatures less ``backend`` and
+``max_shift``), routed by device in the same way.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ __all__ = [
     "normalize_shift_grad_3d",
     "rubiks_shift_3d",
     "rubiks_shift_3d_forward",
+    "rubiks_shift_3d_input_grad",
+    "rubiks_shift_3d_shift_grad",
     "shift3d_input_grad_kernel",
     "shift3d_input_grad_plain",
     "shift3d_bwd_plan",
@@ -750,6 +755,37 @@ def rubiks_shift_3d_forward(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
     _check_args(x, shift)
     return torch.ops.rubiksnet.shift3d_forward.default(
         x, shift, _triple(stride), _triple(padding), bool(quantize))
+
+
+@torch.no_grad()
+def rubiks_shift_3d_input_grad(og, shift, in_shape, stride=(1, 1, 1),
+                               padding=(0, 0, 0), quantize=False):
+    """Gradient of the forward with respect to x (of shape ``in_shape``)
+    for upstream og: the inverse shift. K1-inverse on its staged route for
+    a CUDA tensor (the shift widened to float32 first, as for a module cast
+    to bfloat16), the gather form for a CPU tensor; raises for any other
+    device."""
+    if _route(og, plain=False):
+        return shift3d_input_grad_kernel(
+            og.contiguous(), shift.float().contiguous(), tuple(in_shape),
+            _triple(stride), _triple(padding), bool(quantize))
+    return shift3d_input_grad_plain(og, shift, in_shape, stride, padding,
+                                    quantize)
+
+
+@torch.no_grad()
+def rubiks_shift_3d_shift_grad(og, x, shift, stride=(1, 1, 1),
+                               padding=(0, 0, 0)):
+    """Raw (un-normalized) (3, C) gradient with respect to the shift, in
+    float32 (float64 for float64 inputs): the formulas of
+    :func:`shift3d_shift_grad_plain`. K4 on its staged route for CUDA
+    tensors, the plain form for CPU tensors; raises for any other
+    device."""
+    if _route(x, plain=False):
+        return shift3d_shift_grad_kernel(
+            og.contiguous(), x.contiguous(), shift.float().contiguous(),
+            _triple(stride), _triple(padding))
+    return shift3d_shift_grad_plain(og, x, shift, stride, padding)
 
 
 class _RubiksShift3DFunction(torch.autograd.Function):

@@ -34,17 +34,16 @@ FRAMES_PER_VIDEO = (24, 48)
 REFERENCE_SEC_PER_VIDEO = {"1clip": 0.008, "2clip": 0.024}
 
 
-def write_video(folder, rng, tmpl=TMPL):
+def write_video(folder, rng, tmpl=TMPL, size=(FRAME_W, FRAME_H)):
     """One SSv2-like video in ``folder``: 24-48 frames (drawn from
-    ``rng``), 340x256 JPEGs at quality 87 named by ``tmpl`` from 1.
-    Returns the frame count."""
+    ``rng``), JPEGs of ``size`` (width, height; default 340x256) at
+    quality 87 named by ``tmpl`` from 1. Returns the frame count."""
     from PIL import Image
 
     os.makedirs(folder, exist_ok=True)
     frames = int(rng.randint(FRAMES_PER_VIDEO[0], FRAMES_PER_VIDEO[1] + 1))
     base = rng.randint(0, 200, (8, 11, 3)).astype(np.uint8)
-    img = np.asarray(Image.fromarray(base).resize((FRAME_W, FRAME_H),
-                                                   Image.BILINEAR))
+    img = np.asarray(Image.fromarray(base).resize(size, Image.BILINEAR))
     for f in range(1, frames + 1):
         jitter = rng.randint(-10, 10, (1, 1, 3))
         frame = np.clip(img.astype(np.int16) + jitter, 0, 255)
@@ -53,15 +52,17 @@ def write_video(folder, rng, tmpl=TMPL):
     return frames
 
 
-def generate_frames(root, videos, num_classes, seed=0):
+def generate_frames(root, videos, num_classes, seed=0,
+                    size=(FRAME_W, FRAME_H)):
     """``videos`` frame folders ``vid00000/00001.jpg ...`` under ``root``
-    and their list file ``root/val.txt`` (``<folder> <frames> <label>``).
-    Returns the list file's path."""
+    (frames of ``size``, :func:`write_video`) and their list file
+    ``root/val.txt`` (``<folder> <frames> <label>``). Returns the list
+    file's path."""
     rng = np.random.RandomState(seed)
     lines = []
     for vi in range(videos):
         name = f"vid{vi:05d}"
-        frames = write_video(os.path.join(root, name), rng)
+        frames = write_video(os.path.join(root, name), rng, size=size)
         lines.append(f"{name} {frames} {vi % num_classes}")
     list_file = os.path.join(root, "val.txt")
     with open(list_file, "w") as f:

@@ -1,10 +1,12 @@
 """Measurement and evaluation helpers of the PyTorch port."""
 
 from .benchmark import (
+    cuda_busy_ms,
     cuda_call_times_ms,
     cuda_kernel_times,
     cuda_queued_time_ms,
     cuda_time_ms,
+    host_call_times_ms,
     nvidia_smi_line,
 )
 from .metrics import (
@@ -16,6 +18,7 @@ from .metrics import (
 from .profiling import ThroughputMeter, Timer, trace
 
 __all__ = ["AverageMeter", "ThroughputMeter", "Timer", "confusion_matrix",
-           "cuda_call_times_ms", "cuda_kernel_times", "cuda_queued_time_ms",
-           "cuda_time_ms", "nvidia_smi_line", "per_class_accuracy",
-           "topk_accuracy", "trace"]
+           "cuda_busy_ms", "cuda_call_times_ms", "cuda_kernel_times",
+           "cuda_queued_time_ms", "cuda_time_ms", "host_call_times_ms",
+           "nvidia_smi_line", "per_class_accuracy", "topk_accuracy",
+           "trace"]

@@ -101,3 +101,69 @@ def cuda_kernel_times(fn, iters: int = 5, warmup: int = 2) -> dict:
         if out:
             return out
     raise RuntimeError("the profiler recorded no device time")
+
+
+def host_call_times_ms(fn, iters: int = 10, warmup: int = 2) -> list:
+    """Host wall time of each of ``iters`` calls of ``fn()`` in ms, after
+    ``warmup`` calls: the clock of a run on the CPU, where no device
+    timer exists."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def cuda_busy_ms(fn, iters: int = 5, trace_path=None) -> tuple:
+    """(device-busy ms per call, window ms per call, device records per
+    call) of ``iters`` back-to-back calls of ``fn()`` in one
+    ``torch.profiler`` window. Busy: the union of the intervals of every
+    kernel, copy and memset on the device, so work that overlaps
+    (programmatic dependent launch, side streams) counts once; a user
+    annotation's range on the device is not work and is left out. Window:
+    CUDA events around the same calls (the tracer's host cost shows there).
+    Writes the window's chrome
+    trace to ``trace_path`` when given. A window without device records is
+    taken again, at most four times; then it raises."""
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        if attempt:
+            time.sleep(0.25)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+        spans = sorted(
+            (evt.time_range.start, evt.time_range.end)
+            for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)
+            and evt.time_range.end > evt.time_range.start)
+        if not spans:
+            continue
+        if trace_path is not None:
+            prof.export_chrome_trace(str(trace_path))
+        return (union_length(spans) / 1e3 / iters,
+                start.elapsed_time(end) / iters, len(spans) / iters)
+    raise RuntimeError("the profiler recorded no device time")
+
+
+def union_length(spans) -> float:
+    """Length of the union of (start, end) intervals sorted by start."""
+    total, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            total += hi - lo
+            lo, hi = start, end
+        else:
+            hi = max(hi, end)
+    return total + hi - lo

@@ -5,13 +5,17 @@ weights and the 3-tap mix along T, and the layer.
 Tolerance: float32 rtol/atol 1e-6 (the same arithmetic; softmax and the
 standard deviation sum in another order); float64 at 1e-12."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from rubiksnet_torch.nn.layers import AttentionShift
-from rubiksnet_torch.ops import attention_shift as tas
+# The module: the package's own ``attention_shift`` is the function, as in
+# rubiksnet_tpu.ops.
+tas = importlib.import_module("rubiksnet_torch.ops.attention_shift")
 from rubiksnet_tpu.ops.attention_shift import attention_shift as jax_op
 from rubiksnet_tpu.ops.attention_shift import (
     attention_shift_weights as jax_weights,
