@@ -28,15 +28,28 @@ and 32 (bf16, 8 frames, 224x224). Then it trains: a tiny synthetic overfit
 through the kernels, one Large f32 train step through the kernels against
 the same step on the plain shift, the launches of one bf16 train step of
 each model, and train throughput (Large at batch 8, 16 and 32, Large-AQ
-and Small at batch 8). Before training, the evaluator
-(rubiksnet_torch.scripts.test_models) runs end to end on RubiksNet-Large in
-bf16 over 64 synthetic SSv2-like videos, 1-clip at batch 32 and 2-clip at
-batch 8, each with --prefetch 2 and 0: K2's and K3's plans at its 32 and
-48 clips checked first, its launches counted (47 K2 and 4 K3 a batch, one
-executor a run), the first batch against the plain model, the two runs'
-logits bit-identical, and its s/video, steady videos/s and host-wait share
-printed (the native loader where g++ finds libjpeg, else PIL, said on a
-line of its own). Last, the training entry points as a user runs them
+and Small at batch 8). Before training, phase 7: the device loader
+(rubiksnet_torch.data.device_loader: nvjpeg and the resize_crop_u8 kernel,
+built with the kernels, in parallel): (a) nvjpeg's probe and the frames
+by decode route; (c) nvjpeg against Pillow on frames of six sizes within
+DECODE_BOUND; (b) resize_crop_u8 against its plain version on that
+decode, 1 and 3 crops, upscales, downscales of every ksize and a portrait
+frame, bit-identical; then the evaluator (rubiksnet_torch.scripts.
+test_models) end to end on RubiksNet-Large in bf16 over 64 synthetic
+SSv2-like videos (340x256, which the loaders crop without resizing), 1-clip
+at batch 32 and 2-clip at batch 8, (d) with --loader device and (e) with
+the host's loader (native where g++ finds libjpeg, else PIL), each at
+--prefetch 2 and 0, then (d) again over 64 videos of the data bench's
+427x240 frames, which the device loader resizes: K2's and K3's plans at
+its 32 and 48 clips checked first, its launches counted (47 K2 and 4 K3 a
+batch, one resize_crop_u8 a batch with the device loader, one executor a
+run), each loader's first batch against the plain model, each loader's
+logits bit-identical across prefetch depths, (f) the two loaders' logits
+compared (informational), and each run's s/video, steady videos/s and
+host-wait share printed; resize_crop_u8 timed at a 1-clip batch of each
+frame size beside its plain version, the library's interpolate or sliced
+copy and the bound. Last, the
+training entry points as a user runs them
 (phase 9; RubiksNet-Large in float32, 8x224x224, batch 8):
 rubiksnet_torch.scripts.train on 48 synthetic clips (cosine schedule with
 warmup, checkpoints every 2 steps, validation at step 4), then --resume
@@ -100,7 +113,8 @@ plain first) and a Large bf16 train step at batch 8, each line correct,
 its launches a call those of the phases above, its mfu and busy share in
 (0, 1]; the shift microbench at 14x14x288, batch 64, every mode and route
 held against plain; the data-pipeline bench over 8 videos, the native
-loader built exactly where the toolchain probe says it can be. Every
+loader built exactly where the toolchain probe says it can be, the device
+loader built, its row within DECODE_BOUND of PIL's. Every
 process it starts (nvcc, the ranks, the serving process) is waited for,
 and it checks that none is left before the result lines. Fails (non-zero
 exit, no result line) on the first problem, and without a CUDA device.
@@ -113,7 +127,10 @@ and operations over the peak rate, from the shapes) and the time of the
 one PyTorch library call that computes the same function, where one
 exists (a depthwise convolution for the shifts); the rows of the kernels
 on phase 11's and phase 12's paths also carry their launches a rank there
-(parallel_launches, tensor_parallel_launches). K1's, K1-inverse's and
+(parallel_launches, tensor_parallel_launches); the last row is the
+device loader's resize_crop_u8 (its launches those of phase 7's device
+runs, its time at a 1-clip batch of the evaluator's 340x256 frames, with
+resize_* keys for 427x240 frames, which it resizes). K1's, K1-inverse's and
 K4's rows, K2's three and K3's two carry their device time by the profiler
 and the time of the route they replaced (for K1, K1-inverse and K4 their
 first forms, shift3d.cu and shift_grad.cu; for K2 and K3 in bf16 the SIMT
@@ -135,6 +152,7 @@ import json
 import math
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -172,9 +190,21 @@ TRAIN_WARMUP, TRAIN_ITERS = 2, 5
 # frame folders: (label, two clips, videos a batch, views a video). It
 # serves batch x views clips a batch, 32 and 48: K2's and K3's plans at
 # those clip counts are checked against plain before it runs.
-EVAL_VIDEOS = 64
+EVAL_VIDEOS, EVAL_SCALE = 64, 256
 EVAL_PROTOCOLS = (("1-clip", False, 32, 1), ("2-clip", True, 8, 6))
 EVAL_CLIPS = tuple(sorted({b * v for _, _, b, v in EVAL_PROTOCOLS}))
+# Phase 7 (b), (c): frames for resize_crop_u8's check against its plain
+# version and for nvjpeg against Pillow, (width, height, what it covers),
+# LOADER_COPIES JPEGs of each in one batch: no resize (the evaluator's
+# frames), upscales (ksize 3), a portrait frame, and downscales whose
+# triangle_coeffs ksize is 5 and 7.
+LOADER_FRAMES = ((340, 256, "the evaluator's frames, not resized"),
+                 (427, 240, "the raw SSv2 frames, up to 455x256"),
+                 (240, 320, "portrait, up to 256x341"),
+                 (200, 150, "below the scale, up to 341x256"),
+                 (480, 360, "down to 341x256, ksize 5"),
+                 (1280, 720, "down to 455x256, ksize 7"))
+LOADER_COPIES = 4
 
 # Tolerances (kernel vs its plain version on the same inputs):
 # * float32: max |err| / max |ref| <= 1e-4. Both sides compute in f32 and
@@ -1821,15 +1851,24 @@ def first_batch_vs_plain(label, args, result, bs, views, model, dev):
     """The run's first batch rebuilt through the evaluator's own dataset,
     normalized on the device and put through the plain model; its
     view-averaged logits against the run's (bf16, TOL_MODEL_BF16)."""
-    from rubiksnet_torch.data import batch_iterator
+    from rubiksnet_torch.data import (
+        batch_iterator,
+        device_batches_from_files,
+    )
     from rubiksnet_torch.models import INPUT_MEAN, INPUT_STD
     from rubiksnet_torch.scripts import test_models
 
     ds = test_models.build_dataset(args, log=lambda *a: None)[0]
-    video, _, valid = next(iter(batch_iterator(ds, bs, views, FRAMES)))
+    if args.loader == "device":
+        batch = next(iter(device_batches_from_files(ds, bs, views, FRAMES,
+                                                    device=dev)))
+        video, _ = batch.take()
+        valid = batch.valid
+    else:
+        host, _, valid = next(iter(batch_iterator(ds, bs, views, FRAMES)))
+        video = torch.from_numpy(host).to(dev)
     n = int(valid.sum())
-    flat = torch.from_numpy(video).to(dev).reshape(
-        (bs * views,) + video.shape[2:])
+    flat = video.reshape((bs * views,) + tuple(video.shape[2:]))
     mean = torch.tensor(INPUT_MEAN, device=dev)
     std = torch.tensor(INPUT_STD, device=dev)
     with torch.no_grad():
@@ -1862,33 +1901,310 @@ def loaders_agree(args, videos=4):
                for n, p in zip(clips("native"), clips("pil")))
 
 
+def loader_jpegs(seed=0, quality=90):
+    """LOADER_COPIES JPEGs of each LOADER_FRAMES size, smooth content from
+    ``seed`` (a low-resolution random base resized bilinear, as the data
+    benches write), as byte strings."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    blobs = []
+    for w, h, _ in LOADER_FRAMES:
+        for _ in range(LOADER_COPIES):
+            base = rng.randint(0, 255, (h // 8, w // 8, 3)).astype(np.uint8)
+            img = Image.fromarray(base).resize((w, h), Image.BILINEAR)
+            buf = io.BytesIO()
+            img.save(buf, format="JPEG", quality=quality)
+            blobs.append(buf.getvalue())
+    return blobs
+
+
+def loader_origins(sizes, crops):
+    """Per frame its protocol's crop origins at scale SCALE: the center
+    crop (1) or the 3 full-resolution crops, as the evaluation datasets
+    compute them."""
+    from rubiksnet_torch.data import device_loader
+    from rubiksnet_torch.data.native_eval import (
+        center_offset,
+        full_res_offsets,
+    )
+
+    out = []
+    for w, h, _ in sizes.tolist():
+        rw, rh = device_loader.resized_size(w, h, EVAL_SCALE)
+        out.append(full_res_offsets(rw, rh, SIZE) if crops == 3
+                   else [center_offset(rw, rh, SIZE)])
+    return out
+
+
+def check_loader(dev, name, smi):
+    """Phase 7 (a)-(c): the probe, nvjpeg's decode of LOADER_FRAMES against
+    Pillow's (per channel, DECODE_BOUND), and resize_crop_u8 against its
+    plain version on that decode, 1 and 3 crops, every frame size in one
+    batch, bit-identical (and the kernel twice bit-identically). Returns
+    the kernel's largest |error| (0)."""
+    from rubiksnet_torch.data import device_loader as dl
+
+    probe = dl.probe()
+    print(f"[loader] nvjpeg probe: {json.dumps(probe)}")
+    blobs = loader_jpegs()
+    dl.reset_counts()
+    rgb, sizes = dl.decode_batch(blobs, dev)
+    torch.cuda.synchronize()
+    rgb = rgb.clone()
+    print(f"[loader] (a) {len(blobs)} frames decoded; frames by backend "
+          f"{dict(dl.BACKEND_FRAMES)}; the hardware backend's "
+          f"nvjpegCreateEx status {dl.decoder_for(dev).hw_status} (0 = "
+          f"started; 7 = NVJPEG_STATUS_ARCH_MISMATCH), the other frames' "
+          f"route {dl.FALLBACK_ROUTE}")
+    decode_ok = True
+    for j, (w, h, what) in enumerate(LOADER_FRAMES):
+        idx = range(j * LOADER_COPIES, (j + 1) * LOADER_COPIES)
+        got = [rgb[int(sizes[i, 2]):int(sizes[i, 2]) + w * h * 3].view(
+            h, w, 3).cpu().numpy() for i in idx]
+        ref = [dl.plain_decode(blobs[i]) for i in idx]
+        d = dl.decode_diff(got, ref)
+        ok = d["within_bound"] and all(
+            tuple(sizes[i, :2]) == (w, h) for i in idx)
+        print(f"  (c) nvjpeg vs Pillow, {w}x{h} ({what}), scale 0: mean "
+              f"|diff| per channel {[round(v, 4) for v in d['mean_abs_diff']]}"
+              f", max {d['max_abs_diff']} [mean <= "
+              f"{dl.DECODE_BOUND['mean']}, max <= {dl.DECODE_BOUND['max']}] "
+              f"{'ok' if ok else 'FAIL'}")
+        decode_ok = decode_ok and ok
+    if not decode_ok:
+        fail("nvjpeg's decode outside the bound of Pillow's")
+    for crops in (1, 3):
+        origins = loader_origins(sizes, crops)
+        got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                             group=LOADER_COPIES)
+        again = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                               group=LOADER_COPIES)
+        ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                                   group=LOADER_COPIES)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref) and torch.equal(got, again)
+        worst = int((got.int() - ref.int()).abs().max())
+        print(f"  (b) resize_crop_u8 vs plain_resize_crop, {crops} crop"
+              f"{'s' if crops > 1 else ''} a frame, {len(blobs)} frames of "
+              f"{len(LOADER_FRAMES)} sizes in one launch, scale {EVAL_SCALE}"
+              f", crop {SIZE}: max |diff| {worst}, "
+              f"{'bit-identical' if same else 'DIFFER'} (rerun included)")
+        if not same:
+            fail(f"resize_crop_u8 differs from its plain version ({crops} "
+                 f"crops)")
+    return 0
+
+
+def library_resize_crop(rgb, sizes, origins):
+    """The library's version of ``resize_crop_u8`` on frames of one size,
+    one crop a frame: the frames as one strided (n, h, w, 3) view of the
+    decode buffer; where the frame is resized, F.interpolate (bilinear,
+    antialias=True: PIL's triangle filter, in float32 on the whole resized
+    frame) cut to the crop, rounded and cast back; else the sliced copy."""
+    import torch.nn.functional as F
+
+    from rubiksnet_torch.data import device_loader as dl
+
+    n = len(sizes)
+    w, h = (int(v) for v in sizes[0, :2])
+    step = int(sizes[1, 2] - sizes[0, 2]) if n > 1 else w * h * 3
+    src = rgb.as_strided((n, h, w, 3), (step, w * 3, 3, 1))
+    (x0, y0), = origins[0]
+    rw, rh = dl.resized_size(w, h, EVAL_SCALE)
+    if not dl.resizes(w, h, EVAL_SCALE):
+        return lambda: src[:, y0:y0 + SIZE, x0:x0 + SIZE].contiguous()
+
+    def library():
+        x = F.interpolate(src.permute(0, 3, 1, 2).float(), size=(rh, rw),
+                          mode="bilinear", antialias=True,
+                          align_corners=False)
+        x = x[:, :, y0:y0 + SIZE, x0:x0 + SIZE].round().clamp(0, 255)
+        return x.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
+    return library
+
+
+def time_loader_kernel(dev, launches, name, smi):
+    """resize_crop_u8's row of the JSON line, returned. At a 1-clip batch
+    of the evaluator (EVAL_PROTOCOLS[0]'s videos x FRAMES frames, the center
+    crop at scale EVAL_SCALE), for each frame size the main path gives it:
+    427x240, the data bench's frames, resized to 455x256 (the row's own
+    keys), and 340x256, the evaluator's, only cropped (the copy_* keys).
+    Each: the kernel by events around the wrapper's calls (the tables'
+    upload included) and on the device by the profiler (``device_ms_by``
+    says where events stood in), the plain version, the bound, and the
+    library's version (``library_resize_crop``) by events and on the
+    device, with its largest difference to the kernel (informational)."""
+    from rubiksnet_torch.data import device_loader as dl
+    from rubiksnet_torch.utils import cuda_time_ms
+    from rubiksnet_torch.utils.roofline import (
+        resize_crop_bound_ms,
+        resize_crop_work,
+    )
+
+    frames = EVAL_PROTOCOLS[0][2] * FRAMES
+    row = {}
+    for key, (w, h) in (("", (427, 240)), ("copy_", (340, 256))):
+        rng = np.random.RandomState(1)
+        pix = rng.randint(0, 256, (frames, h, w, 3)).astype(np.uint8)
+        rgb, sizes = dl.pack_frames(list(pix), dev)
+        origins = loader_origins(sizes, 1)
+        got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins)
+        ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins)
+        if not torch.equal(got, ref):
+            fail(f"resize_crop_u8 differs from plain at {frames} {w}x{h}")
+
+        def kernel():
+            return dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins)
+
+        ms = cuda_time_ms(kernel)
+        # One call: the tables' copy to the card and the kernel.
+        dev_ms, seen = profiled_ms(kernel, "resize_crop_u8",
+                                   f"resize_crop_u8 {w}x{h}", expect=2)
+        plain_ms = cuda_time_ms(lambda: dl.plain_resize_crop(
+            rgb, sizes, EVAL_SCALE, SIZE, origins), iters=2, warmup=1)
+        library = library_resize_crop(rgb, sizes, origins)
+        lib_diff = int((library().int() - got.int()).abs().max())
+        lib_ms = cuda_time_ms(library)
+        lib_dev_ms, lib_seen = profiled_ms(library, "",
+                                           f"library resize {w}x{h}")
+        tb, to = resize_crop_bound_ms(resize_crop_work(
+            sizes, EVAL_SCALE, SIZE, origins))
+        by = "profiler" if seen is not None else "events"
+        lib_by = "profiler" if lib_seen is not None else "events"
+        row.update({f"{key}ms": ms, f"{key}device_ms": dev_ms,
+                    f"{key}device_ms_by": by,
+                    f"{key}plain_ms": plain_ms,
+                    f"{key}bound_ms": max(tb, to),
+                    f"{key}bound_by": "bytes" if tb >= to else "operations",
+                    f"{key}library_ms": lib_ms,
+                    f"{key}library_device_ms": lib_dev_ms,
+                    f"{key}library_device_ms_by": lib_by,
+                    f"{key}frames": f"{frames} of {w}x{h}"})
+        what = ("F.interpolate(bilinear, antialias) on the resized frame, "
+                "the crop and the casts" if dl.resizes(w, h, EVAL_SCALE)
+                else "the sliced copy")
+        print(f"[loader] resize_crop_u8, {frames} frames of {w}x{h}, scale "
+              f"{EVAL_SCALE}, center crop {SIZE}: kernel {ms:.4f} ms by "
+              f"events around the wrapper's calls (its host work included), "
+              f"{dev_ms:.4f} ms on the device (by the {by}), plain "
+              f"{plain_ms:.4f} ms, library ({what}) {lib_ms:.4f} ms by "
+              f"events, {lib_dev_ms:.4f} ms on the device (by the {lib_by}),"
+              f" max |diff| to the kernel {lib_diff} (informational), bound "
+              f"{max(tb, to):.4f} ms ({'bytes' if tb >= to else 'operations'}"
+              f"; bytes {tb:.4f}, float64 operations {to:.4f}) ({name}, "
+              f"{smi})")
+    return {
+        "name": "resize_crop_u8", "route": "cuda",
+        "source": "rubiksnet_torch/data/csrc/device_loader.cu",
+        "replaces": "native/rubiks_loader.cpp:121", "launches": launches,
+        "max_abs_err": 0, **row}
+
+
+def eval_runs(label, two_clips, bs, views, runs, ckpt, list_file, root, dev,
+              name, smi, plain):
+    """One protocol of the evaluator over one video set, a run for each
+    (loader, --prefetch) of ``runs``: launches counted and checked (K2 47
+    and K3 4 a batch, one executor, one resize_crop_u8 a batch with the
+    device loader), logits finite, stats printed; then for each loader its
+    first batch against the plain model and its logits of --prefetch 2
+    and 0 bit-identical. Returns ({run: result}, {run: parsed arguments},
+    resize_crop_u8 launches)."""
+    from rubiksnet_torch.data import device_loader
+    from rubiksnet_torch.scripts import eval_throughput, test_models
+
+    results, argv, launches = {}, {}, 0
+    proto = label.split()[0].replace("-", "")
+    for run in runs:
+        loader, depth = run
+        argv[run] = test_models.build_parser().parse_args(
+            eval_throughput.evaluator_args(
+                ckpt, list_file, root, CLASSES, FRAMES, bs, two_clips,
+                loader=loader, prefetch=depth))
+        device_loader.reset_counts()
+        with executors_built() as built:
+            result, counts = counted(lambda: test_models.evaluate(
+                argv[run], log=eval_log if run == runs[0]
+                else lambda *a: None))
+        results[run] = result
+        st, batches = result["stats"], result["batches"]
+        want = dict.fromkeys(counts, 0)
+        want.update(fused_block=47 * batches, fused_entry=4 * batches)
+        resizes = device_loader.LAUNCHES.count
+        lg = result["logits"]
+        print(f"  {label} {loader} --prefetch {depth}: {batches} batches, "
+              f"executors built {len(built)}, launches {counts} (K2 "
+              f"{counts['fused_block'] / batches:g}, K3 "
+              f"{counts['fused_entry'] / batches:g} a batch), resize_crop_u8"
+              f" {resizes}, frames by decode route "
+              f"{dict(device_loader.BACKEND_FRAMES)}")
+        if counts != want or len(built) != 1 or st["loader"] != loader:
+            fail(f"evaluator {label} {loader}: launches {counts} != {want}, "
+                 f"{len(built)} executors or loader {st['loader']}")
+        if resizes != (batches if loader == "device" else 0):
+            fail(f"evaluator {label} {loader}: {resizes} resize_crop_u8 "
+                 f"launches in {batches} batches")
+        launches += resizes
+        if lg.shape != (EVAL_VIDEOS, CLASSES) or not (
+                torch.isfinite(torch.from_numpy(lg)).all()):
+            fail(f"evaluator {label}: bad logits {lg.shape}")
+        print(f"[eval] {label}, batch {bs} ({bs * views} clips), {loader} "
+              f"loader, --prefetch {depth}: {st['sec_per_video']:.5f} "
+              f"s/video ({st['videos']} videos in {st['wall_s']:.3f} s, "
+              f"first batch {st['first_batch_s']:.3f} s), steady "
+              f"{st['steady_videos_per_s']:.2f} videos/s "
+              f"({st['steady_sec_per_video']:.5f} s/video), host-wait share "
+              f"{st['host_wait_frac']:.3f}, device step+fetch share "
+              f"{st['device_frac']:.3f} ({name}, {smi}); the reference's "
+              f"eval log: "
+              f"{eval_throughput.REFERENCE_SEC_PER_VIDEO[proto]} s/video "
+              f"(unspecified GPU)")
+    for loader in dict.fromkeys(loader for loader, _ in runs):
+        first_batch_vs_plain(f"{label} {loader}", argv[(loader, 2)],
+                             results[(loader, 2)], bs, views, plain, dev)
+        same = (results[(loader, 2)]["logits"]
+                == results[(loader, 0)]["logits"]).all()
+        print(f"  {label}: {loader} loader logits of --prefetch 2 and "
+              f"--prefetch 0 {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            fail(f"evaluator {label} {loader}: --prefetch 2 and 0 disagree")
+    return results, argv, launches
+
+
 def eval_phase(dev, name, smi):
     """The evaluator end to end on RubiksNet-Large, bf16, 8 frames at 224:
-    EVAL_VIDEOS synthetic SSv2-like videos (340x256 JPEGs at quality 87,
-    24-48 frames, seed 0), a random checkpoint (seed 0, BN statistics
-    randomized), each protocol run with --prefetch 2 and 0 through
-    ``test_models.evaluate`` as a user runs it (uint8 clips normalized on
-    the device, one held executor). The loader follows the probe made
-    before the phase: native where g++ finds libjpeg, else PIL."""
+    first the device loader's kernel and decode (``check_loader``), then a
+    random checkpoint (seed 0, BN statistics randomized) and each protocol
+    run through ``test_models.evaluate`` as a user runs it (uint8 clips
+    normalized on the device, one held executor): over EVAL_VIDEOS
+    synthetic SSv2-like videos (340x256 JPEGs at quality 87, 24-48 frames,
+    seed 0) (d) with --loader device and (e) with the host's loader (native
+    where g++ finds libjpeg, else PIL), each at --prefetch 2 and 0, and (f)
+    the two loaders' logits compared; then over EVAL_VIDEOS videos of the
+    data bench's frames (427x240 at quality 95, 2 x FRAMES frames, which
+    the device loader resizes) (d) again. Returns resize_crop_u8's
+    launches in the device runs."""
     import tempfile
 
     from rubiksnet_torch.data import native_loader
     from rubiksnet_torch.models import load_pretrained, save_pretrained
     from rubiksnet_torch.models.rubiksnet import create_rubiksnet
-    from rubiksnet_torch.scripts import eval_throughput, test_models
+    from rubiksnet_torch.scripts import data_pipeline_bench, eval_throughput
 
     if importlib.util.find_spec("PIL") is None:
         fail("Pillow is missing: the evaluator phase cannot write its frames")
+    check_loader(dev, name, smi)
     native = native_loader.toolchain_present()
-    loader = "native" if native else "pil"
+    host = "native" if native else "pil"
     print(f"[eval] the evaluator, RubiksNet-Large bf16, {FRAMES}x{SIZE}x"
-          f"{SIZE}, {EVAL_VIDEOS} synthetic videos, loader {loader} "
-          f"({name}, {smi})")
+          f"{SIZE}, {EVAL_VIDEOS} synthetic videos, loaders device and "
+          f"{host} ({name}, {smi})")
     if not native:
-        print("[eval] loader: pil, because g++ finds no libjpeg header or "
-              "library on this machine; the native loader is held against "
-              "the PIL path on the CPU only (tests/test_torch_native_"
-              "loader.py)")
+        print("[eval] host loader: pil, because g++ finds no libjpeg header "
+              "or library on this machine; the native loader is held "
+              "against the PIL path on the CPU only (tests/test_torch_"
+              "native_loader.py)")
     for clips in EVAL_CLIPS:
         plans = [f"{h}x{h}x{c} " + checked_plan(
             (clips, FRAMES, h, h, c), False, False, dev).describe()
@@ -1898,10 +2214,14 @@ def eval_phase(dev, name, smi):
                    for h, cin, cm in ENTRY_SHAPES]
         print(f"  K2 and K3 plans at {clips} clips, each checked against "
               f"plain: " + "; ".join(plans + entries))
+    launches = 0
     with tempfile.TemporaryDirectory(prefix="rubiks_eval_") as root:
         t0 = time.perf_counter()
         list_file = eval_throughput.generate_frames(root, EVAL_VIDEOS,
                                                     CLASSES, seed=0)
+        resized_root = os.path.join(root, "resized")
+        resized_list = data_pipeline_bench.make_frames(
+            resized_root, EVAL_VIDEOS, 2 * FRAMES)
         model = create_rubiksnet("large", CLASSES, FRAMES,
                                  max_shift=MAX_SHIFT, device="cpu",
                                  generator=torch.Generator().manual_seed(0))
@@ -1911,58 +2231,39 @@ def eval_phase(dev, name, smi):
         plain = load_pretrained(ckpt, device=dev, dtype=torch.bfloat16)
         print(f"  wrote the videos and the checkpoint in "
               f"{time.perf_counter() - t0:.1f} s")
+        both = (("device", 2), ("device", 0), (host, 2), (host, 0))
         for label, two_clips, bs, views in EVAL_PROTOCOLS:
-            results = {}
-            for depth in (2, 0):
-                args = test_models.build_parser().parse_args(
-                    eval_throughput.evaluator_args(
-                        ckpt, list_file, root, CLASSES, FRAMES, bs,
-                        two_clips, loader=loader, prefetch=depth))
-                with executors_built() as built:
-                    result, counts = counted(lambda: test_models.evaluate(
-                        args, log=eval_log if depth else lambda *a: None))
-                results[depth] = result
-                st, batches = result["stats"], result["batches"]
-                want = dict.fromkeys(counts, 0)
-                want.update(fused_block=47 * batches,
-                            fused_entry=4 * batches)
-                lg = result["logits"]
-                print(f"  {label} --prefetch {depth}: {batches} batches, "
-                      f"executors built {len(built)}, launches {counts} "
-                      f"(K2 {counts['fused_block'] / batches:g}, K3 "
-                      f"{counts['fused_entry'] / batches:g} a batch)")
-                if counts != want or len(built) != 1:
-                    fail(f"evaluator {label}: launches {counts} != {want} "
-                         f"or {len(built)} executors")
-                if lg.shape != (EVAL_VIDEOS, CLASSES) or not (
-                        torch.isfinite(torch.from_numpy(lg)).all()):
-                    fail(f"evaluator {label}: bad logits {lg.shape}")
-                print(f"[eval] {label}, batch {bs} ({bs * views} clips), "
-                      f"{loader} loader, --prefetch {depth}: "
-                      f"{st['sec_per_video']:.5f} s/video ({st['videos']} "
-                      f"videos in {st['wall_s']:.3f} s, first batch "
-                      f"{st['first_batch_s']:.3f} s), steady "
-                      f"{st['steady_videos_per_s']:.2f} videos/s "
-                      f"({st['steady_sec_per_video']:.5f} s/video), "
-                      f"host-wait share {st['host_wait_frac']:.3f}, device "
-                      f"step+fetch share {st['device_frac']:.3f} ({name}, "
-                      f"{smi}); the reference's eval log: "
-                      f"{eval_throughput.REFERENCE_SEC_PER_VIDEO[label.replace('-', '')]} "
-                      f"s/video (unspecified GPU)")
-            first_batch_vs_plain(label, args, results[2], bs, views, plain,
-                                 dev)
-            same = (results[2]["logits"] == results[0]["logits"]).all()
-            print(f"  {label}: logits of --prefetch 2 and --prefetch 0 "
-                  f"{'bit-identical' if same else 'DIFFER'}")
-            if not same:
-                fail(f"evaluator {label}: --prefetch 2 and 0 disagree")
+            results, argv, n = eval_runs(label, two_clips, bs, views, both,
+                                         ckpt, list_file, root, dev, name,
+                                         smi, plain)
+            launches += n
+            dev2 = results[("device", 2)]["logits"]
+            other = results[(host, 2)]["logits"]
+            agree = float((dev2.argmax(1) == other.argmax(1)).mean())
+            _, _, rel = errors(torch.from_numpy(dev2),
+                               torch.from_numpy(other))
+            print(f"  {label}: device vs {host} loader logits (random "
+                  f"weights, informational): max |diff| "
+                  f"{float(np.abs(dev2 - other).max()):.4e}, rel_l2 "
+                  f"{rel:.3e}, top-1 agreement {agree:.4f}")
             if native:
-                worst = loaders_agree(args)
+                worst = loaders_agree(argv[(host, 2)])
                 print(f"  {label}: native vs PIL uint8 clips, 4 videos: max "
                       f"|diff| {worst} [<= 1] {'ok' if worst <= 1 else 'FAIL'}")
                 if worst > 1:
                     fail(f"evaluator {label}: native and PIL clips differ")
+        print(f"[eval] the device loader over {EVAL_VIDEOS} videos of "
+              f"{data_pipeline_bench.FRAME_SIZE[0]}x"
+              f"{data_pipeline_bench.FRAME_SIZE[1]} frames (the data bench's, "
+              f"resized to 455x256 before the crops)")
+        for label, two_clips, bs, views in EVAL_PROTOCOLS:
+            _, _, n = eval_runs(f"{label} 427x240", two_clips, bs, views,
+                                (("device", 2), ("device", 0)), ckpt,
+                                resized_list, resized_root, dev, name, smi,
+                                plain)
+            launches += n
         del plain
+    return launches
 
 
 # Phase 9: the training entry points, Large rubiks3d at full width, float32
@@ -3598,6 +3899,18 @@ def measurement_phase(errs, gen, cpu_gen, dev, name, smi):
     if line["native_built"] != built:
         fail(f"data_pipeline_bench: native built {line['native_built']}, "
              f"the toolchain probe says {built}")
+    if line["device_built"] is not True:
+        fail("data_pipeline_bench: the device loader did not build")
+    for proto, entry in line["protocols"].items():
+        row = entry["device"]
+        print(f"  data_pipeline_bench {proto} device: "
+              f"{row['ms_per_frame']:.4f} ms a frame, "
+              f"{row['sec_per_video']:.5f} s/video, batches of "
+              f"{row['batch_videos']} videos, {row['launches']} launches, "
+              f"frames by route {row['backend_frames']}, against PIL mean "
+              f"|diff| {row['mean_abs_diff']} max {row['max_abs_diff']}; PIL "
+              f"{entry['pil']['ms_per_frame']:.4f} ms a frame ({name}, "
+              f"{smi})")
     print(f"[measure] phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3605,6 +3918,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from rubiksnet_torch.data import device_loader
     from rubiksnet_torch.ops import _build
     from rubiksnet_torch.ops.fused_block import (
         fused_block_kernel,
@@ -3631,11 +3945,31 @@ def main() -> int:
           f"{torch.version.cuda}; count {torch.cuda.device_count()}")
     print(f"[device] nvidia-smi name, power.limit: {smi}")
 
-    # Phase 2: build.
+    # Phase 2: build: the kernels' library (one nvcc a source) and, at the
+    # same time, the device loader's (device_loader.cu with nvjpeg).
+    if not device_loader.toolchain_present():
+        fail(f"the device loader needs nvcc and nvjpeg's header or library: "
+             f"{json.dumps(device_loader.nvjpeg_files())}")
     t0 = time.perf_counter()
+    loader_build = {}
+
+    def build_loader():
+        try:
+            device_loader.load_library()
+        except BaseException as err:  # re-raised below
+            loader_build["error"] = err
+        loader_build["s"] = time.perf_counter() - t0
+
+    loader_thread = threading.Thread(target=build_loader)
+    loader_thread.start()
     _build.load_library()
-    print(f"[build] kernels built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+    kernels_s = time.perf_counter() - t0
+    loader_thread.join()
+    if "error" in loader_build:
+        raise loader_build["error"]
+    print(f"[build] kernels built and loaded in {kernels_s:.1f} s, the "
+          f"device loader (nvjpeg, resize_crop_u8) in {loader_build['s']:.1f}"
+          f" s, in parallel")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
@@ -3738,8 +4072,10 @@ def main() -> int:
               f"{time.perf_counter() - started:.0f} s")
     small_aq_check(dev, gen)
 
-    # Phase 7: the evaluator end to end, its launches counted per run.
-    eval_phase(dev, name, smi)
+    # Phase 7: the device loader's kernel and decode, then the evaluator
+    # end to end, its launches counted per run.
+    loader_row = time_loader_kernel(dev, eval_phase(dev, name, smi), name,
+                                    smi)
     torch.cuda.empty_cache()
     print(f"[clock] evaluator done at {time.perf_counter() - started:.0f} s")
 
@@ -3824,6 +4160,9 @@ def main() -> int:
             kernels[-1].update(parallel_launches=parallel_launches[k])
         if k in tp_launches:
             kernels[-1].update(tensor_parallel_launches=tp_launches[k])
+    if loader_row["launches"] < 1:
+        fail("kernel resize_crop_u8 was not launched on its main path")
+    kernels.append(loader_row)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from .rubiksnet import (
     INPUT_SIZE,
     INPUT_STD,
     TIERS,
+    VARIANTS,
     RubiksNet,
     create_rubiksnet,
     from_ntchw,
@@ -24,6 +25,7 @@ __all__ = [
     "FusedExecutor",
     "RubiksNet",
     "TIERS",
+    "VARIANTS",
     "create_rubiksnet",
     "from_ntchw",
     "fused_infer_apply",

@@ -1,8 +1,10 @@
 """End-to-end evaluator throughput on synthetic frame folders.
 
 Counterpart of scripts/eval_throughput.py: writes a seeded SSv2-like
-validation set (340x256 JPEGs at quality 87, 24-48 frames a video, smooth
-low-frequency content that decodes like natural video), saves a
+validation set (340x256 JPEGs at quality 87, smooth low-frequency content
+that decodes like natural video; ``--frames-per-video`` frames a video,
+default 16: the JAX script's files byte for byte; 0 draws 24-48 a video,
+the frames of ``chip_smoke.py``'s evaluator phase), saves a
 random-weight checkpoint of ``--tier`` (seed 0), and runs the port's
 evaluator (``test_models.evaluate``) on it once for 1 clip and once for 2
 clips: decode, transform, prefetch, the pinned copy on a side stream, the
@@ -13,7 +15,8 @@ with the device's name; the reference's eval logs read 0.008 (1 clip) and
 registry layout, for the training script.
 
 Usage: python -m rubiksnet_torch.scripts.eval_throughput [--videos 96]
-       [--device cpu] [--out stats.json]
+       [--frames-per-video 16] [--loader device] [--device cpu]
+       [--out stats.json]
 """
 
 from __future__ import annotations
@@ -34,14 +37,18 @@ FRAMES_PER_VIDEO = (24, 48)
 REFERENCE_SEC_PER_VIDEO = {"1clip": 0.008, "2clip": 0.024}
 
 
-def write_video(folder, rng, tmpl=TMPL, size=(FRAME_W, FRAME_H)):
-    """One SSv2-like video in ``folder``: 24-48 frames (drawn from
-    ``rng``), JPEGs of ``size`` (width, height; default 340x256) at
-    quality 87 named by ``tmpl`` from 1. Returns the frame count."""
+def write_video(folder, rng, tmpl=TMPL, size=(FRAME_W, FRAME_H),
+                frames=None):
+    """One SSv2-like video in ``folder``: ``frames`` frames (None: 24-48,
+    drawn from ``rng`` first), JPEGs of ``size`` (width, height; default
+    340x256) at quality 87 named by ``tmpl`` from 1. Returns the frame
+    count."""
     from PIL import Image
 
     os.makedirs(folder, exist_ok=True)
-    frames = int(rng.randint(FRAMES_PER_VIDEO[0], FRAMES_PER_VIDEO[1] + 1))
+    if frames is None:
+        frames = int(rng.randint(FRAMES_PER_VIDEO[0],
+                                 FRAMES_PER_VIDEO[1] + 1))
     base = rng.randint(0, 200, (8, 11, 3)).astype(np.uint8)
     img = np.asarray(Image.fromarray(base).resize(size, Image.BILINEAR))
     for f in range(1, frames + 1):
@@ -53,16 +60,18 @@ def write_video(folder, rng, tmpl=TMPL, size=(FRAME_W, FRAME_H)):
 
 
 def generate_frames(root, videos, num_classes, seed=0,
-                    size=(FRAME_W, FRAME_H)):
+                    size=(FRAME_W, FRAME_H), frames_per_video=None):
     """``videos`` frame folders ``vid00000/00001.jpg ...`` under ``root``
-    (frames of ``size``, :func:`write_video`) and their list file
-    ``root/val.txt`` (``<folder> <frames> <label>``). Returns the list
-    file's path."""
+    (frames of ``size``, :func:`write_video`; ``frames_per_video`` a video,
+    None to draw 24-48) and their list file ``root/val.txt`` (``<folder>
+    <frames> <label>``). With a frame count and the default size these are
+    scripts/eval_throughput.py's files. Returns the list file's path."""
     rng = np.random.RandomState(seed)
     lines = []
     for vi in range(videos):
         name = f"vid{vi:05d}"
-        frames = write_video(os.path.join(root, name), rng, size=size)
+        frames = write_video(os.path.join(root, name), rng, size=size,
+                             frames=frames_per_video)
         lines.append(f"{name} {frames} {vi % num_classes}")
     list_file = os.path.join(root, "val.txt")
     with open(list_file, "w") as f:
@@ -122,11 +131,14 @@ def main(argv=None):
                    help="write both protocols' stats to this JSON path")
     p.add_argument("--tier", default="large")
     p.add_argument("--videos", type=int, default=96)
+    p.add_argument("--frames-per-video", type=int, default=16,
+                   help="frames written a video (scripts/eval_throughput."
+                        "py's default); 0 draws 24-48 a video")
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--num-classes", type=int, default=174)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--loader", default="auto",
-                   choices=["auto", "pil", "native"])
+                   choices=["auto", "pil", "native", "device"])
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA card")
     p.add_argument("--keep", action="store_true",
@@ -141,7 +153,9 @@ def main(argv=None):
     work = tempfile.mkdtemp(prefix="rubiks_eval_tp_")
     try:
         t0 = time.time()
-        list_file = generate_frames(work, args.videos, args.num_classes)
+        list_file = generate_frames(work, args.videos, args.num_classes,
+                                    frames_per_video=args.frames_per_video
+                                    or None)
         print(f"=> generated {args.videos} videos in {time.time() - t0:.1f}s")
         model = create_rubiksnet(args.tier, args.num_classes, args.frames,
                                  max_shift=1, device="cpu",
@@ -158,7 +172,8 @@ def main(argv=None):
         out = {
             "synthetic_set": {
                 "videos": args.videos,
-                "frames_per_video": list(FRAMES_PER_VIDEO),
+                "frames_per_video": (args.frames_per_video
+                                     or list(FRAMES_PER_VIDEO)),
                 "resolution": f"{FRAME_W}x{FRAME_H} jpeg q{QUALITY}",
             },
             "tier": args.tier,

@@ -9,8 +9,14 @@ reference's log lines, and the same ``--stats-out`` keys.
 On the card the run holds one FusedExecutor (K2 and K3 in every batch),
 and each batch is staged in pinned memory and copied on a side stream one
 batch ahead of the model (``data/device.py``), inside the prefetch thread.
-Clips travel as uint8 and are normalized on the device, with either loader,
-unless ``--host-normalize``. Weights come from a reference-format
+Clips travel as uint8 and are normalized on the device, with every loader,
+unless ``--host-normalize``. ``--loader device`` decodes, resizes and crops
+on the card (nvjpeg and the ``resize_crop_u8`` kernel,
+``data/device_loader.py``): the batch's files are read on the host and the
+clips never exist there, so it refuses ``--host-normalize``. ``--loader
+auto`` takes the native loader where it builds, else the device loader
+where the evaluation device is a card (a failed build there raises), else
+PIL. Weights come from a reference-format
 ``.pth.tar`` (``load_pretrained``).
 
 Under ``torchrun`` (a world size above 1) the batch is sharded, as the JAX
@@ -37,6 +43,7 @@ import torch
 
 from ..data import (
     Compose,
+    DeviceEvalDataset,
     GroupCenterCrop,
     GroupFullResSample,
     GroupNormalize,
@@ -48,6 +55,8 @@ from ..data import (
     ToClipArray,
     batch_iterator,
     device_batches,
+    device_batches_from_files,
+    device_loader,
     native_loader,
     prefetch,
     return_dataset,
@@ -95,10 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--loader", default="auto",
-                        choices=["auto", "pil", "native"],
-                        help="'native' uses the C++ libjpeg pipeline (and "
-                             "raises where it cannot be built); 'auto' "
-                             "picks native where it builds")
+                        choices=["auto", "pil", "native", "device"],
+                        help="'native' uses the C++ libjpeg pipeline, "
+                             "'device' nvjpeg and a CUDA resize-and-crop "
+                             "kernel on the card (each raises where it "
+                             "cannot be built); 'auto' picks native where "
+                             "it builds, else device on a card, else pil")
     parser.add_argument("--prefetch", type=int, default=2,
                         help="batches decoded and copied ahead on a "
                              "background thread (0 disables)")
@@ -116,12 +127,31 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def choose_loader(args, device) -> str:
+    """The loader of ``args.loader`` on ``device``: 'auto' is native where
+    it builds, else device where ``device`` is a card, else pil."""
+    if args.loader != "auto":
+        return args.loader
+    if native_loader.available():
+        return "native"
+    return "device" if device.type == "cuda" else "pil"
+
+
 def build_dataset(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE,
-                  log=print):
+                  log=print, device=None):
     """The evaluation dataset of ``args``: -> (dataset, num_classes,
     num_views, loader name, device_normalize). Its clips are
-    (num_views * frames, crop, crop, 3), uint8 unless ``--host-normalize``.
+    (num_views * frames, crop, crop, 3), uint8 unless ``--host-normalize``;
+    with the device loader, a :class:`DeviceEvalDataset` whose batches
+    :func:`device_batches_from_files` makes on ``device`` (default
+    ``args.device``, else the card).
     """
+    device = (torch.device(device) if device is not None
+              else resolve_device(args.device))
+    loader = choose_loader(args, device)
+    if loader == "device" and args.host_normalize:
+        raise ValueError("--loader device makes its clips on the card: "
+                         "--host-normalize cannot apply")
     if args.val_list:
         if not args.num_classes:
             raise ValueError("--val-list requires --num-classes")
@@ -150,28 +180,32 @@ def build_dataset(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE,
     steps = [cropping, Stack(roll=False)]
     if not device_norm:
         steps += [ToClipArray(div=True), GroupNormalize(INPUT_MEAN, INPUT_STD)]
-    use_native = args.loader == "native" or (
-        args.loader == "auto" and native_loader.available())
     dataset = RubiksDataset(
         root_path, val_list, num_segments=args.frames, new_length=1,
         image_tmpl=prefix, test_mode=True, remove_missing=True,
-        transform=None if use_native else Compose(steps),
+        transform=Compose(steps) if loader == "pil" else None,
         dense_sample=False, twice_sample=twice_sample)
     if args.limit:
         dataset.video_list = dataset.video_list[: args.limit]
-    if use_native:
+    if loader == "native":
         log("=> loader: native (C++ libjpeg pipeline)")
         dataset = NativeEvalDataset(
             dataset, scale_size, crop_size, INPUT_MEAN, INPUT_STD,
             two_clips=args.two_clips,
             out_dtype="uint8" if device_norm else "float32")
+    elif loader == "device":
+        if device.type == "cuda":
+            device_loader.load_library()  # raises where it cannot be built
+        log(f"=> loader: device (nvjpeg decode, CUDA resize and crop, on "
+            f"{device})")
+        dataset = DeviceEvalDataset(dataset, scale_size, crop_size,
+                                    two_clips=args.two_clips)
     else:
         log("=> loader: pil")
     if device_norm:
         log("=> input: raw uint8, normalized on device")
     log(f"=> videos: {len(dataset)}")
-    return (dataset, num_classes, num_views, "native" if use_native else "pil",
-            device_norm)
+    return dataset, num_classes, num_views, loader, device_norm
 
 
 def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
@@ -188,7 +222,7 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     rank, world = group_rank(group), group_size(group)
     log = rank0_log(log, group)
     dataset, num_classes, num_views, loader, device_norm = build_dataset(
-        args, crop_size, scale_size, log)
+        args, crop_size, scale_size, log, device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = load_pretrained(args.pretrained, device=device, dtype=dtype)
     log(f"=> tier: {model.tier}")
@@ -208,10 +242,14 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     host_wait = device_time = 0.0
     first_batch_s = None  # host + device of batch 0 (warm-up)
     seen = first_videos = batches = 0
-    feed = device_batches(
-        batch_iterator(dataset, args.batch_size, num_views, args.frames,
-                       rank=rank, world=world),
-        device)
+    if loader == "device":
+        feed = device_batches_from_files(dataset, args.batch_size, num_views,
+                                         args.frames, rank, world, device)
+    else:
+        feed = device_batches(
+            batch_iterator(dataset, args.batch_size, num_views, args.frames,
+                           rank=rank, world=world),
+            device)
     if args.prefetch > 0:
         feed = prefetch(feed, depth=args.prefetch)
     try:

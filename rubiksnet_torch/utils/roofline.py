@@ -26,6 +26,9 @@ import torch.nn.functional as F
 # matrix products of bf16 operands at the tensor-core peak, everything else
 # (interpolation weights, bn, relu, sums) at the float32 peak.
 HBM_BYTES_PER_S, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# float64 outside the tensor cores (the same data sheet: 34 TFLOP/s): the
+# rate of the device loader's resize, which sums in double.
+PEAK_F64 = 34e12
 FRAMES = 8  # frames a clip in the per-kernel counts below
 FLOPS_PER_CORNER = 4  # weight product and multiply-add per corner read
 
@@ -82,6 +85,61 @@ def bound_times_ms(work, dtype):
     nbytes, mm, other = work
     return (1e3 * nbytes / HBM_BYTES_PER_S,
             1e3 * (mm / peak_flops(dtype) + other / PEAK_F32))
+
+
+def resize_crop_work(sizes, scale_size, crop_size, origins):
+    """The device loader's ``resize_crop_u8`` on one batch (``sizes``,
+    ``origins`` as ``data.device_loader.resize_crop`` takes them): (bytes,
+    float64 operations). Bytes: each output byte written once and, per
+    frame, each source byte its crops' taps reach read once (the union of
+    their footprints). Operations: per output byte of a resized frame a
+    multiply and an add per horizontal tap of each vertical tap, a multiply
+    and an add per vertical tap, and the rounding's add, with this batch's
+    tap counts; a frame that is not resized is a copy."""
+    import numpy as np
+
+    from ..data import device_loader
+
+    sizes, resized, origins, k, _ = device_loader.frame_geometry(
+        sizes, scale_size, crop_size, origins)
+    nbytes = len(sizes) * k * crop_size * crop_size * 3
+    ops, seen = 0, {}
+    for (w, h, _), (rw, rh), crops in zip(sizes.tolist(), resized.tolist(),
+                                          origins.tolist()):
+        key = (w, h, tuple(map(tuple, crops)))
+        if key not in seen:
+            mask = np.zeros((h, w), bool)
+            fops = 0
+            for x0, y0 in crops:
+                if device_loader.resizes(w, h, scale_size):
+                    cx = device_loader.triangle_coeffs(w, rw)
+                    cy = device_loader.triangle_coeffs(h, rh)
+                    xs = slice(x0, x0 + crop_size)
+                    ys = slice(y0, y0 + crop_size)
+                    x_lo, x_n = cx.lo[xs], cx.counts[xs]
+                    y_lo, y_n = cy.lo[ys], cy.counts[ys]
+                    cols = np.zeros(w, bool)
+                    rows = np.zeros(h, bool)
+                    for lo_, n_, m in ((x_lo, x_n, cols), (y_lo, y_n, rows)):
+                        for a_, c_ in zip(lo_.tolist(), n_.tolist()):
+                            m[a_:a_ + c_] = True
+                    mask |= rows[:, None] & cols[None, :]
+                    per_px = (2 * y_n[:, None] * (x_n[None, :] + 1) + 1)
+                    fops += int(per_px.sum()) * 3
+                else:
+                    mask[y0:y0 + crop_size, x0:x0 + crop_size] = True
+            seen[key] = (int(mask.sum()) * 3, fops)
+        read, fops = seen[key]
+        nbytes += read
+        ops += fops
+    return nbytes, ops
+
+
+def resize_crop_bound_ms(work):
+    """(ms for the bytes, ms for the float64 operations) of
+    :func:`resize_crop_work`'s call."""
+    nbytes, ops = work
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_F64
 
 
 # ------------------------------------------------ the whole model

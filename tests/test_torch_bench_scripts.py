@@ -207,6 +207,96 @@ def test_data_pipeline_line(capsys):
             assert entry["native"]["built"] is False
 
 
+def test_data_pipeline_device_row(capsys):
+    """On the CPU the device loader's row runs its plain versions (Pillow's
+    decode, the C++ loader's resize), in batches of the evaluator's size,
+    and is held to PIL's clips within DECODE_BOUND."""
+    assert data_pipeline_bench.main(DATA) == 0
+    line = last_line(capsys)
+    assert line["device_built"] is None  # nothing to build on the CPU
+    assert line["out_dtype"]["device"] == "uint8 on cpu"
+    assert line["frames_per_video"] == 8 and line["frame_px"] == (
+        "427x240 jpeg q95")
+    for name, views, frames in (("1clip", 1, 4), ("2clip", 6, 8)):
+        row = line["protocols"][name]["device"]
+        assert row["correct"] is True and row["within_bound"] is True
+        assert row["clips_per_s"] == pytest.approx(views
+                                                   * row["videos_per_s"])
+        assert row["backend_frames"] == {"pillow": 2 * frames}
+        assert row["launches"] == 0  # no kernel on the CPU
+        assert max(row["max_abs_diff"]) <= 1  # Pillow's resize rounding
+        assert row["batch_videos"] == (32 if name == "1clip" else 8)
+
+
+def test_data_pipeline_keeps_a_wrong_device_clip(capsys, monkeypatch):
+    from rubiksnet_torch.data import device_loader
+
+    real = device_loader.plain_decode
+
+    def bright(blob):
+        return (real(blob).astype(np.int16) + 9).clip(0, 255).astype(
+            np.uint8)
+
+    monkeypatch.setattr(device_loader, "plain_decode", bright)
+    assert data_pipeline_bench.main(DATA) == 1
+    line = last_line(capsys)
+    assert line["correct"] is False
+    for entry in line["protocols"].values():
+        assert entry["device"]["correct"] is False
+        assert entry["device"]["within_bound"] is False
+        assert entry["pil"]["correct"] is True
+
+
+def _load_script(name):
+    """A JAX-side script of scripts/, loaded by its path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"jax_side_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _files(root):
+    from pathlib import Path
+
+    root = Path(root)
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_data_pipeline_frames_equal_the_jax_bench(tmp_path):
+    """make_frames writes scripts/data_pipeline_bench.py's files byte for
+    byte (frames, folders, the list file)."""
+    jax_side = _load_script("data_pipeline_bench")
+    jax_side.make_frames(str(tmp_path / "jax"), 3, 8)
+    data_pipeline_bench.make_frames(str(tmp_path / "port"), 3, 8)
+    want, got = _files(tmp_path / "jax"), _files(tmp_path / "port")
+    assert len(want) == 3 * 8 + 1 and "val.txt" in want
+    assert got == want
+
+
+def test_eval_throughput_frames_equal_the_jax_script(tmp_path):
+    """eval_throughput at --frames-per-video 16 writes
+    scripts/eval_throughput.py's files byte for byte; without a count it
+    keeps its drawn 24-48 frames a video."""
+    from rubiksnet_torch.scripts import eval_throughput
+
+    jax_side = _load_script("eval_throughput")
+    jax_side.generate_frames(str(tmp_path / "jax"), 3, 16, 5, seed=0)
+    eval_throughput.generate_frames(str(tmp_path / "port"), 3, 5, seed=0,
+                                    frames_per_video=16)
+    want, got = _files(tmp_path / "jax"), _files(tmp_path / "port")
+    assert len(want) == 3 * 16 + 1
+    assert got == want
+    drawn = eval_throughput.generate_frames(str(tmp_path / "drawn"), 3, 5)
+    counts = [int(ln.split()[1]) for ln in open(drawn).read().split("\n")
+              if ln]
+    assert all(24 <= c <= 48 for c in counts) and counts != [16] * 3
+
+
 def test_data_pipeline_names_a_native_build_error(capsys, monkeypatch):
     def no_libjpeg():
         raise RuntimeError("building the native frame loader failed: no "

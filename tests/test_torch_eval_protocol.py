@@ -251,6 +251,32 @@ def test_evaluator_matches_jax_pipeline_at_crop_56(
     assert got["batches"] == 3 and counted_executors.built == 1
 
 
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("two_clips", [False, True],
+                         ids=["1clip", "2clip"])
+def test_evaluator_device_loader_matches_jax_pipeline(
+        frame_root, weights, counted_executors, two_clips, prefetch):
+    """``--loader device --device cpu``: the device loader's plain
+    versions (Pillow's decode, the C++ loader's resize and crop step for
+    step) through ``device_batches_from_files``, against the JAX pipeline
+    on its native loader: logits within 1e-4, the same accuracies, one
+    FusedExecutor."""
+    from rubiksnet_torch.data import native_loader
+    from rubiksnet_tpu.data import native_loader as jax_loader
+
+    if not native_loader.toolchain_present() or not jax_loader.available():
+        pytest.skip("the JAX package's native loader does not build here")
+    bundle, ckpt = weights
+    extra = ["--loader", "device", "--prefetch", str(prefetch), "--device",
+             "cpu"] + (["--two-clips"] if two_clips else [])
+    got = test_models.evaluate(port_args(ckpt, frame_root, *extra), CROP,
+                               SCALE, log=lambda *a: None)
+    _agree(got, jax_evaluator(bundle, frame_root, two_clips, "native"))
+    assert got["batches"] == 3 and counted_executors.built == 1
+    assert got["stats"]["loader"] == "device"
+    assert got["stats"]["device_normalize"]
+
+
 @pytest.mark.parametrize("backend,host_normalize", [
     ("model", False), ("fused", True)])
 def test_module_path_and_host_normalize(frame_root, weights,

@@ -1,6 +1,7 @@
 """The port's model API against the JAX package's: the input normalization
-constants and the model's feature width, crop and scale sizes, for all four
-tiers. The values are read on the JAX side here; the port keeps its own
+constants, the variant names (``VARIANTS``, exported as the JAX package
+exports it) and the model's feature width, crop and scale sizes, for all
+four tiers. The values are read on the JAX side here; the port keeps its own
 copy and imports nothing of the JAX package."""
 
 import pytest
@@ -14,7 +15,8 @@ from rubiksnet_tpu.nn.backbone import RubiksNetBackbone as JaxBackbone
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("name", ["INPUT_MEAN", "INPUT_STD", "INPUT_SIZE"])
+@pytest.mark.parametrize("name", ["INPUT_MEAN", "INPUT_STD", "INPUT_SIZE",
+                                  "VARIANTS"])
 def test_input_constants_equal_the_jax_package(name):
     assert getattr(port_models, name) == getattr(jax_models, name)
     assert name in port_models.__all__
