@@ -32,9 +32,10 @@ and Small at batch 8). Before training, phase 7: the device loader
 (rubiksnet_torch.data.device_loader: nvjpeg and the resize_crop_u8 kernel,
 built with the kernels, in parallel): (a) nvjpeg's probe and the frames
 by decode route; (c) nvjpeg against Pillow on frames of six sizes within
-DECODE_BOUND; (b) resize_crop_u8 against its plain version on that
-decode, 1 and 3 crops, upscales, downscales of every ksize and a portrait
-frame, bit-identical; then the evaluator (rubiksnet_torch.scripts.
+DECODE_BOUND; (b) resize_crop_u8 on both its routes (staged, the
+default, and previous) against its plain version on that decode, 1 and 3
+crops, upscales, downscales of every ksize and a portrait frame,
+bit-identical; then the evaluator (rubiksnet_torch.scripts.
 test_models) end to end on RubiksNet-Large in bf16 over 64 synthetic
 SSv2-like videos (340x256, which the loaders crop without resizing), 1-clip
 at batch 32 and 2-clip at batch 8, (d) with --loader device and (e) with
@@ -46,8 +47,9 @@ batch, one resize_crop_u8 a batch with the device loader, one executor a
 run), each loader's first batch against the plain model, each loader's
 logits bit-identical across prefetch depths, (f) the two loaders' logits
 compared (informational), and each run's s/video, steady videos/s and
-host-wait share printed; resize_crop_u8 timed at a 1-clip batch of each
-frame size beside its plain version, the library's interpolate or sliced
+host-wait share printed; resize_crop_u8 timed at the evaluator's three
+shapes (1-clip of 427x240 and of 340x256, 2-clip of 427x240), both
+routes beside its plain version, the library's interpolate or sliced
 copy and the bound. Last, the
 training entry points as a user runs them
 (phase 9; RubiksNet-Large in float32, 8x224x224, batch 8):
@@ -129,8 +131,11 @@ exists (a depthwise convolution for the shifts); the rows of the kernels
 on phase 11's and phase 12's paths also carry their launches a rank there
 (parallel_launches, tensor_parallel_launches); the last row is the
 device loader's resize_crop_u8 (its launches those of phase 7's device
-runs, its time at a 1-clip batch of the evaluator's 340x256 frames, with
-resize_* keys for 427x240 frames, which it resizes). K1's, K1-inverse's and
+runs; its times, both routes and the library's version at three shapes:
+the row's own keys at a 1-clip batch of 427x240 frames, which it
+resizes, copy_* at one of the evaluator's 340x256 frames, only cropped,
+clip2_* at the 2-clip batch of 427x240, 3 crops a frame; previous_* the
+first kernel's). K1's, K1-inverse's and
 K4's rows, K2's three and K3's two carry their device time by the profiler
 and the time of the route they replaced (for K1, K1-inverse and K4 their
 first forms, shift3d.cu and shift_grad.cu; for K2 and K3 in bf16 the SIMT
@@ -1976,125 +1981,126 @@ def check_loader(dev, name, smi):
         fail("nvjpeg's decode outside the bound of Pillow's")
     for crops in (1, 3):
         origins = loader_origins(sizes, crops)
-        got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
-                             group=LOADER_COPIES)
-        again = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
-                               group=LOADER_COPIES)
         ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
                                    group=LOADER_COPIES)
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref) and torch.equal(got, again)
-        worst = int((got.int() - ref.int()).abs().max())
-        print(f"  (b) resize_crop_u8 vs plain_resize_crop, {crops} crop"
-              f"{'s' if crops > 1 else ''} a frame, {len(blobs)} frames of "
-              f"{len(LOADER_FRAMES)} sizes in one launch, scale {EVAL_SCALE}"
-              f", crop {SIZE}: max |diff| {worst}, "
-              f"{'bit-identical' if same else 'DIFFER'} (rerun included)")
-        if not same:
-            fail(f"resize_crop_u8 differs from its plain version ({crops} "
-                 f"crops)")
+        for route in dl.ROUTES:
+            got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                                 group=LOADER_COPIES, route=route)
+            again = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                                   group=LOADER_COPIES, route=route)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref) and torch.equal(got, again)
+            worst = int((got.int() - ref.int()).abs().max())
+            print(f"  (b) resize_crop_u8 ({route}) vs plain_resize_crop, "
+                  f"{crops} crop{'s' if crops > 1 else ''} a frame, "
+                  f"{len(blobs)} frames of {len(LOADER_FRAMES)} sizes in one "
+                  f"launch, scale {EVAL_SCALE}, crop {SIZE}: max |diff| "
+                  f"{worst}, {'bit-identical' if same else 'DIFFER'} (rerun "
+                  f"included)")
+            if not same:
+                fail(f"resize_crop_u8 ({route}) differs from its plain "
+                     f"version ({crops} crops)")
     return 0
 
 
-def library_resize_crop(rgb, sizes, origins):
-    """The library's version of ``resize_crop_u8`` on frames of one size,
-    one crop a frame: the frames as one strided (n, h, w, 3) view of the
-    decode buffer; where the frame is resized, F.interpolate (bilinear,
-    antialias=True: PIL's triangle filter, in float32 on the whole resized
-    frame) cut to the crop, rounded and cast back; else the sliced copy."""
-    import torch.nn.functional as F
-
-    from rubiksnet_torch.data import device_loader as dl
-
-    n = len(sizes)
-    w, h = (int(v) for v in sizes[0, :2])
-    step = int(sizes[1, 2] - sizes[0, 2]) if n > 1 else w * h * 3
-    src = rgb.as_strided((n, h, w, 3), (step, w * 3, 3, 1))
-    (x0, y0), = origins[0]
-    rw, rh = dl.resized_size(w, h, EVAL_SCALE)
-    if not dl.resizes(w, h, EVAL_SCALE):
-        return lambda: src[:, y0:y0 + SIZE, x0:x0 + SIZE].contiguous()
-
-    def library():
-        x = F.interpolate(src.permute(0, 3, 1, 2).float(), size=(rh, rw),
-                          mode="bilinear", antialias=True,
-                          align_corners=False)
-        x = x[:, :, y0:y0 + SIZE, x0:x0 + SIZE].round().clamp(0, 255)
-        return x.to(torch.uint8).permute(0, 2, 3, 1).contiguous()
-
-    return library
-
-
 def time_loader_kernel(dev, launches, name, smi):
-    """resize_crop_u8's row of the JSON line, returned. At a 1-clip batch
-    of the evaluator (EVAL_PROTOCOLS[0]'s videos x FRAMES frames, the center
-    crop at scale EVAL_SCALE), for each frame size the main path gives it:
-    427x240, the data bench's frames, resized to 455x256 (the row's own
-    keys), and 340x256, the evaluator's, only cropped (the copy_* keys).
-    Each: the kernel by events around the wrapper's calls (the tables'
-    upload included) and on the device by the profiler (``device_ms_by``
-    says where events stood in), the plain version, the bound, and the
-    library's version (``library_resize_crop``) by events and on the
+    """resize_crop_u8's row of the JSON line, returned. At each shape of
+    ``resize_crop_probe.SHAPES`` (the evaluator's 1-clip batch of 427x240
+    frames, resized to 455x256: the row's own keys; of its 340x256 frames,
+    only cropped: copy_*; its 2-clip batch of 427x240, 3 crops a frame:
+    clip2_*), random frames packed as the decoder packs them: both routes
+    held to plain bit for bit, then the staged kernel by events around the
+    wrapper's calls (its host work included) and its launch alone
+    (``resize_crop_launch``) on the device by the profiler
+    (``device_ms_by`` says where events stood in), the previous route the
+    same way (previous_*), the plain version, the bound, and the
+    library's version (``resize_crop_probe.library_version``:
+    F.interpolate with antialias, or the sliced copy) by events and on the
     device, with its largest difference to the kernel (informational)."""
     from rubiksnet_torch.data import device_loader as dl
     from rubiksnet_torch.utils import cuda_time_ms
+    from rubiksnet_torch.utils.resize_crop_probe import (
+        SHAPES,
+        batch,
+        library_version,
+    )
     from rubiksnet_torch.utils.roofline import (
         resize_crop_bound_ms,
         resize_crop_work,
     )
 
-    frames = EVAL_PROTOCOLS[0][2] * FRAMES
     row = {}
-    for key, (w, h) in (("", (427, 240)), ("copy_", (340, 256))):
-        rng = np.random.RandomState(1)
-        pix = rng.randint(0, 256, (frames, h, w, 3)).astype(np.uint8)
-        rgb, sizes = dl.pack_frames(list(pix), dev)
-        origins = loader_origins(sizes, 1)
-        got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins)
-        ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins)
-        if not torch.equal(got, ref):
-            fail(f"resize_crop_u8 differs from plain at {frames} {w}x{h}")
+    for key, (label, w, h, frames, crops, group) in zip(
+            ("copy_", "", "clip2_"), SHAPES):
+        rgb, sizes, origins = batch(dev, w, h, frames, crops)
+        ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                                   group)
+        timed = {}
+        for route in dl.ROUTES:
+            def kernel(route=route):
+                return dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                                      group, route=route)
 
-        def kernel():
-            return dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins)
-
-        ms = cuda_time_ms(kernel)
-        # One call: the tables' copy to the card and the kernel.
-        dev_ms, seen = profiled_ms(kernel, "resize_crop_u8",
-                                   f"resize_crop_u8 {w}x{h}", expect=2)
+            if not torch.equal(kernel(), ref):
+                fail(f"resize_crop_u8 ({route}) differs from plain at "
+                     f"{label}")
+            ms = cuda_time_ms(kernel)
+            # The kernel alone: its launch, the wrapper's work done once.
+            launch, _ = dl.resize_crop_launch(rgb, sizes, EVAL_SCALE, SIZE,
+                                              origins, group, route=route)
+            dev_ms, seen = profiled_ms(launch, "resize_crop_u8",
+                                       f"resize_crop_u8 {route} {label}",
+                                       expect=1)
+            timed[route] = (ms, dev_ms,
+                            "profiler" if seen is not None else "events")
         plain_ms = cuda_time_ms(lambda: dl.plain_resize_crop(
-            rgb, sizes, EVAL_SCALE, SIZE, origins), iters=2, warmup=1)
-        library = library_resize_crop(rgb, sizes, origins)
-        lib_diff = int((library().int() - got.int()).abs().max())
+            rgb, sizes, EVAL_SCALE, SIZE, origins, group), iters=2,
+            warmup=1)
+        library = library_version(rgb, sizes, origins)
+        k = len(origins[0])
+        # The library's output is crop-major over all frames; the kernel's
+        # is crop-major within each group of frames.
+        order = (torch.arange(len(sizes) * k).view(k, -1, group)
+                 .permute(1, 0, 2).reshape(-1))
+        lib_diff = int((library()[order.to(dev)].int() - ref.int()).abs()
+                       .max())
         lib_ms = cuda_time_ms(library)
         lib_dev_ms, lib_seen = profiled_ms(library, "",
-                                           f"library resize {w}x{h}")
+                                           f"library resize {label}")
         tb, to = resize_crop_bound_ms(resize_crop_work(
             sizes, EVAL_SCALE, SIZE, origins))
-        by = "profiler" if seen is not None else "events"
+        bound = max(tb, to)
+        (ms, dev_ms, by), (p_ms, p_dev_ms, p_by) = (timed["staged"],
+                                                    timed["previous"])
         lib_by = "profiler" if lib_seen is not None else "events"
         row.update({f"{key}ms": ms, f"{key}device_ms": dev_ms,
                     f"{key}device_ms_by": by,
+                    f"{key}previous_ms": p_ms,
+                    f"{key}previous_device_ms": p_dev_ms,
+                    f"{key}previous_device_ms_by": p_by,
                     f"{key}plain_ms": plain_ms,
-                    f"{key}bound_ms": max(tb, to),
+                    f"{key}bound_ms": bound,
                     f"{key}bound_by": "bytes" if tb >= to else "operations",
                     f"{key}library_ms": lib_ms,
                     f"{key}library_device_ms": lib_dev_ms,
                     f"{key}library_device_ms_by": lib_by,
-                    f"{key}frames": f"{frames} of {w}x{h}"})
+                    f"{key}frames": f"{frames} of {w}x{h}, {crops} crop"
+                                    f"{'s' if crops > 1 else ''} a frame"})
         what = ("F.interpolate(bilinear, antialias) on the resized frame, "
-                "the crop and the casts" if dl.resizes(w, h, EVAL_SCALE)
+                "the crops and the casts" if dl.resizes(w, h, EVAL_SCALE)
                 else "the sliced copy")
-        print(f"[loader] resize_crop_u8, {frames} frames of {w}x{h}, scale "
-              f"{EVAL_SCALE}, center crop {SIZE}: kernel {ms:.4f} ms by "
-              f"events around the wrapper's calls (its host work included), "
-              f"{dev_ms:.4f} ms on the device (by the {by}), plain "
-              f"{plain_ms:.4f} ms, library ({what}) {lib_ms:.4f} ms by "
-              f"events, {lib_dev_ms:.4f} ms on the device (by the {lib_by}),"
-              f" max |diff| to the kernel {lib_diff} (informational), bound "
-              f"{max(tb, to):.4f} ms ({'bytes' if tb >= to else 'operations'}"
-              f"; bytes {tb:.4f}, float64 operations {to:.4f}) ({name}, "
-              f"{smi})")
+        print(f"[loader] resize_crop_u8, {label} ({frames} frames x {crops} "
+              f"crop{'s' if crops > 1 else ''}, group {group}), scale "
+              f"{EVAL_SCALE}, crop {SIZE}: staged {dev_ms:.4f} ms on the "
+              f"device (by the {by}; {bound / dev_ms:.1%} of the bound), "
+              f"{ms:.4f} ms by events around the wrapper's calls (its host "
+              f"work included); previous {p_dev_ms:.4f} ms on the device (by "
+              f"the {p_by}), {p_ms:.4f} ms by events; plain {plain_ms:.4f} "
+              f"ms; library ({what}) {lib_dev_ms:.4f} ms on the device (by "
+              f"the {lib_by}), {lib_ms:.4f} ms by events, max |diff| to the "
+              f"kernel {lib_diff} (informational); bound {bound:.4f} ms "
+              f"({'bytes' if tb >= to else 'operations'}; bytes {tb:.4f}, "
+              f"float64 operations {to:.4f}) ({name}, {smi})")
     return {
         "name": "resize_crop_u8", "route": "cuda",
         "source": "rubiksnet_torch/data/csrc/device_loader.cu",

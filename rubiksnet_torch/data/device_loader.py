@@ -7,7 +7,12 @@ batch of JPEG byte strings into one device buffer of interleaved RGB) and
 one hand-written kernel, ``resize_crop_u8``: the shorter-side triangle
 resize (PIL's BILINEAR, the C++ loader's ``resize_rgb``) and the crop of a
 batch of frames, 1 or 3 crops a frame, to uint8 channel-last on the card,
-bit for bit the C++ loader's on the same RGB.
+bit for bit the C++ loader's on the same RGB. Its default route is the
+staged kernel (:func:`resize_crop_plan`: a block a band of rows of a crop,
+the source rows and the horizontal pass in shared memory, a copy route for
+frames only cropped; the coefficient tables kept on the card, the batch's
+few bytes through reused pinned buffers); ``route="previous"`` keeps the
+first kernel callable for timing beside it.
 
 The library is built with ``nvcc`` (``sm_90a``, ``-lnvjpeg``) at first use
 into the git-ignored ``rubiksnet_torch/build/``, keyed by a digest of the
@@ -261,6 +266,8 @@ _SIGNATURES = {
                    INT_P],
     "rdl_resize_crop_u8": [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR,
                            PTR],
+    "rdl_resize_crop_staged": [PTR, PTR, PTR, INT, INT, INT, INT, INT_P, INT,
+                               PTR, PTR],
 }
 
 
@@ -519,21 +526,50 @@ def resized_size(w: int, h: int, scale_size: int):
     return int(scale_size * w / h), scale_size
 
 
+def _shape_groups(sizes):
+    """The distinct (w, h) rows of ``sizes`` in ``np.unique(axis=0)``'s
+    order, and each frame's index among them: one integer key a row, which
+    sorts far faster than a row-wise unique of the wrapper's hot path."""
+    sizes = np.asarray(sizes, np.int64)
+    if len(sizes) == 0:
+        return np.zeros((0, 2), np.int64), np.zeros(0, np.intp)
+    keys = sizes[:, 0] * (1 << 32) + sizes[:, 1]
+    if (keys == keys[0]).all():
+        return sizes[:1, :2].copy(), np.zeros(len(sizes), np.intp)
+    uniq, inverse = np.unique(keys, return_inverse=True)
+    return np.stack([uniq >> 32, uniq & 0xFFFFFFFF], 1), inverse.reshape(-1)
+
+
+def _origins_array(origins, n):
+    """``origins`` as int32 (n, k, 2). A list that repeats the same inner
+    object (a video's crops for each of its frames, as the evaluator's
+    batches pass them) is converted once per distinct object: ``np.array``
+    walks a nested list slowly."""
+    if isinstance(origins, np.ndarray) or not n or len(origins) != n:
+        return np.array(origins, np.int32).reshape(n, -1, 2)
+    ids = np.fromiter(map(id, origins), np.int64, count=n)
+    _, first, rows = np.unique(ids, return_index=True, return_inverse=True)
+    if len(first) == n:
+        return np.array(origins, np.int32).reshape(n, -1, 2)
+    distinct = np.array([origins[i] for i in first], np.int32)
+    return distinct.reshape(len(first), -1, 2)[rows.reshape(-1)]
+
+
 def frame_geometry(sizes, scale_size, crop_size, origins, group=None):
     """Checked per-frame geometry: -> (sizes (n, 3) int64, resized (n, 2),
     origins (n, k, 2) int32 with -1 resolved as ``write_crop_u8`` centers,
     k, group)."""
     sizes = np.asarray(sizes, np.int64).reshape(-1, 3)
     n = len(sizes)
-    origins = np.array(origins, np.int32).reshape(n, -1, 2)
+    origins = _origins_array(origins, n)
     k = origins.shape[1]
     group = n if group is None else group
     if n and (group < 1 or n % group):
         raise ValueError(f"{n} frames do not split into groups of {group}")
-    shapes, inverse = np.unique(sizes[:, :2], axis=0, return_inverse=True)
+    shapes, inverse = _shape_groups(sizes)
     resized = np.array([resized_size(int(w), int(h), scale_size)
                         for w, h in shapes], np.int64).reshape(-1, 2)
-    resized = resized[inverse.reshape(-1)]
+    resized = resized[inverse]
     centred = (resized[:, None, :] - crop_size) // 2
     origins = np.where(origins < 0, centred, origins).astype(np.int32)
     bad = ((origins < 0) | (origins + crop_size > resized[:, None, :])).any(2)
@@ -604,9 +640,9 @@ def plain_resize_crop(rgb, sizes, scale_size, crop_size, origins,
     return out
 
 
-# ---------------------------------------------------- resize and crop: kernel
+# ------------------------------- resize and crop: the first kernel's tables
 
-MAX_OUTPUT_CROPS = 65535  # the kernel's grid: a block a row of a crop
+MAX_OUTPUT_CROPS = 65535  # both kernels' grids: the output crops along y
 FRAME_DESC = np.dtype([
     ("src_off", "<i8"), ("w", "<i4"), ("h", "<i4"), ("rw", "<i4"),
     ("rh", "<i4"), ("cx", "<i4"), ("cy", "<i4"), ("wx", "<i4"),
@@ -627,8 +663,7 @@ def kernel_tables(sizes, resized, origins, scale_size):
     desc["cx"] = desc["cy"] = -1
     taps, weights, where = [], [], {}
     rows = nweights = 0
-    shapes, inverse = np.unique(sizes[:, :2], axis=0, return_inverse=True)
-    inverse = inverse.reshape(-1)
+    shapes, inverse = _shape_groups(sizes)
     for j, (w, h) in enumerate(shapes.tolist()):
         if not resizes(w, h, scale_size):
             continue
@@ -660,8 +695,269 @@ def kernel_tables(sizes, resized, origins, scale_size):
     return buf, offsets
 
 
+# ------------------------------------- resize and crop: the staged kernel
+
+ROUTES = ("staged", "previous")  # resize_crop's kernels, the default first
+
+# resize_crop_plan's knobs (read off ``utils/resize_crop_probe.py
+# --sweep``): output rows a band of a resized frame, bands a block walks,
+# threads a block, output rows and threads a block when the batch only
+# crops, and the shared memory a block of a resized frame may take
+# (``SMEM_LIMIT`` is the card's).
+BAND_ROWS = 16
+RUN_BANDS = 7
+THREADS = 512
+COPY_ROWS = 16
+COPY_THREADS = 128
+SMEM_BUDGET = 112 * 1024
+SMEM_LIMIT = 232448  # device_loader.cu's kMaxSmem
+MAX_THREADS = 512  # device_loader.cu's kMaxThreads: the launch bound
+
+STAGED_FRAME = np.dtype([
+    ("src_off", "<i8"), ("xt", "<u8"), ("xw", "<u8"), ("yt", "<u8"),
+    ("yw", "<u8"), ("w", "<i4"), ("h", "<i4"), ("kx", "<i4"),
+    ("ky", "<i4")])  # device_loader.cu's StagedFrame
+
+
+class ResizeCropPlan(NamedTuple):
+    """How ``resize_crop_u8_staged`` runs a batch (``device_loader.cu``'s
+    StagedPlan, in its order, then the dynamic shared memory)."""
+
+    rows: int      # output rows a band
+    tile: int      # output columns a block (the crop's width, unless split)
+    bands: int     # bands down a crop
+    tiles: int     # blocks across a crop
+    run: int       # bands a block walks, one after the other
+    runs: int      # blocks down a crop
+    threads: int
+    smax: int      # source rows a band's vertical taps reach, at most
+    pitch: int     # bytes a staged source row: the 16-byte words of a span
+    hp_pitch: int  # floats a row of the horizontal pass
+    kx: int        # the most weights a column (row) of the batch has
+    ky: int
+    off_cw: int    # byte offsets in shared memory: column weights,
+    off_rw: int    # row weights, the horizontal pass, the source rows,
+    off_hp: int    # the column and the row (first tap, count) pairs
+    off_src: int
+    off_ct: int
+    off_rt: int
+    vec: int       # a copied row is stored 16 bytes at a time
+    smem: int      # bytes of dynamic shared memory a block
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def axis_span(in_size: int, out_size: int, window: int) -> int:
+    """The most source pixels that ``window`` consecutive output pixels of
+    the (in, out) resize reach, from the first tap of the first to the last
+    tap of the last (both grow with the output pixel)."""
+    co = triangle_coeffs(in_size, out_size)
+    ends = co.lo.astype(np.int64) + co.counts
+    if (np.diff(co.lo) < 0).any() or (np.diff(ends) < 0).any():
+        raise ValueError(f"taps of {in_size} -> {out_size} do not grow")
+    window = min(window, out_size)
+    return int((ends[window - 1:] - co.lo[:out_size - window + 1]).max())
+
+
+def resize_crop_plan(crop: int, axes=(), aligned: bool = True
+                     ) -> ResizeCropPlan:
+    """The staged kernel's launch plan for one batch: ``crop`` px crops;
+    ``axes`` the batch's resizes, ((w, rw), (h, rh)) a frame shape (empty
+    where it only crops); ``aligned``: the output starts on 16 bytes. A
+    pure function of its arguments and the knobs.
+
+    A batch that only crops: blocks of ``COPY_THREADS`` threads, each
+    ``COPY_ROWS`` rows of a crop, copied 16 bytes at a time where a row is
+    a multiple of 16 bytes. Else a block walks a run of ``RUN_BANDS``
+    bands of ``rows`` output rows across a ``tile`` of columns; its shared
+    memory is sized from the batch's tap counts (the most source rows and
+    columns any window of that many output rows and columns reaches,
+    :func:`axis_span`; the run's row taps; two buffers of a band's source
+    rows); the plan takes the largest ``rows`` up to ``BAND_ROWS`` at the
+    crop's full width that fits ``SMEM_BUDGET``, and splits the width into
+    tiles (multiples of 4 columns) only where one row does not fit."""
+    return _plan(int(crop), tuple(sorted(axes)), bool(aligned),
+                 (BAND_ROWS, RUN_BANDS, THREADS, COPY_ROWS, COPY_THREADS,
+                  SMEM_BUDGET))
+
+
+def _layout(rows, tile, kx, ky, smax, pitch):
+    """(offsets of the shared-memory arrays, hp_pitch, total bytes) of a
+    block whose run covers ``rows`` output rows; ``smax`` staged rows a
+    band, in two buffers."""
+    hp_pitch = _round_up(tile * 3, 4)
+    sizes = (kx * tile * 8, rows * ky * 8, smax * hp_pitch * 4,
+             2 * smax * pitch, tile * 8, rows * 8)
+    offsets, pos = [], 0
+    for s in sizes:
+        offsets.append(pos)
+        pos += _round_up(s, 16)
+    return offsets, hp_pitch, pos
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(crop, axes, aligned, knobs):
+    band_rows, run_bands, threads, copy_rows, copy_threads, budget = knobs
+    if crop < 1:
+        raise ValueError(f"resize_crop_plan: crop {crop}")
+    for t in (threads, copy_threads):
+        if not 32 <= t <= MAX_THREADS or t % 32:
+            raise ValueError(f"resize_crop_plan: {t} threads a block")
+    vec = int(aligned and (crop * 3) % 16 == 0)
+    if not axes:
+        rows = min(copy_rows, crop)
+        bands = -(-crop // rows)
+        return ResizeCropPlan(rows, crop, bands, 1, 1, bands, copy_threads,
+                              *[0] * 11, vec, 0)
+    kx = max(triangle_coeffs(*x).ksize for x, _ in axes)
+    ky = max(triangle_coeffs(*y).ksize for _, y in axes)
+    tile, last = crop, None
+    while tile != last:
+        last = tile
+        for rows in range(min(band_rows, crop), 0, -1):
+            bands = -(-crop // rows)
+            run = min(run_bands, bands)
+            smax = max(axis_span(*y, rows) for _, y in axes)
+            span = max(axis_span(*x, tile) for x, _ in axes)
+            pitch = _round_up(span * 3 + 15, 16)
+            offsets, hp_pitch, smem = _layout(min(run * rows, crop), tile,
+                                              kx, ky, smax, pitch)
+            if smem <= budget:
+                tiles = -(-crop // tile)
+                return ResizeCropPlan(
+                    rows, tile, bands, tiles, run, -(-bands // run), threads,
+                    smax, pitch, hp_pitch, kx, ky, *offsets,
+                    int(vec and tiles == 1), smem)
+        tile = max(4, _round_up(-(-tile // 2), 4))
+    raise ValueError(f"resize_crop_plan: no block of a {crop} px crop fits "
+                     f"{budget} bytes of shared memory for resizes {axes}")
+
+
+class AxisTable(NamedTuple):
+    """One (in, out) resize axis on a device: (first tap, count) int32
+    pairs and ``ksize`` float64 weights an output pixel."""
+
+    taps: torch.Tensor     # (out, 2) int32
+    weights: torch.Tensor  # (out, ksize) float64
+    ksize: int
+
+
+_AXIS_TABLES = {}
+_AXIS_LOCK = threading.Lock()
+TABLE_UPLOADS = LaunchCounter("coefficient tables")  # uploads, all devices
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def axis_table(device, in_size: int, out_size: int) -> AxisTable:
+    """``triangle_coeffs(in_size, out_size)`` on ``device``: uploaded once a
+    device and kept (an evaluator sees one or two frame sizes). On the card
+    the upload goes through pinned memory and waits for its end, once."""
+    device = _device(device)
+    key = (device, int(in_size), int(out_size))
+    with _AXIS_LOCK:
+        if key not in _AXIS_TABLES:
+            co = triangle_coeffs(in_size, out_size)
+            taps = torch.from_numpy(np.stack([co.lo, co.counts], 1)
+                                    .astype(np.int32))
+            weights = torch.from_numpy(co.weights.copy())
+            if device.type == "cuda":
+                taps = taps.pin_memory().to(device)
+                weights = weights.pin_memory().to(device)
+            _AXIS_TABLES[key] = AxisTable(taps, weights, co.ksize)
+            TABLE_UPLOADS.count += 1
+        return _AXIS_TABLES[key]
+
+
+def staged_tables(sizes, resized, origins, scale_size, device):
+    """The staged kernel's inputs besides the pixels and the tables, as one
+    byte buffer: the frames' descriptors (``STAGED_FRAME``, a resized
+    frame's pointing at its :func:`axis_table` pair on ``device``) and their
+    crop origins (int32). -> (bytes as uint8, the origins' byte offset, the
+    batch's resizes as :func:`resize_crop_plan` takes them)."""
+    n = len(sizes)
+    desc = np.zeros(n, STAGED_FRAME)
+    desc["src_off"] = sizes[:, 2]
+    desc["w"], desc["h"] = sizes[:, 0], sizes[:, 1]
+    shapes, inverse = _shape_groups(sizes)
+    axes = []
+    for j, (w, h) in enumerate(shapes.tolist()):
+        if not resizes(w, h, scale_size):
+            continue
+        rw, rh = resized_size(w, h, scale_size)
+        tx, ty = axis_table(device, w, rw), axis_table(device, h, rh)
+        mask = inverse == j
+        for field, value in (("xt", tx.taps.data_ptr()),
+                             ("xw", tx.weights.data_ptr()),
+                             ("yt", ty.taps.data_ptr()),
+                             ("yw", ty.weights.data_ptr()),
+                             ("kx", tx.ksize), ("ky", ty.ksize)):
+            desc[field][mask] = value
+        axes.append(((w, rw), (h, rh)))
+    orig = origins.astype(np.int32).reshape(-1).view(np.uint8)
+    at = _round_up(desc.nbytes, 16)
+    buf = np.zeros(at + orig.size, np.uint8)
+    buf[:desc.nbytes] = desc.view(np.uint8)
+    buf[at:] = orig
+    return buf, at, tuple(axes)
+
+
+# Pinned host buffers a device, reused in turn: how many calls the host may
+# run ahead of the card before it waits for a copy (a timing loop queues
+# twenty and more behind a busy stream; a loader, one or two).
+PINNED_SLOTS = 32
+
+
+class _Pinned:
+    """A device's ring of pinned buffers for the per-batch bytes, each with
+    the event of the last copy that read it."""
+
+    def __init__(self):
+        self.slots = [None] * PINNED_SLOTS
+        self.turn = 0
+        self.lock = threading.Lock()
+
+
+_PINNED = {}
+
+
+def to_device(payload: np.ndarray, device) -> torch.Tensor:
+    """``payload`` (uint8 host bytes) -> a new uint8 tensor on the card,
+    copied with ``non_blocking=True`` on the current stream from the next
+    of the device's ``PINNED_SLOTS`` pinned buffers, which is rewritten
+    only after the event of its last copy. No pageable copy."""
+    device = _device(device)
+    with _AXIS_LOCK:
+        ring = _PINNED.setdefault(device, _Pinned())
+    n = max(payload.size, 1)
+    with ring.lock:
+        j = ring.turn
+        ring.turn = (j + 1) % PINNED_SLOTS
+        slot = ring.slots[j]
+        if slot is not None:
+            slot[1].synchronize()  # the last copy out of it is done
+        buf = slot[0] if slot is not None and slot[0].numel() >= n else (
+            torch.empty(max(n, 4096), dtype=torch.uint8, pin_memory=True))
+        buf.numpy()[:payload.size] = payload
+        stream = torch.cuda.current_stream(device)
+        out = torch.empty(n, dtype=torch.uint8, device=device)
+        out.copy_(buf[:n], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        ring.slots[j] = (buf, done)
+    return out
+
+
 def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
-                out=None):
+                out=None, route="staged"):
     """Shorter-side resize to ``scale_size`` and crop of a batch of decoded
     frames (``rgb``, ``sizes`` as :func:`decode_batch` gives them), ``k``
     crops a frame: ``origins`` (n, k, 2) (x, y) in resized coordinates (-1
@@ -669,10 +965,36 @@ def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
     ``out`` when given; frames in groups of ``group`` (default all n), each
     group crop-major: crop 0 of its frames, then crop 1, ... (a group of a
     video's frames gives ``rl_load_frames_mc_u8``'s order). On the card one
-    launch of ``resize_crop_u8``; on the CPU :func:`plain_resize_crop`."""
+    launch of ``resize_crop_u8`` (:func:`resize_crop_launch`): ``route``
+    "staged" (the default) or "previous" (the first kernel, a block a row
+    of a crop); on the CPU :func:`plain_resize_crop`."""
+    if route not in ROUTES:
+        raise ValueError(f"resize_crop: route {route!r}, not one of "
+                         f"{ROUTES}")
     if rgb.device.type == "cpu":
         return plain_resize_crop(rgb, sizes, scale_size, crop_size, origins,
                                  group, out)
+    launch, out = resize_crop_launch(rgb, sizes, scale_size, crop_size,
+                                     origins, group, out, route)
+    if launch is not None:
+        launch()
+    return out
+
+
+def resize_crop_launch(rgb, sizes, scale_size, crop_size, origins,
+                       group=None, out=None, route="staged"):
+    """:func:`resize_crop`'s work on the card up to its launch: the checks,
+    the output, the batch's bytes on the card (the staged route's through
+    :func:`staged_tables` and :func:`to_device`, its coefficient tables
+    kept per size by :func:`axis_table`, its plan :func:`resize_crop_plan`;
+    the previous route's tables built each call, :func:`kernel_tables`). ->
+    (launch, out): ``launch()`` launches ``route``'s kernel on this batch
+    on the current stream and counts it in ``LAUNCHES`` (None for an empty
+    batch). ``resize_crop`` calls it once; a timing that calls it again
+    times the kernel without the host's work."""
+    if route not in ROUTES:
+        raise ValueError(f"resize_crop: route {route!r}, not one of "
+                         f"{ROUTES}")
     if rgb.device.type != "cuda":
         raise ValueError(f"resize_crop: no kernel for device {rgb.device}")
     if rgb.dtype != torch.uint8 or rgb.dim() != 1 or not (
@@ -690,20 +1012,38 @@ def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
                          f"at most {MAX_OUTPUT_CROPS}")
     out = _output(out, (n * k, crop_size, crop_size, 3), rgb.device)
     if n == 0:
-        return out
+        return None, out
     lib = load_library()
-    buf, (o_desc, o_orig, o_taps, o_wts) = kernel_tables(
-        sizes, resized, origins, scale_size)
     with torch.cuda.device(rgb.device):
-        tables = torch.from_numpy(buf).to(rgb.device)
-        base = tables.data_ptr()
-        code = lib.rdl_resize_crop_u8(
-            rgb.data_ptr(), base + o_desc, base + o_orig, base + o_taps,
-            base + o_wts, n, k, group, crop_size, out.data_ptr(),
-            stream_of(rgb))
-    _check(code, "resize_crop_u8")
-    LAUNCHES.count += 1
-    return out
+        if route == "previous":
+            buf, (o_desc, o_orig, o_taps, o_wts) = kernel_tables(
+                sizes, resized, origins, scale_size)
+            tables = to_device(buf, rgb.device)
+            base = tables.data_ptr()
+            entry = lib.rdl_resize_crop_u8
+            args = (rgb.data_ptr(), base + o_desc, base + o_orig,
+                    base + o_taps, base + o_wts, n, k, group, crop_size,
+                    out.data_ptr())
+        else:
+            buf, o_orig, axes = staged_tables(sizes, resized, origins,
+                                              scale_size, rgb.device)
+            plan = resize_crop_plan(crop_size, axes,
+                                    out.data_ptr() % 16 == 0)
+            tables = to_device(buf, rgb.device)
+            base = tables.data_ptr()
+            entry = lib.rdl_resize_crop_staged
+            args = (rgb.data_ptr(), base, base + o_orig, n, k, group,
+                    crop_size, (ctypes.c_int * len(plan))(*plan), len(plan),
+                    out.data_ptr())
+
+    def launch():
+        with torch.cuda.device(rgb.device):
+            code = entry(*args, stream_of(rgb))
+        _check(code, f"resize_crop_u8 ({route})")
+        LAUNCHES.count += 1
+
+    launch.keep = (tables, out)  # the pointers in args stay valid
+    return launch, out
 
 
 if __name__ == "__main__":

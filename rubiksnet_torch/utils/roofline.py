@@ -95,7 +95,11 @@ def resize_crop_work(sizes, scale_size, crop_size, origins):
     their footprints). Operations: per output byte of a resized frame a
     multiply and an add per horizontal tap of each vertical tap, a multiply
     and an add per vertical tap, and the rounding's add, with this batch's
-    tap counts; a frame that is not resized is a copy."""
+    tap counts; a frame that is not resized is a copy. The bound is of this
+    work, whichever route runs it: the staged route computes a horizontal
+    pass once for several output rows, and the count stays as it is so
+    that both routes, and every time taken of either, are held to the same
+    bound (the bytes set it at the evaluator's shapes)."""
     import numpy as np
 
     from ..data import device_loader
