@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from ..utils.profiling import span
 from . import device_loader
 from .dataset import RubiksDataset
 from .device import DeviceBatch
@@ -108,20 +109,21 @@ def _batches(dataset, local, batch_size, num_views, frames, rank, device):
     n = len(dataset)
     for start in range(0, n, batch_size):
         lo = start + rank * local
-        rows = [dataset.item(i)
-                for i in range(lo, min(lo + local, start + batch_size, n))]
-        labels = np.zeros((local,), np.int32)
-        labels[:len(rows)] = [label for _, _, label in rows]
-        valid = np.zeros((local,), np.float32)
-        valid[:len(rows)] = 1.0
-        blobs, origins = [], []
-        for paths, crops, _ in rows:
-            if len(crops) * len(paths) != num_views * frames:
-                raise ValueError(
-                    f"{len(crops)} crops of {len(paths)} frames are not "
-                    f"{num_views} views of {frames}")
-            blobs += [_read(p) for p in paths]
-            origins += [crops] * len(paths)
+        with span("rubiksnet.data.read"):
+            rows = [dataset.item(i) for i in range(
+                lo, min(lo + local, start + batch_size, n))]
+            labels = np.zeros((local,), np.int32)
+            labels[:len(rows)] = [label for _, _, label in rows]
+            valid = np.zeros((local,), np.float32)
+            valid[:len(rows)] = 1.0
+            blobs, origins = [], []
+            for paths, crops, _ in rows:
+                if len(crops) * len(paths) != num_views * frames:
+                    raise ValueError(
+                        f"{len(crops)} crops of {len(paths)} frames are not "
+                        f"{num_views} views of {frames}")
+                blobs += [_read(p) for p in paths]
+                origins += [crops] * len(paths)
         group = len(rows[0][0]) if rows else 1
         shape = (local, num_views, frames, crop, crop, 3)
         with (torch.cuda.stream(stream) if stream is not None
@@ -135,7 +137,8 @@ def _batches(dataset, local, batch_size, num_views, frames, rank, device):
                     rgb, sizes, scale, crop, origins, group=group,
                     out=video[:len(rows)].view(-1, crop, crop, 3))
             video[len(rows):].zero_()
-            dev_labels = torch.from_numpy(labels).to(device)
+            with span("rubiksnet.data.copy", device):
+                dev_labels = torch.from_numpy(labels).to(device)
             ready = None
             if stream is not None:
                 ready = torch.cuda.Event()

@@ -50,7 +50,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops._build import NVCC_FLAGS, LaunchCounter, _find_nvcc, stream_of
+from ..ops._build import NVCC_FLAGS, _find_nvcc, stream_of
+from ..utils.profiling import LaunchCounter, setup_span, span
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "device_loader.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -274,8 +275,14 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (once per source and flags digest) and load the device loader's
-    library; raises RuntimeError where nvcc or nvjpeg is missing or the
-    build fails."""
+    library, inside the span ``rubiksnet.setup.loader_library`` (attribute
+    ``built``: nvcc ran); raises RuntimeError where nvcc or nvjpeg is
+    missing or the build fails."""
+    with setup_span("rubiksnet.setup.loader_library", built=False) as rec:
+        return _load_library(rec)
+
+
+def _load_library(rec) -> ctypes.CDLL:
     nvcc = _find_nvcc()
     flags = NVCC_FLAGS + LOADER_FLAGS + _link_flags()
     lib_path = BUILD_DIR / f"librubiks_device_loader_{_digest(flags)}.so"
@@ -292,6 +299,7 @@ def load_library() -> ctypes.CDLL:
                 f"building the device loader failed ({proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, lib_path)
+        rec.attrs["built"] = True
     try:
         lib = ctypes.CDLL(str(lib_path))
     except OSError as e:
@@ -456,12 +464,13 @@ def decode_batch(blobs: Sequence[bytes], device, stream=None):
     stream; ``rgb`` is valid until the card's next decode), on the CPU
     through Pillow (:func:`plain_decode`)."""
     device = torch.device(device)
-    if device.type == "cpu":
-        _count("pillow", len(blobs))
-        return pack_frames([plain_decode(b) for b in blobs])
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_batch: no decode for device {device}")
-    return decoder_for(device).decode(blobs, stream)
+    with span("rubiksnet.data.decode", device, frames=len(blobs)):
+        if device.type == "cpu":
+            _count("pillow", len(blobs))
+            return pack_frames([plain_decode(b) for b in blobs])
+        return decoder_for(device).decode(blobs, stream)
 
 
 # ------------------------------------------------- resize and crop: the plan
@@ -972,12 +981,14 @@ def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
         raise ValueError(f"resize_crop: route {route!r}, not one of "
                          f"{ROUTES}")
     if rgb.device.type == "cpu":
-        return plain_resize_crop(rgb, sizes, scale_size, crop_size, origins,
-                                 group, out)
+        with span("rubiksnet.data.resize_crop"):
+            return plain_resize_crop(rgb, sizes, scale_size, crop_size,
+                                     origins, group, out)
     launch, out = resize_crop_launch(rgb, sizes, scale_size, crop_size,
                                      origins, group, out, route)
     if launch is not None:
-        launch()
+        with span("rubiksnet.data.resize_crop", rgb):
+            launch()
     return out
 
 
@@ -1001,40 +1012,41 @@ def resize_crop_launch(rgb, sizes, scale_size, crop_size, origins,
             rgb.is_contiguous()):
         raise ValueError("resize_crop: rgb must be a contiguous 1-D uint8 "
                          "buffer")
-    sizes, resized, origins, k, group = frame_geometry(
-        sizes, scale_size, crop_size, origins, group)
-    n = len(sizes)
-    if n and int((sizes[:, 0] * sizes[:, 1] * 3 + sizes[:, 2]).max()) > (
-            rgb.numel()):
-        raise ValueError("resize_crop: a frame lies past the end of rgb")
-    if n * k > MAX_OUTPUT_CROPS:
-        raise ValueError(f"resize_crop: {n * k} output crops in one launch, "
-                         f"at most {MAX_OUTPUT_CROPS}")
-    out = _output(out, (n * k, crop_size, crop_size, 3), rgb.device)
-    if n == 0:
-        return None, out
-    lib = load_library()
     with torch.cuda.device(rgb.device):
-        if route == "previous":
-            buf, (o_desc, o_orig, o_taps, o_wts) = kernel_tables(
-                sizes, resized, origins, scale_size)
+        with span("rubiksnet.data.geometry", rgb):
+            sizes, resized, origins, k, group = frame_geometry(
+                sizes, scale_size, crop_size, origins, group)
+            n = len(sizes)
+            if n and int((sizes[:, 0] * sizes[:, 1] * 3
+                          + sizes[:, 2]).max()) > rgb.numel():
+                raise ValueError(
+                    "resize_crop: a frame lies past the end of rgb")
+            if n * k > MAX_OUTPUT_CROPS:
+                raise ValueError(f"resize_crop: {n * k} output crops in one "
+                                 f"launch, at most {MAX_OUTPUT_CROPS}")
+            out = _output(out, (n * k, crop_size, crop_size, 3), rgb.device)
+            if n == 0:
+                return None, out
+            if route == "previous":
+                buf, (o_desc, o_orig, o_taps, o_wts) = kernel_tables(
+                    sizes, resized, origins, scale_size)
+            else:
+                buf, o_orig, axes = staged_tables(sizes, resized, origins,
+                                                  scale_size, rgb.device)
+                plan = resize_crop_plan(crop_size, axes,
+                                        out.data_ptr() % 16 == 0)
+        with span("rubiksnet.data.copy", rgb):
             tables = to_device(buf, rgb.device)
-            base = tables.data_ptr()
-            entry = lib.rdl_resize_crop_u8
-            args = (rgb.data_ptr(), base + o_desc, base + o_orig,
-                    base + o_taps, base + o_wts, n, k, group, crop_size,
-                    out.data_ptr())
-        else:
-            buf, o_orig, axes = staged_tables(sizes, resized, origins,
-                                              scale_size, rgb.device)
-            plan = resize_crop_plan(crop_size, axes,
-                                    out.data_ptr() % 16 == 0)
-            tables = to_device(buf, rgb.device)
-            base = tables.data_ptr()
-            entry = lib.rdl_resize_crop_staged
-            args = (rgb.data_ptr(), base, base + o_orig, n, k, group,
-                    crop_size, (ctypes.c_int * len(plan))(*plan), len(plan),
-                    out.data_ptr())
+    lib = load_library()
+    base = tables.data_ptr()
+    if route == "previous":
+        entry = lib.rdl_resize_crop_u8
+        args = (rgb.data_ptr(), base + o_desc, base + o_orig, base + o_taps,
+                base + o_wts, n, k, group, crop_size, out.data_ptr())
+    else:
+        entry = lib.rdl_resize_crop_staged
+        args = (rgb.data_ptr(), base, base + o_orig, n, k, group, crop_size,
+                (ctypes.c_int * len(plan))(*plan), len(plan), out.data_ptr())
 
     def launch():
         with torch.cuda.device(rgb.device):

@@ -13,7 +13,16 @@ import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
 
+from ..utils.profiling import LaunchCounter
+
 T = TypeVar("T")
+
+# Every consumer's gets that returned an item, those that found the queue
+# empty (the consumer waited for the producer), and the queue's depth summed
+# over the gets, as each found it: the mean depth is their ratio.
+GETS = LaunchCounter("rubiksnet.data.prefetch_gets")
+EMPTY = LaunchCounter("rubiksnet.data.prefetch_empty")
+DEPTH_SUM = LaunchCounter("rubiksnet.data.prefetch_depth_sum")
 
 _SENTINEL = object()
 
@@ -61,11 +70,16 @@ class PrefetchIterator(Iterator[T]):
         return self
 
     def __next__(self) -> T:
+        depth = self._q.qsize()
         item = self._q.get()
         if item is _SENTINEL:
             if self._err is not None:
                 raise self._err
             raise StopIteration
+        GETS.count += 1
+        DEPTH_SUM.count += depth
+        if depth == 0:
+            EMPTY.count += 1
         return item
 
     def close(self):

@@ -51,6 +51,11 @@ from ..ops.fused_entry import (
 )
 from ..parallel.mesh import active_model_group, sharded_modules
 from ..parallel.temporal import active_time_group
+from ..utils.profiling import NULL, setup_span, span
+
+STEP_SPANS = {"block": "rubiksnet.serve.block",
+              "entry": "rubiksnet.serve.entry",
+              "module": "rubiksnet.serve.module"}
 
 
 def _half(d: int) -> int:
@@ -81,6 +86,12 @@ class FusedExecutor:
         if model.variant not in VARIANTS:
             raise ValueError(f"unknown variant {model.variant!r}")
         self.model = model
+        self.calls = 0
+        with setup_span("rubiksnet.setup.executor"):
+            self._stack(model)
+
+    def _stack(self, model):
+        """Fold and stack the blocks' parameters into :attr:`steps`."""
         dtype, k, q = model.dtype, model.max_shift, model.quantize
         aq = model.variant == "rubiks3d-aq"
         self.aq = aq
@@ -199,7 +210,14 @@ class FusedExecutor:
         :meth:`route`'s at N. Traced at a symbolic N, ``clips`` is the
         ``range`` of clip counts N stands for, and the route is
         :meth:`route_for_batches`' over it (which raises where it
-        changes)."""
+        changes).
+
+        Spans (``utils/profiling.py``): ``rubiksnet.serve.call`` (call id
+        :attr:`calls`) around ``.stem``, one ``.block`` a K2 run (attribute
+        ``blocks``), ``.entry`` a K3 block, ``.module`` a block on the
+        module path, and ``.head``, device times on ``.call`` and
+        ``.module`` only; the first eager call at each shape and SM count
+        inside ``rubiksnet.setup.first_call``."""
         model = self.model
         if active_time_group() is not None:
             raise RuntimeError(
@@ -216,26 +234,44 @@ class FusedExecutor:
                 f"expected (N, T, H, W, 3), got {tuple(video.shape)}")
         sms = (_sm_count(video.device.index) if video.device.type == "cuda"
                else SM_COUNT)
-        if isinstance(video.shape[0], int):
-            steps = self.route(video.shape, sms)
-        elif clips is None:
-            raise ValueError("a symbolic batch needs clips=range(...), the "
-                             "clip counts it stands for")
-        else:
-            steps = self.route_for_batches(video.shape[1:], clips.start,
-                                           clips.stop - 1, sms, clips.step)
-        x = model.backbone.conv1(video.to(model.dtype))
-        for kind, _, params in steps:
-            if kind == "block":
-                x = fused_block_run(x, *params, aq=self.aq,
-                                    max_shift=model.max_shift)
-            elif kind == "entry":
-                x = fused_entry_run(x, *params, max_shift=model.max_shift)
-            elif kind == "module":
-                x = params(x)
+        eager = isinstance(video.shape[0], int)
+        first = (eager and not torch.compiler.is_compiling() and (
+            tuple(video.shape), int(sms)) not in self.routes)
+        self.calls += 1
+        with (setup_span("rubiksnet.setup.first_call",
+                         shape=tuple(video.shape), sms=int(sms))
+              if first else NULL), span("rubiksnet.serve.call", video,
+                                        call=self.calls):
+            if eager:
+                steps = self.route(video.shape, sms)
+            elif clips is None:
+                raise ValueError("a symbolic batch needs clips=range(...), "
+                                 "the clip counts it stands for")
             else:
-                raise ValueError(f"unknown step kind {kind!r}")
-        return model.head(x)
+                steps = self.route_for_batches(video.shape[1:], clips.start,
+                                               clips.stop - 1, sms,
+                                               clips.step)
+            # Device times (CUDA events) only on the call and the module
+            # path's blocks: an event between two K2 or K3 launches would
+            # serialize their programmatic dependent launch under the
+            # profiler, and no metric reads those steps' device times.
+            with span("rubiksnet.serve.stem"):
+                x = model.backbone.conv1(video.to(model.dtype))
+            for kind, names, params in steps:
+                if kind not in STEP_SPANS:
+                    raise ValueError(f"unknown step kind {kind!r}")
+                with span(STEP_SPANS[kind], x if kind == "module" else None,
+                          blocks=len(names)):
+                    if kind == "block":
+                        x = fused_block_run(x, *params, aq=self.aq,
+                                            max_shift=model.max_shift)
+                    elif kind == "entry":
+                        x = fused_entry_run(x, *params,
+                                            max_shift=model.max_shift)
+                    else:
+                        x = params(x)
+            with span("rubiksnet.serve.head"):
+                return model.head(x)
 
 
 def fused_infer_apply(model, video):

@@ -57,7 +57,8 @@ def launch_counters():
     """The launch counters of K1 (shift3d), K1-inverse (shift3d_inverse),
     K4 (shift_grad), K2 (fused_block), K3 (fused_entry), the SE gate of
     their tensor-core route (se_gate) and the 2D shift's forward and
-    input-gradient kernels (shift2d, shift2d_inverse), by name."""
+    input-gradient kernels (shift2d, shift2d_inverse), by name: the
+    registry's counters of these kernels (``utils.profiling.counters``)."""
     from . import fused_block, fused_entry, shift2d, shift3d
 
     return {c.name: c for c in (shift3d.LAUNCHES, shift3d.INVERSE_LAUNCHES,

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils.profiling import setup_span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
@@ -27,17 +29,6 @@ NVCC_FLAGS = (
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
-
-
-class LaunchCounter:
-    """How many times a kernel wrapper launched its kernel."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
 
 
 def _find_nvcc() -> str:
@@ -94,16 +85,19 @@ def _compile(nvcc: str, sources, lib_path: Path) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    sources = sorted(CSRC.glob("*.cu"))
-    headers = sorted(CSRC.glob("*.cuh"))
-    lib_path = BUILD_DIR / f"librubiks_{_digest(sources + headers)}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _compile(_find_nvcc(), sources, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.rubiks_error_string.argtypes = [INT]
-    lib.rubiks_error_string.restype = ctypes.c_char_p
+    """Compile (once per source hash) and load the kernel library, inside
+    the span ``rubiksnet.setup.library`` (attribute ``built``: nvcc ran)."""
+    with setup_span("rubiksnet.setup.library", built=False) as rec:
+        sources = sorted(CSRC.glob("*.cu"))
+        headers = sorted(CSRC.glob("*.cuh"))
+        lib_path = BUILD_DIR / f"librubiks_{_digest(sources + headers)}.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _compile(_find_nvcc(), sources, lib_path)
+            rec.attrs["built"] = True
+        lib = ctypes.CDLL(str(lib_path))
+        lib.rubiks_error_string.argtypes = [INT]
+        lib.rubiks_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -27,6 +27,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import LaunchCounter
 from . import _build
 from .attention_shift import TEMPERATURE, attention_shift_weights
 from .shift3d import shift_tap_weights
@@ -34,10 +35,10 @@ from .shift3d import shift_tap_weights
 BN_EPS = 1e-5
 KERNEL_MAX_TAPS = 16  # taps per axis the CUDA kernels stage (max_shift <= 7)
 
-LAUNCHES = _build.LaunchCounter("fused_block")
+LAUNCHES = LaunchCounter("fused_block")
 # The SE gate launch of the tensor-core route (csrc/se_gate_tc.cu), one per
 # SE block of K2 and K3.
-SE_GATE_LAUNCHES = _build.LaunchCounter("se_gate")
+SE_GATE_LAUNCHES = LaunchCounter("se_gate")
 
 
 def fold_bn(gamma, beta, mean, var, eps=BN_EPS):

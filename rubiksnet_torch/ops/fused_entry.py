@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from . import _build
 from .fused_block import (
     KERNEL_MAX_TAPS,
@@ -49,7 +50,7 @@ from .fused_block import (
     taps_from_rows,
 )
 
-LAUNCHES = _build.LaunchCounter("fused_entry")
+LAUNCHES = LaunchCounter("fused_entry")
 
 
 @torch.no_grad()

@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from . import _build
 from . import shift_core as core
 from .shift3d import _route
@@ -54,8 +55,8 @@ _H_AX, _W_AX = 1, 2
 ZERO_TOL = 1e-7
 _MODE = "half_away"
 
-LAUNCHES = _build.LaunchCounter("shift2d")
-INVERSE_LAUNCHES = _build.LaunchCounter("shift2d_inverse")
+LAUNCHES = LaunchCounter("shift2d")
+INVERSE_LAUNCHES = LaunchCounter("shift2d_inverse")
 
 
 def _pair(v):

@@ -36,6 +36,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import LaunchCounter
 from . import _build
 from . import shift_core as core
 
@@ -66,9 +67,9 @@ __all__ = [
 # Axis positions in the channel-last video layout (N, T, H, W, C).
 _T_AX, _H_AX, _W_AX = 1, 2, 3
 
-LAUNCHES = _build.LaunchCounter("shift3d")
-INVERSE_LAUNCHES = _build.LaunchCounter("shift3d_inverse")
-SHIFT_GRAD_LAUNCHES = _build.LaunchCounter("shift_grad")
+LAUNCHES = LaunchCounter("shift3d")
+INVERSE_LAUNCHES = LaunchCounter("shift3d_inverse")
+SHIFT_GRAD_LAUNCHES = LaunchCounter("shift_grad")
 
 
 def _triple(v):

@@ -48,7 +48,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from ..ops._build import LaunchCounter
+from ..utils.profiling import LaunchCounter
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"

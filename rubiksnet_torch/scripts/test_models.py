@@ -35,6 +35,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -73,8 +74,10 @@ from ..parallel import (
 )
 from ..train.steps import make_eval_step
 from ..utils import AverageMeter, per_class_accuracy
+from ..utils.profiling import counters, recording, span_totals, spans
 
 CROP_SIZE, SCALE_SIZE = 224, 256
+DATA_NAMES = "rubiksnet.data."  # the spans and counters --stats-out keeps
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -215,7 +218,10 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     256, the reference's). Returns {"logits" (videos, classes) float32,
     "labels", "top1", "top5", "class_accuracy", "batches", "stats"}; writes
     ``args.stats_out`` when given (rank 0 under a process group, whose
-    every rank returns the same accuracies)."""
+    every rank returns the same accuracies). With ``args.stats_out`` the
+    run records the data path's spans (``utils.profiling.recording``), and
+    the stats carry their ``span_totals`` ("spans") and the run's counts of
+    the ``rubiksnet.data.*`` counters ("counters")."""
     device = resolve_device(args.device)
     initialize_distributed(device=device, log=log)
     group = create_mesh()
@@ -242,17 +248,22 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     host_wait = device_time = 0.0
     first_batch_s = None  # host + device of batch 0 (warm-up)
     seen = first_videos = batches = 0
-    if loader == "device":
-        feed = device_batches_from_files(dataset, args.batch_size, num_views,
-                                         args.frames, rank, world, device)
-    else:
-        feed = device_batches(
-            batch_iterator(dataset, args.batch_size, num_views, args.frames,
-                           rank=rank, world=world),
-            device)
-    if args.prefetch > 0:
-        feed = prefetch(feed, depth=args.prefetch)
+    since, counted = time.perf_counter_ns(), counters(DATA_NAMES)
+    recorded, feed = contextlib.ExitStack(), None
     try:
+        if args.stats_out:
+            recorded.enter_context(recording())
+        if loader == "device":
+            feed = device_batches_from_files(dataset, args.batch_size,
+                                             num_views, args.frames, rank,
+                                             world, device)
+        else:
+            feed = device_batches(
+                batch_iterator(dataset, args.batch_size, num_views,
+                               args.frames, rank=rank, world=world),
+                device)
+        if args.prefetch > 0:
+            feed = prefetch(feed, depth=args.prefetch)
         while True:
             th0 = time.time()
             try:
@@ -298,6 +309,7 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
     finally:
         if isinstance(feed, PrefetchIterator):
             feed.close()
+        recorded.close()
     wall = time.time() - t0
 
     logits = np.concatenate(all_logits)
@@ -339,6 +351,12 @@ def evaluate(args, crop_size=CROP_SIZE, scale_size=SCALE_SIZE, log=print):
         "top5": top5.avg,
         "device": device_name,
     }
+    if args.stats_out:
+        stats["spans"] = span_totals(
+            r for r in spans()
+            if r.name.startswith(DATA_NAMES) and r.start_ns >= since)
+        stats["counters"] = {n: c - counted.get(n, 0)
+                             for n, c in counters(DATA_NAMES).items()}
     if args.stats_out and not rank:
         with open(args.stats_out, "w") as f:
             json.dump(stats, f, indent=2)

@@ -29,6 +29,7 @@ from ..parallel.mesh import (
     sharded_modules,
 )
 from ..parallel.temporal import time_parallel
+from ..utils.profiling import NULL, setup_span, span
 from .optim import param_groups
 
 
@@ -73,6 +74,12 @@ class TrainStep:
     identical where a kernel's rounding is not deterministic (on an H100
     the stem's cuDNN weight gradient differed between two ranks in
     rounding). A model group and a time group together raise.
+
+    Spans (``utils/profiling.py``): ``rubiksnet.train.step`` (call id the
+    step's number) around ``.zero_grad``, ``.forward`` (model and loss),
+    ``.backward`` (with the group reductions), ``.optimizer`` (with the
+    scheduler) and ``.metrics``; the object's first call inside
+    ``rubiksnet.setup.first_step``.
     """
 
     def __init__(self, model, optimizer, scheduler=None, plain=False,
@@ -84,6 +91,7 @@ class TrainStep:
             scheduler)
         self.plain = plain
         self.step = 0
+        self.called = False
         self.data_group, self.time_group = data_group, time_group
         self.model_group = model_group
         shifts = {id(p) for p in param_groups(model)["shift"]}
@@ -109,23 +117,33 @@ class TrainStep:
         return stack
 
     def __call__(self, video, labels):
+        first, self.called = not self.called, True
+        with (setup_span("rubiksnet.setup.first_step") if first else NULL), (
+                span("rubiksnet.train.step", video, call=self.step)):
+            return self._step(video, labels)
+
+    def _step(self, video, labels):
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        with span("rubiksnet.train.zero_grad", video):
+            self.optimizer.zero_grad(set_to_none=True)
         with self._groups():
-            logits = self.net(video, plain=self.plain)
-            loss = cross_entropy(logits, labels)
-            loss.backward()
-        if self.time_group is not None:
-            for p in self.summed:
-                if p.grad is not None:
-                    dist.all_reduce(p.grad, group=self.time_group)
-        if self.model_group is not None:
-            _first_rank_grads(self.unsharded, self.model_group)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
+            with span("rubiksnet.train.forward", video):
+                logits = self.net(video, plain=self.plain)
+                loss = cross_entropy(logits, labels)
+            with span("rubiksnet.train.backward", video):
+                loss.backward()
+                if self.time_group is not None:
+                    for p in self.summed:
+                        if p.grad is not None:
+                            dist.all_reduce(p.grad, group=self.time_group)
+                if self.model_group is not None:
+                    _first_rank_grads(self.unsharded, self.model_group)
+        with span("rubiksnet.train.optimizer", video):
+            self.optimizer.step()
+            if self.scheduler is not None:
+                self.scheduler.step()
         self.step += 1
-        with torch.no_grad():
+        with span("rubiksnet.train.metrics", video), torch.no_grad():
             acc = (logits.argmax(-1) == labels).to(loss.dtype).mean()
             metrics = torch.stack([loss.detach(), acc])
             if self.data_group is not None:

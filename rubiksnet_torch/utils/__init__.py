@@ -15,10 +15,8 @@ from .metrics import (
     per_class_accuracy,
     topk_accuracy,
 )
-from .profiling import ThroughputMeter, Timer, trace
 
-__all__ = ["AverageMeter", "ThroughputMeter", "Timer", "confusion_matrix",
-           "cuda_busy_ms", "cuda_call_times_ms", "cuda_kernel_times",
-           "cuda_queued_time_ms", "cuda_time_ms", "host_call_times_ms",
-           "nvidia_smi_line", "per_class_accuracy", "topk_accuracy",
-           "trace"]
+__all__ = ["AverageMeter", "confusion_matrix", "cuda_busy_ms",
+           "cuda_call_times_ms", "cuda_kernel_times", "cuda_queued_time_ms",
+           "cuda_time_ms", "host_call_times_ms", "nvidia_smi_line",
+           "per_class_accuracy", "topk_accuracy"]

@@ -35,7 +35,6 @@ from rubiksnet_torch.scripts import eval_throughput, test_installation
 from rubiksnet_torch.scripts import test_models
 from rubiksnet_torch.train import make_eval_step
 from rubiksnet_torch.utils import metrics as port_metrics
-from rubiksnet_torch.utils.profiling import ThroughputMeter, Timer, trace
 from rubiksnet_tpu.models import create_rubiksnet as jax_create
 
 torch.set_num_threads(1)
@@ -299,7 +298,7 @@ def test_main_prints_the_reference_log_and_stats(frame_root, weights,
                                                  tmp_path, capsys):
     """main(argv) at the protocols' own geometry (scale 256, crop 224): the
     reference's log lines, and the --stats-out record with the JAX script's
-    keys (and no other)."""
+    keys and the data path's span totals and counts (and no other)."""
     import json
 
     _, ckpt = weights
@@ -322,9 +321,10 @@ def test_main_prints_the_reference_log_and_stats(frame_root, weights,
         "wall_s", "host_wait_s", "host_wait_frac", "device_step_fetch_s",
         "device_frac", "two_clips", "views_per_video", "batch_size",
         "prefetch", "loader", "backend", "dtype", "tier", "top1", "top5",
-        "device"}
+        "device", "spans", "counters"}
     assert stats["videos"] == 3 == len(out["labels"])
     assert 0.0 <= stats["host_wait_frac"] <= 1.0
+    assert stats["counters"]["rubiksnet.data.prefetch_gets"] == out["batches"]
 
 
 def test_entry_points_default_to_the_card():
@@ -387,7 +387,7 @@ def test_eval_step_with_a_held_executor():
         make_eval_step(other, executor=executor)
 
 
-# ------------------------------------------------------ metrics, profiling
+# --------------------------------------------------------------- metrics
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_metrics_match_jax(seed):
@@ -411,24 +411,3 @@ def test_metrics_match_jax(seed):
         a.update(v, n)
         b.update(v, n)
     assert (a.val, a.avg, a.sum, a.count) == (b.val, b.avg, b.sum, b.count)
-
-
-def test_timer_throughput_and_trace(tmp_path):
-    t = Timer()
-    with t:
-        pass
-    first = t.elapsed
-    with t:
-        pass
-    assert t.elapsed >= first >= 0.0
-    m = ThroughputMeter(warmup=2)
-    m.update(5)
-    assert m.items_per_sec == 0.0
-    m.update(5)
-    m.update(8)
-    assert m.items_per_sec > 0.0
-    with trace(None) as prof:
-        assert prof is None
-    with trace(str(tmp_path / "tr")):
-        torch.ones(4).sum()
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
