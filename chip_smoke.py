@@ -17,7 +17,7 @@ shapes, and in bf16 at every batch size they are timed or served at,
 because their launch plans depend on the batch: a K2 or K3 plan that did
 not pass that comparison is not timed): RubiksNet-Large
 (rubiks3d), Large with the rubiks3d-aq variant (the 2D shift kernels, K2
-with the attention mix) and the SE tier Small (K2 and K3 with the gate;
+and K3 with the attention mix) and the SE tier Small (K2 and K3 with the gate;
 every SE comparison also holds the gate alone against the plain gate of the
 kernel's own mid, and Small with the rubiks3d-aq variant is checked in f32
 and bf16 at a small size).
@@ -261,6 +261,12 @@ ENTRY_SHAPES = [(112, 72, 72), (56, 72, 144), (28, 144, 288),
 SMALL_BLOCK_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 3), (14, 288, 5),
                       (7, 576, 2)]
 
+# The launch counters of ops.launch_counters(), each launch-count check's
+# keys.
+LAUNCH_COUNTERS = ("shift3d", "shift3d_inverse", "shift_grad", "fused_block",
+                   "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
+                   "shift2d_inverse")
+
 # Every kernel of the JSON line: where it lives and what it replaces.
 KERNELS = {
     # The 3D shift on its staged route (one device body, three kernels:
@@ -294,6 +300,11 @@ KERNELS = {
                        "rubiksnet_tpu/ops/pallas/fused_block.py:455"),
     "fused_entry_se": ("rubiksnet_torch/ops/csrc/fused_entry_tc.cu",
                        "rubiksnet_tpu/ops/pallas/fused_entry.py:338"),
+    # K3 with the attention mix: the rubiks3d-aq entries, XLA compositions
+    # in the JAX package (rubiksnet_tpu/models/fused_infer.py:144-152 keeps
+    # them off the Pallas kernel), on K3's launches here.
+    "fused_entry_aq": ("rubiksnet_torch/ops/csrc/fused_entry_tc.cu",
+                       "rubiksnet_tpu/models/fused_infer.py:144"),
     # The SE gate of the tensor-core route (fused_block.py:215 se_gate,
     # :231 se_conv3_batched; fused_entry.py:198 gate_from_mean): its sums in
     # launch A (tc_se.cuh), then one launch per SE block.
@@ -768,9 +779,8 @@ def train_phase(dev, gen, name, smi):
     metrics = step(video, labels)
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
-    want = {"shift3d": 51, "shift3d_inverse": 51, "shift_grad": 51,
-            "fused_block": 0, "fused_entry": 0, "se_gate": 0, "shift2d": 0,
-            "shift2d_inverse": 0}
+    want = dict(dict.fromkeys(LAUNCH_COUNTERS, 0), shift3d=51,
+                shift3d_inverse=51, shift_grad=51)
     loss = float(metrics["loss"])
     print(f"[train] (c) launches of one Large bf16 train step, batch "
           f"{TIME_BATCH}: {launches}; loss {loss:.4f}")
@@ -893,9 +903,10 @@ def check_shift2d_cases(errs, gen, dev):
 
 def check_new_kernels(errs, gen, cpu_gen, dev):
     """The 2D shift's forward and input-gradient kernels, K2 with the
-    attention mix, with the SE gate and with both, and K3 with the SE gate,
-    against their plain versions at the Large-AQ and Small shapes, f32 and
-    bf16. Every SE run is repeated and must agree bit for bit."""
+    attention mix, with the SE gate and with both, K3 with the SE gate and
+    K3 with the attention mix (K3-AQ, at batch TIME_BATCH), against their
+    plain versions at the Large-AQ and Small shapes, f32 and bf16. Every SE
+    and K3-AQ run is repeated and must agree bit for bit."""
     from rubiksnet_torch.ops import shift2d
     from rubiksnet_torch.ops.fused_block import (
         fused_block_kernel,
@@ -908,6 +919,7 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
         fused_entry_kernel,
         fused_entry_plain,
         stack_entry_params,
+        stack_entry_params_aq,
     )
 
     dtypes = (torch.float32, torch.bfloat16)
@@ -979,6 +991,19 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
                 ref = fused_entry_plain(x, params, sep, max_shift=MAX_SHIFT)
                 judge(label, got, ref, dt, errs["fused_entry_se"])
 
+    print(f"[kernels] K3-AQ fused_entry with the attention mix (Large-AQ's "
+          f"entries) vs plain, batch {TIME_BATCH}; bit-identical on a rerun")
+    for h, cin, cm in ENTRY_SHAPES:
+        blk = random_block(cin, cm, 2, False, cpu_gen, dev, "rubiks3d-aq")
+        for dt in dtypes:
+            params = stack_entry_params_aq(blk, dt, MAX_SHIFT)
+            x = randn((TIME_BATCH, FRAMES, h, h, cin), dt, gen, dev)
+            label = f"K3-AQ {h}x{h}x{cin}->{cm} {str(dt)[6:]}"
+            got = twice(label, lambda: fused_entry_kernel(
+                x, params, aq=True, max_shift=MAX_SHIFT))
+            ref = fused_entry_plain(x, params, aq=True, max_shift=MAX_SHIFT)
+            judge(label, got, ref, dt, errs["fused_entry_aq"])
+
 
 def block_kinds(aq, se):
     """The rows of the kernels line a K2 comparison belongs to."""
@@ -1043,16 +1068,24 @@ def checked_plan(shape, aq, se, dev):
     return plan
 
 
-# K3's plan depends on the batch as K2's does: (shape, Cm, se) -> the plan of
-# the bf16 comparison that passed there.
+# K3's plan depends on the batch as K2's does: (shape, Cm, se, aq) -> the
+# plan of the bf16 comparison that passed there.
 CHECKED_ENTRY_PLANS = {}
+# K3's forms: (se, aq).
+ENTRY_FORMS = ((False, False), (True, False), (False, True))
+
+
+def entry_kind(se, aq):
+    """The row of the kernels line a K3 comparison belongs to."""
+    return "fused_entry_se" if se else "fused_entry_aq" if aq else (
+        "fused_entry")
 
 
 def check_entry_served_shapes(errs, gen, cpu_gen, dev):
-    """K3 and K3-SE in bf16 on the tensor-core route at every entry shape of
-    the main path (Large's and Small's) at every batch size that is timed or
-    served (the evaluator's EVAL_CLIPS included), twice bit-identically,
-    against the plain version, K3-SE's gate
+    """K3, K3-SE and K3-AQ in bf16 on the tensor-core route at every entry
+    shape of the main path (Large's, Small's and Large-AQ's) at every batch
+    size that is timed or served (the evaluator's EVAL_CLIPS included),
+    twice bit-identically, against the plain version, K3-SE's gate
     also alone (as K2's); and the previous route, which is only timed, at
     TIME_BATCH."""
     from rubiksnet_torch.utils import fused_entry_probe as probe
@@ -1063,37 +1096,39 @@ def check_entry_served_shapes(errs, gen, cpu_gen, dev):
           f"{batches}: the plans that are timed and served, vs plain; every "
           f"run repeated bit-identically")
     for label, n, t, h, w, cin, cm, k, kind in probe.served_cases(batches):
-        for se in (False, True):
+        for se, aq in ENTRY_FORMS:
             ok, max_abs, text, plan = probe.check_case(
                 label, (n, t, h, w, cin), cm, k, kind, se, bf, gen, cpu_gen,
-                dev, gate_errs=errs["se_gate"])
+                dev, gate_errs=errs["se_gate"], aq=aq)
             print("  " + text)
             if not ok:
-                fail(f"K3 {label} se={se} bf16 failed")
-            CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, se] = plan
-            errs["fused_entry_se" if se else "fused_entry"].append(max_abs)
+                fail(f"K3 {label} se={se} aq={aq} bf16 failed")
+            CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, se, aq] = plan
+            errs[entry_kind(se, aq)].append(max_abs)
     for label, n, t, h, w, cin, cm, k, kind in probe.served_cases(
             (TIME_BATCH,)):
-        for se in (False, True):
+        for se, aq in ENTRY_FORMS:
             ok, _, text, _ = probe.check_case(
                 label + ", previous route", (n, t, h, w, cin), cm, k, kind,
-                se, bf, gen, cpu_gen, dev, route="simt")
+                se, bf, gen, cpu_gen, dev, route="simt", aq=aq)
             print("  " + text)
             if not ok:
-                fail(f"K3 {label} se={se} bf16 previous route failed")
+                fail(f"K3 {label} se={se} aq={aq} bf16 previous route "
+                     f"failed")
 
 
-def checked_entry_plan(shape, cm, se, dev):
+def checked_entry_plan(shape, cm, se, dev, aq=False):
     """The plan a bf16 K3 call at ``shape`` runs under; fails unless that
-    very plan passed its comparison with the plain version at this shape."""
+    very plan passed its comparison with the plain version at this shape,
+    in this form."""
     from rubiksnet_torch.ops.fused_block import _sm_count
     from rubiksnet_torch.ops.fused_entry import fused_entry_plan
 
     plan = fused_entry_plan(shape, cm, torch.bfloat16,
                             sms=_sm_count(dev.index))
-    if CHECKED_ENTRY_PLANS.get((tuple(shape), cm, se)) != plan:
-        fail(f"K3 at {tuple(shape)}->{cm} se={se} would be timed under a "
-             f"plan that was not held against the plain version: "
+    if CHECKED_ENTRY_PLANS.get((tuple(shape), cm, se, aq)) != plan:
+        fail(f"K3 at {tuple(shape)}->{cm} se={se} aq={aq} would be timed "
+             f"under a plan that was not held against the plain version: "
              f"{plan.describe()}")
     return plan
 
@@ -1385,6 +1420,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         fused_entry_kernel,
         fused_entry_plain,
         stack_entry_params,
+        stack_entry_params_aq,
     )
     from rubiksnet_torch.ops.shift3d import (
         compute_output_shape_3d,
@@ -1473,6 +1509,27 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                       kernels_per_call=2 + (plan.g is not None) + se,
                       previous="the SIMT GEMM of common.cuh",
                       note=f"; {entry_parts(new)}; plan: {plan.describe()}")
+        # K3-AQ beside what it replaced on the main path: the block's module
+        # path (bn1, the attention shift, the 1x1 convs, the 2D shift
+        # kernel) is its "plain" time.
+        blk = random_block(cin, cm, 2, False, cpu_gen, dev, "rubiks3d-aq")
+        params_aq = stack_entry_params_aq(blk, bf, k)
+        plan = checked_entry_plan(x.shape, cm, False, dev, aq=True)
+
+        def module_path(blk=blk, x=x):
+            with torch.no_grad():
+                return blk(x)
+
+        new = lambda: fused_entry_kernel(x, params_aq, max_shift=k, aq=True,
+                                         overlap=False)
+        timer.add("fused_entry_aq", f"K3-AQ {h}x{h}x{cin}->{cm} (plain: the "
+                  f"block's module path)", 1, new, module_path,
+                  entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, aq=True), bf,
+                  previous_fn=lambda: fused_entry_kernel(
+                      x, params_aq, max_shift=k, aq=True, route="simt"),
+                  kernels_per_call=2 + (plan.g is not None),
+                  previous="the SIMT GEMM of common.cuh",
+                  note=f"; {entry_parts(new)}; plan: {plan.describe()}")
     # The shifts' backward kernels, summed over one train step's calls (one
     # input gradient and one shift gradient per shift), and the 2D shift
     # (Large-AQ: 51 per unfused forward and per train step).
@@ -1736,9 +1793,7 @@ def main_path(label, model, batch, want_fused, want_unfused):
     from rubiksnet_torch.models.fused_infer import FusedExecutor
 
     executor = FusedExecutor(model)
-    zero = dict.fromkeys(("shift3d", "shift3d_inverse", "shift_grad",
-                          "fused_block", "fused_entry", "se_gate", "shift2d",
-                          "shift2d_inverse"), 0)
+    zero = dict.fromkeys(LAUNCH_COUNTERS, 0)
     with torch.no_grad():
         fused_logits, fused = counted(lambda: executor(batch))
         unfused_logits, unfused = counted(lambda: model(batch))
@@ -1764,7 +1819,7 @@ def serve_phase(label, executor, model, gen, dev, name, smi, aq, se):
     events around it (median, min and max of SERVE_ITERS calls). Every K2
     and K3 plan of a served batch must have passed its comparison with the
     plain version at that shape (``aq``, ``se``: the configuration's K2 and
-    K3 form; the aq variant runs no K3)."""
+    K3 form)."""
     print(f"[serve] {label} fused executor, bf16, {FRAMES}x{SIZE}x{SIZE}, "
           f"{name} ({smi})")
     for bs in SERVE_BATCHES:
@@ -1773,12 +1828,11 @@ def serve_phase(label, executor, model, gen, dev, name, smi, aq, se):
                  for h, c, _ in BLOCK_SHAPES]
         print(f"  K2 plans at batch {bs}, each checked against plain: "
               + "; ".join(plans))
-        if not aq:
-            entries = [f"{h}x{h}x{cin}->{cm} " + checked_entry_plan(
-                (bs, FRAMES, h, h, cin), cm, se, dev).describe()
-                       for h, cin, cm in ENTRY_SHAPES]
-            print(f"  K3 plans at batch {bs}, each checked against plain: "
-                  + "; ".join(entries))
+        entries = [f"{h}x{h}x{cin}->{cm} " + checked_entry_plan(
+            (bs, FRAMES, h, h, cin), cm, se, dev, aq).describe()
+                   for h, cin, cm in ENTRY_SHAPES]
+        print(f"  K3 plans at batch {bs}, each checked against plain: "
+              + "; ".join(entries))
 
     def serve(route, fn, bs):
         ms = sorted(cuda_call_times_ms(fn, iters=SERVE_ITERS, warmup=2))
@@ -1816,8 +1870,11 @@ def small_aq_check(dev, gen):
             ref = m(video, plain=True)
             got, counts = counted(lambda: FusedExecutor(m)(video))
         _, _, rel = errors(got, ref)
+        # K3 takes no SE gate with the attention mix: the entries stay on
+        # the module path, their 2D shift on shift2d.
         ok = (rel <= tol and counts["fused_block"] == 13
               and counts["shift2d"] == 4 and counts["fused_entry"] == 0
+              and counts["fused_entry_aq"] == 0
               and counts["se_gate"] == gates
               and bool(torch.isfinite(got.float()).all()))
         print(f"[model] Small rubiks3d-aq (SE and AQ together), 4x64x64, "
@@ -2702,8 +2759,8 @@ EXPORT_CASES = (
     ("Large module path, batch 8", "large", "rubiks3d", False, False, (8,),
      {"shift3d": 51}, {"shift3d": "shift3d"}),
     ("Large-AQ fused, batch 8", "large", "rubiks3d-aq", True, False, (8,),
-     {"fused_block": 47, "shift2d": 4},
-     {"fused_block_aq": "fused_block", "shift2d": "shift2d"}),
+     {"fused_block": 47, "fused_entry_aq": 4},
+     {"fused_block_aq": "fused_block", "fused_entry_aq": "fused_entry_aq"}),
     ("Small fused, batch 8", "small", "rubiks3d", True, False, (8,),
      {"fused_block": 13, "fused_entry": 4, "se_gate": 17},
      {"fused_block_se": "fused_block", "fused_entry_se": "fused_entry",
@@ -2777,22 +2834,21 @@ def check_batch_range(errs, gen, cpu_gen, dev, hi, aq, se):
         checked += 1
         plans.add(("K2", h, plan.describe()))
         worst["K2"] = max(worst.get("K2", 0.0), max_abs)
-    if not aq:
-        for label, n, t, h, w, cin, cm, k, kind in entry_probe.served_cases(
-                batches):
-            if ((n, t, h, w, cin), cm, se) in CHECKED_ENTRY_PLANS:
-                continue
-            ok, max_abs, text, plan = entry_probe.check_case(
-                label, (n, t, h, w, cin), cm, k, kind, se, bf, gen, cpu_gen,
-                dev, gate_errs=errs["se_gate"])
-            if not ok:
-                fail(f"K3 {text}")
-            CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, se] = plan
-            errs["fused_entry_se" if se else "fused_entry"].append(max_abs)
-            checked += 1
-            plans.add(("K3", h, plan.describe()))
-            worst["K3"] = max(worst.get("K3", 0.0), max_abs)
-    print(f"  K2{'' if aq else ' and K3'} bf16 (aq={aq}, se={se}) at every "
+    for label, n, t, h, w, cin, cm, k, kind in entry_probe.served_cases(
+            batches):
+        if ((n, t, h, w, cin), cm, se, aq) in CHECKED_ENTRY_PLANS:
+            continue
+        ok, max_abs, text, plan = entry_probe.check_case(
+            label, (n, t, h, w, cin), cm, k, kind, se, bf, gen, cpu_gen,
+            dev, gate_errs=errs["se_gate"], aq=aq)
+        if not ok:
+            fail(f"K3 {text}")
+        CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, se, aq] = plan
+        errs[entry_kind(se, aq)].append(max_abs)
+        checked += 1
+        plans.add(("K3", h, plan.describe()))
+        worst["K3"] = max(worst.get("K3", 0.0), max_abs)
+    print(f"  K2 and K3 bf16 (aq={aq}, se={se}) at every "
           f"batch 1..{hi}: {checked} shapes not checked before, now held "
           f"against plain, bit-identical on a rerun, {len(plans)} distinct "
           f"(shape, plan) pairs among them; worst max_abs "
@@ -2846,10 +2902,9 @@ def export_phase(dev, gen, cpu_gen, errs, name, smi):
                            else batches):
                     for h, c, _ in BLOCK_SHAPES:
                         checked_plan((bs, FRAMES, h, h, c), aq, se, dev)
-                    if not aq:
-                        for h, cin, cm in ENTRY_SHAPES:
-                            checked_entry_plan((bs, FRAMES, h, h, cin), cm,
-                                               se, dev)
+                    for h, cin, cm in ENTRY_SHAPES:
+                        checked_entry_plan((bs, FRAMES, h, h, cin), cm, se,
+                                           dev, aq)
             t0 = time.perf_counter()
             program = export_eval_fn(model, batches[0], num_crops=1,
                                      input_size=SIZE, fused=fused,
@@ -2894,9 +2949,7 @@ def export_phase(dev, gen, cpu_gen, errs, name, smi):
         print(f"  serving process (imports rubiksnet_torch.serving, builds "
               f"no model): loaded and ran {len(jobs)} programs in "
               f"{time.perf_counter() - t0:.1f} s")
-    zero = dict.fromkeys(("shift3d", "shift3d_inverse", "shift_grad",
-                          "fused_block", "fused_entry", "se_gate", "shift2d",
-                          "shift2d_inverse"), 0)
+    zero = dict.fromkeys(LAUNCH_COUNTERS, 0)
     for i, (label, _, _, fused, _, batches, want, row_of) in enumerate(
             EXPORT_CASES):
         for bs in batches:
@@ -3803,9 +3856,7 @@ def check_bench_line(label, line, name, want):
     detail = line["detail"]
     if detail["device"] != name:
         fail(f"{label}: device {detail['device']!r}, not {name!r}")
-    zero = dict.fromkeys(("shift3d", "shift3d_inverse", "shift_grad",
-                          "fused_block", "fused_entry", "se_gate", "shift2d",
-                          "shift2d_inverse"), 0)
+    zero = dict.fromkeys(LAUNCH_COUNTERS, 0)
     for batch, p in detail["points"].items():
         if p["launches"] != dict(zero, **want):
             fail(f"{label} batch {batch}: launches {p['launches']} != "
@@ -3856,7 +3907,7 @@ def measurement_phase(errs, gen, cpu_gen, dev, name, smi):
         print("  " + text)
         if not ok:
             fail(f"K3 {label} bf16 failed")
-        CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, False] = plan
+        CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, False, False] = plan
         errs["fused_entry"].append(max_abs)
     for b in MEASURE_SERVE_BATCHES:
         for h, c, _ in BLOCK_SHAPES:
@@ -4053,8 +4104,9 @@ def main() -> int:
          {"fused_block": "fused_block", "fused_entry": "fused_entry"},
          {"shift3d": "shift3d"}),
         ("Large rubiks3d-aq", "large", "rubiks3d-aq",
-         {"fused_block": 47, "shift2d": 4}, {"shift2d": 51},
-         {"fused_block_aq": "fused_block"}, {"shift2d": "shift2d"}),
+         {"fused_block": 47, "fused_entry_aq": 4}, {"shift2d": 51},
+         {"fused_block_aq": "fused_block",
+          "fused_entry_aq": "fused_entry_aq"}, {"shift2d": "shift2d"}),
         ("Small rubiks3d (SE)", "small", "rubiks3d",
          {"fused_block": 13, "fused_entry": 4, "se_gate": 17},
          {"shift3d": 17},

@@ -15,14 +15,16 @@ or declines it; a declined block runs on the module path. The structure:
   An SE tier passes its gate weights (``se``), the rubiks3d-aq variant its
   attention taps (``aq=True``). K2 declines an SE run whose gate does not
   fit a block's shared memory beside its plan (a large ``max_shift``);
-* each stride-2 entry block of the rubiks3d variant -> K3
-  (``ops/fused_entry.py``), with ``se`` on an SE tier. K3 declines odd H
-  or W (an input that is not a multiple of 32: at 56 px the third entry
-  sees 7 x 7, at 112 px the last) and an SE plan that does not fit;
-* the entry blocks of rubiks3d-aq, and every rubiks3d-aq block when the
-  model quantizes (the 2D shift rounds half away from zero, which has no
-  tap form), stay on the module path: their 2D shift runs on the 2D shift
-  kernel (``ops/shift2d.py``, ``csrc/shift2d.cu``);
+* each stride-2 entry block -> K3 (``ops/fused_entry.py``), with ``se`` on
+  an SE tier and the attention mix (``aq=True``) for rubiks3d-aq, whose
+  entries the JAX executor leaves to XLA. K3 declines odd H or W (an input
+  that is not a multiple of 32: at 56 px the third entry sees 7 x 7, at 112
+  px the last), an SE plan that does not fit, and the attention mix with
+  an SE gate (Small-AQ);
+* every rubiks3d-aq block when the model quantizes (the 2D shift rounds
+  half away from zero, which has no tap form), and the entries K3
+  declines, stay on the module path: a rubiks3d-aq block's 2D shift runs
+  there on the 2D shift kernel (``ops/shift2d.py``, ``csrc/shift2d.cu``);
 * the stem conv and the head (bn_last, ReLU, spatial mean, new_fc, mean
   over frames) are plain PyTorch, as they were XLA ops in the JAX package.
 
@@ -48,6 +50,7 @@ from ..ops.fused_entry import (
     fused_entry_run,
     fused_entry_supported,
     stack_entry_params,
+    stack_entry_params_aq,
 )
 from ..parallel.mesh import active_model_group, sharded_modules
 from ..parallel.temporal import active_time_group
@@ -122,16 +125,13 @@ class FusedExecutor:
                 self.steps.append(("module", (name,), blk))
             elif blk.stride == 1 and blk.in_planes == blk.out_planes:
                 run.append((name, blk))
-            elif aq:
-                flush()
-                self.steps.append(("module", (name,), blk))
             elif blk.stride == 2:
                 flush()
                 se = (stack_se_params([blk])[0] if blk.se is not None
                       else None)
-                self.steps.append(("entry", (name,),
-                                   (stack_entry_params(blk, dtype, k, q),
-                                    se)))
+                params = (stack_entry_params_aq(blk, dtype, k) if aq
+                          else stack_entry_params(blk, dtype, k, q))
+                self.steps.append(("entry", (name,), (params, se)))
             else:
                 raise NotImplementedError(
                     f"{name}: stride {blk.stride} width {blk.in_planes}->"
@@ -164,7 +164,8 @@ class FusedExecutor:
             elif kind == "entry":
                 ok = fused_entry_supported(
                     shape_in, first.in_planes, first.out_planes, k, dtype,
-                    se=params[1] is not None, quantize=q, sms=sms)
+                    se=params[1] is not None, aq=self.aq, quantize=q,
+                    sms=sms)
             else:
                 ok = True
             if ok:
@@ -266,7 +267,7 @@ class FusedExecutor:
                         x = fused_block_run(x, *params, aq=self.aq,
                                             max_shift=model.max_shift)
                     elif kind == "entry":
-                        x = fused_entry_run(x, *params,
+                        x = fused_entry_run(x, *params, aq=self.aq,
                                             max_shift=model.max_shift)
                     else:
                         x = params(x)

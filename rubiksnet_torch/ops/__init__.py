@@ -8,7 +8,11 @@ from .fused_block import (
     stack_block_params_aq,
     stack_se_params,
 )
-from .fused_entry import fused_entry_run, stack_entry_params
+from .fused_entry import (
+    fused_entry_run,
+    stack_entry_params,
+    stack_entry_params_aq,
+)
 from .shift2d import (
     compute_output_shape_2d,
     normalize_shift_grad_2d,
@@ -48,6 +52,7 @@ __all__ = [
     "stack_block_params",
     "stack_block_params_aq",
     "stack_entry_params",
+    "stack_entry_params_aq",
     "stack_se_params",
     "launch_counters",
 ]
@@ -55,8 +60,9 @@ __all__ = [
 
 def launch_counters():
     """The launch counters of K1 (shift3d), K1-inverse (shift3d_inverse),
-    K4 (shift_grad), K2 (fused_block), K3 (fused_entry), the SE gate of
-    their tensor-core route (se_gate) and the 2D shift's forward and
+    K4 (shift_grad), K2 (fused_block), K3 (fused_entry), K3 with the
+    attention mix (fused_entry_aq), the SE gate of their tensor-core route
+    (se_gate) and the 2D shift's forward and
     input-gradient kernels (shift2d, shift2d_inverse), by name: the
     registry's counters of these kernels (``utils.profiling.counters``)."""
     from . import fused_block, fused_entry, shift2d, shift3d
@@ -64,5 +70,6 @@ def launch_counters():
     return {c.name: c for c in (shift3d.LAUNCHES, shift3d.INVERSE_LAUNCHES,
                                 shift3d.SHIFT_GRAD_LAUNCHES,
                                 fused_block.LAUNCHES, fused_entry.LAUNCHES,
+                                fused_entry.AQ_LAUNCHES,
                                 fused_block.SE_GATE_LAUNCHES,
                                 shift2d.LAUNCHES, shift2d.INVERSE_LAUNCHES)}

@@ -2,10 +2,14 @@
 // inference.
 //
 //   a   = relu(bn1(x))                                   (N, T, H, W, Cin)
-//   out = W3 . [SE] shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
+//   out = W3 . [SE] shift3d_s2(relu(bn2(W2 . [AQ] a))) + Wsc . a[:, :, ::2, ::2]
 //
 // Replaces rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_run, with
-// its SE gate on the decimated activation. The shift at stride (1, 2, 2), pad
+// its SE gate on the decimated activation. With aq (the rubiks3d-aq
+// variant, whose entries are XLA compositions in the JAX package) launch A's
+// loader mixes a along T with the three attention taps, as K2's does, and
+// the shift is 2D: the T tap row is the identity. The shortcut reads a
+// unmixed. aq takes no SE gate. The shift at stride (1, 2, 2), pad
 // 0, is the stride-1 shift sampled at (2h', 2w'); the TPU kernel's W
 // de-interleave and parity-split H were workarounds for Mosaic's lack of
 // strided slices, and a strided read replaces both here.
@@ -91,26 +95,32 @@ int fused_entry(const void* xv, const float* vt1, const float* vt2,
                 const void* w2v, const void* w3v, const void* wscv,
                 const float* se, float* partial, float* gate, void* midv,
                 void* outv, int N, int T_, int H, int W, int Cin, int Cm,
-                int taps_n, int K, int Cr, int slices, cudaStream_t stream) {
+                int taps_n, int K, int Cr, int slices, int aq,
+                cudaStream_t stream) {
   const int Ho = H / 2, Wo = W / 2;
   const int64_t M = (int64_t)N * T_ * H * W;
   const int64_t Mo = (int64_t)N * T_ * Ho * Wo;
   if (Mo == 0) return 0;
   if (taps_n > kMaxTaps || M >= (int64_t(1) << 31))
     return (int)cudaErrorInvalidValue;
-  if (se != nullptr && (partial == nullptr || gate == nullptr))
+  if (se != nullptr && (partial == nullptr || gate == nullptr || aq))
     return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(xv);
   T* mid = static_cast<T*>(midv);
   const float* s1 = vt1;
   const float* b1 = vt1 + Cin;
+  const float* aw = vt1 + 2 * Cin;  // the AQ rows follow s1 and b1
   const float* s2 = vt2;
   const float* b2 = vt2 + Cm;
   const float* taps = vt2 + 2 * Cm;
+  const WeightLoad<T> w2{static_cast<const T*>(w2v), Cm};
+  const BnReluStore<T> store{mid, s2, b2, Cm};
   cudaError_t err =
-      launch_gemm<T>(M, Cm, Cin, BnReluLoad<T>{x, s1, b1, Cin},
-                  WeightLoad<T>{static_cast<const T*>(w2v), Cm},
-                  BnReluStore<T>{mid, s2, b2, Cm}, stream);
+      aq ? launch_gemm<T>(M, Cm, Cin,
+                          AqBnReluLoad<T>{x, s1, b1, aw, Cin, T_, H * W}, w2,
+                          store, stream)
+         : launch_gemm<T>(M, Cm, Cin, BnReluLoad<T>{x, s1, b1, Cin}, w2,
+                          store, stream);
   if (err != cudaSuccess) return (int)err;
   if (se != nullptr) {
     err = launch_se_gate<T>(mid, taps, se, partial, gate, N * T_, T_, H, W,
@@ -126,7 +136,8 @@ int fused_entry(const void* xv, const float* vt1, const float* vt2,
 }
 
 // The entry on the tensor-core route (bfloat16 only): launch A under plan a
-// (with se, leaving the gate's per-frame sums in partial, tc_se.cuh), the
+// (with aq the attention mix in its loader; with se, leaving the gate's
+// per-frame sums in partial, tc_se.cuh), the
 // gate (se_gate_tc.cu), the gather pre-pass where g_rows > 0, launch B under
 // plan b.
 int fused_entry_tc(const TcPlan& a, const TcPlan& b, int g_rows, int g_grid,
@@ -135,13 +146,13 @@ int fused_entry_tc(const TcPlan& a, const TcPlan& b, int g_rows, int g_grid,
                    const void* wsc, const float* se, float* partial,
                    float* gate, void* stage, void* mid, void* out, int N,
                    int T_, int H, int W, int Cin, int Cm, int taps_n, int K,
-                   int Cr, int slices, cudaStream_t stream) {
+                   int Cr, int slices, int aq, cudaStream_t stream) {
   if (N == 0) return 0;
   if (se != nullptr && (partial == nullptr || gate == nullptr))
     return (int)cudaErrorInvalidValue;
   const EntryShape shape = {N, T_, H, W, Cin, Cm, taps_n, K};
   cudaError_t err =
-      entry_tc_launch_mid(a, shape, x, vt1, vt2, w2, mid,
+      entry_tc_launch_mid(a, shape, x, vt1, vt2, w2, mid, aq,
                           se != nullptr ? partial : nullptr, slices, stream);
   if (err != cudaSuccess) return (int)err;
   const float* g = se != nullptr ? gate : nullptr;
@@ -167,15 +178,16 @@ extern "C" {
 
 // x (N, T, H, W, Cin) with H, W even, mid (N, T, H, W, Cm) and out
 // (N, T, H/2, W/2, Cm) contiguous of dtype (0 float32, 1 bfloat16).
-// vt1: (2, Cin) float32 folded bn1; vt2: (2 + 3*taps_n, Cm) float32 folded
-// bn2 then the T, H, W tap weights. w2, wsc: (Cin, Cm), w3: (Cm, Cm), of
-// dtype, (in, out). se: null, or (2, Cm, Cr) float32 (fc1, fc2 transposed)
-// with scratch partial and gate (N*T, Cm) float32; partial is (N*T, slices,
-// Cm), slices = ceil(H / 8), on route 0 (se_gate.cuh's pass over mid) and
-// (launch A's row tiles, slices, Cm), slices = tc_se_slots(A's wm * 16,
-// H * W), on route 1 (tc_se.cuh). route: 0 the common.cuh GEMM (either
-// dtype; plan and stage unused), 1 the tensor-core kernels (bfloat16 only)
-// under plan,
+// vt1: (2, Cin) float32 folded bn1, and when aq is set (5, Cin): then the
+// three rows of attention taps. vt2: (2 + 3*taps_n, Cm) float32 folded bn2
+// then the T, H, W tap weights (with aq the T row is the identity). w2, wsc:
+// (Cin, Cm), w3: (Cm, Cm), of dtype, (in, out). se: null, or (2, Cm, Cr)
+// float32 (fc1, fc2 transposed) with scratch partial and gate (N*T, Cm)
+// float32; partial is (N*T, slices, Cm), slices = ceil(H / 8), on route 0
+// (se_gate.cuh's pass over mid) and (launch A's row tiles, slices, Cm),
+// slices = tc_se_slots(A's wm * 16, H * W), on route 1 (tc_se.cuh); se must
+// be null with aq. route: 0 the common.cuh GEMM (either dtype; plan and
+// stage unused), 1 the tensor-core kernels (bfloat16 only) under plan,
 // 16 ints of ops/fused_entry.py::fused_entry_plan: launch A's (pw, wm, wn,
 // n_split, grid_x, smem_bytes), launch B's, the gather pre-pass's (rows,
 // grid_x, smem_bytes; rows 0: none) and overlap. stage: with the pre-pass,
@@ -186,8 +198,8 @@ int rubiks_fused_entry(const void* x, const float* vt1, const float* vt2,
                        const float* se, float* partial, float* gate,
                        void* mid, void* out, int dtype, int N, int T, int H,
                        int W, int Cin, int Cm, int taps_n, int K, int Cr,
-                       int slices, int route, const int* plan, void* stage,
-                       void* stream) {
+                       int slices, int aq, int route, const int* plan,
+                       void* stage, void* stream) {
   using namespace rubiks;
   auto s = static_cast<cudaStream_t>(stream);
   if ((route != 0 && route != 1) || (route == 1 && dtype != kBF16))
@@ -202,16 +214,16 @@ int rubiks_fused_entry(const void* x, const float* vt1, const float* vt2,
     const TcPlan b = {pb[0], pb[1], pb[2], pb[3], pb[4], pb[5], overlap};
     return fused_entry_tc(a, b, pg[0], pg[1], pg[2], x, vt1, vt2, w2, w3, wsc,
                           se, partial, gate, stage, mid, out, N, T, H, W, Cin,
-                          Cm, taps_n, K, Cr, slices, s);
+                          Cm, taps_n, K, Cr, slices, aq, s);
   }
   if (dtype == kBF16)
     return fused_entry<__nv_bfloat16>(x, vt1, vt2, w2, w3, wsc, se, partial,
                                       gate, mid, out, N, T, H, W, Cin, Cm,
-                                      taps_n, K, Cr, slices, s);
+                                      taps_n, K, Cr, slices, aq, s);
   if (dtype == kF32)
     return fused_entry<float>(x, vt1, vt2, w2, w3, wsc, se, partial, gate,
                               mid, out, N, T, H, W, Cin, Cm, taps_n, K, Cr,
-                              slices, s);
+                              slices, aq, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,9 +5,12 @@
 //   B: out = ([gate .] shift3d_s2(mid)) @ W3
 //            + relu(s1 . x + b1)[:, :, ::2, ::2] @ Wsc     (N, T, H/2, W/2, Cm)
 //
-// in its rubiks3d form and under the SE gate (launch A then also sums the
+// in its rubiks3d form, under the SE gate (launch A then also sums the
 // gate's weighted values of mid per frame, tc_se.cuh, and one launch between
-// A and B makes the gate from them, se_gate_tc.cu). It replaces, for bf16, the
+// A and B makes the gate from them, se_gate_tc.cu), and in its rubiks3d-aq
+// form (launch A mixes the activated input along T with the three attention
+// taps, K2-AQ's loader, before W2; the shift is 2D: an identity T tap row).
+// It replaces, for bf16, the
 // common.cuh GEMM those launches ran on before, and with it
 // rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_run (gate_from_mean
 // for the SE tier). float32 stays on the common.cuh GEMM (SIMT f32 products,
@@ -64,7 +67,7 @@ struct EntryArgs {
   bf16* dst;          // A: mid. B: out (N, T, Ho, Wo, C)
   const bf16* w;      // A: W2 (Cin, C). B: W3 (C, C). (in, out)
   const bf16* wsc;    // B: the shortcut (Cin, C)
-  const float* vt1;   // rows s1, b1, Cin wide
+  const float* vt1;   // rows s1, b1 (AQ: then w0, w1, w2), Cin wide
   const float* vt2;   // rows s2, b2, 3 * taps_n taps, C wide
   const float* gate;  // B: nullptr or (N*T, C). A with SE: the partials
   bf16* stage;        // B: nullptr, or the gather pre-pass's rows (Kp each)
@@ -82,12 +85,21 @@ struct EntryArgs {
   __device__ __forceinline__ int tab() const { return Kt; }
   __device__ __forceinline__ const float* s1() const { return vt1; }
   __device__ __forceinline__ const float* b1() const { return vt1 + Cin; }
+  // The attention rows of the AQ form of launch A, after s1 and b1.
+  __device__ __forceinline__ const float* aqw() const {
+    return vt1 + 2 * (int64_t)Cin;
+  }
   __device__ __forceinline__ const float* s2() const { return vt2; }
   __device__ __forceinline__ const float* b2() const { return vt2 + C; }
   __device__ __forceinline__ const float* taps() const {
     return vt2 + 2 * (int64_t)C;
   }
 };
+
+// Launch A's modes: mid from x, with the gate's sums, with the attention mix.
+__host__ __device__ constexpr bool entry_mid_mode(int mode) {
+  return mode == kTcEntryMid || mode == kTcEntryMidSe || mode == kTcEntryMidAq;
+}
 
 // ---------------------------------------------------------------- launch B
 
@@ -386,9 +398,9 @@ __device__ __forceinline__ void build_entry_tile(const EntryArgs& p, bf16* As,
     else
       build_entry_operand(p, As, m0, table, tid, nthreads);
   } else if (p.vec) {
-    build_act_tile_vec<false>(p, As, m0, tid, nthreads);
+    build_act_tile_vec<MODE == kTcEntryMidAq>(p, As, m0, tid, nthreads);
   } else {
-    build_act_tile_scalar<false>(p, As, m0, tid, nthreads);
+    build_act_tile_scalar<MODE == kTcEntryMidAq>(p, As, m0, tid, nthreads);
   }
 }
 
@@ -406,7 +418,7 @@ __global__ void __launch_bounds__(kTcMaxThreads, 1)
   // before this one still runs (programmatic dependent launch); the first
   // read of an activation (x, mid, the gate) waits for it to finish.
   asm volatile("griddepcontrol.launch_dependents;");
-  if (MODE == kTcEntryMid || MODE == kTcEntryMidSe) {
+  if (entry_mid_mode(MODE)) {
     load_w_rows(p, Ws, n0, p.w, 0, p.Cin, p.Kp);
     if constexpr (tc_se_mode(MODE)) tc_se_build_tables<2>(p, n0);
   } else {
@@ -520,7 +532,7 @@ cudaError_t entry_launch_kernel(void (*kernel)(EntryArgs), bool (&raised)[64],
 template <int MODE>
 cudaError_t entry_launch(const TcPlan& pl, const EntryShape& s, EntryArgs a,
                          cudaStream_t stream, int se_slots = 0) {
-  constexpr bool kA = MODE == kTcEntryMid || MODE == kTcEntryMidSe;
+  constexpr bool kA = entry_mid_mode(MODE);
   const int depth = kA ? s.Cin : s.Cm + s.Cin;
   const int table_c = kA || a.stage != nullptr ? 0 : s.Cm;
   if (!entry_plan_ok(pl, s, depth, table_c)) return cudaErrorInvalidValue;
@@ -559,7 +571,7 @@ cudaError_t entry_launch(const TcPlan& pl, const EntryShape& s, EntryArgs a,
 cudaError_t entry_tc_launch_mid(const TcPlan& p, const EntryShape& s,
                                 const void* x, const float* vt1,
                                 const float* vt2, const void* w2, void* mid,
-                                float* partial, int slots,
+                                int aq, float* partial, int slots,
                                 cudaStream_t stream) {
   EntryArgs a = {};
   a.x = static_cast<const bf16*>(x);
@@ -568,9 +580,11 @@ cudaError_t entry_tc_launch_mid(const TcPlan& p, const EntryShape& s,
   a.vt1 = vt1;
   a.vt2 = vt2;
   if (partial != nullptr) {
+    if (aq) return cudaErrorInvalidValue;  // no SE form with the mix
     a.gate = partial;
     return entry_launch<kTcEntryMidSe>(p, s, a, stream, slots);
   }
+  if (aq) return entry_launch<kTcEntryMidAq>(p, s, a, stream);
   return entry_launch<kTcEntryMid>(p, s, a, stream);
 }
 

@@ -28,15 +28,18 @@ inline int entry_smem_bytes(const TcPlan& p, int depth, int table_c) {
          kp * tc_row_stride(p.wn * kTcWarpCols) * 2 + 8 * kt * 4;
 }
 
-// Launch A: mid = relu(s2 . (relu(s1 . x + b1) @ W2) + b2) over the full-
-// resolution grid. vt1: (2, Cin) s1, b1; vt2: (2 + 3 * taps_n, Cm) s2, b2 and
-// the taps; W2 (Cin, Cm). partial: nullptr, or the SE gate's per-frame
-// weighted sums of mid for the stride-2 shift, (row tiles, slots, Cm) float32
-// with slots = tc_se_slots(wm * 16, H * W) (tc_se.cuh).
+// Launch A: mid = relu(s2 . ([AQ] relu(s1 . x + b1) @ W2) + b2) over the
+// full-resolution grid. vt1: (2, Cin) s1, b1, with aq (5, Cin): then the
+// three attention rows, which mix the activated input over frames t - 1, t,
+// t + 1 (zero outside the clip) in float32 before the operand is rounded;
+// vt2: (2 + 3 * taps_n, Cm) s2, b2 and the taps; W2 (Cin, Cm). partial:
+// nullptr, or the SE gate's per-frame weighted sums of mid for the stride-2
+// shift, (row tiles, slots, Cm) float32 with slots = tc_se_slots(wm * 16,
+// H * W) (tc_se.cuh); not with aq.
 cudaError_t entry_tc_launch_mid(const TcPlan& p, const EntryShape& s,
                                 const void* x, const float* vt1,
                                 const float* vt2, const void* w2, void* mid,
-                                float* partial, int slots,
+                                int aq, float* partial, int slots,
                                 cudaStream_t stream);
 
 // Where launch B holds its weights in column chunks, the gather pre-pass: the

@@ -33,9 +33,10 @@ namespace rubiks {
 using bf16 = __nv_bfloat16;
 
 // Launch modes. K2: A (mid), A with the attention mix, B (out = x + ...).
-// K3: A (mid from x of another width), B (out, the shortcut a second K
-// range of the same accumulator, no residual). The SE forms of the A
-// launches also sum the gate's weighted values per frame (tc_se.cuh).
+// K3: A (mid from x of another width), A with the attention mix, B (out,
+// the shortcut a second K range of the same accumulator, no residual). The
+// SE forms of the A launches also sum the gate's weighted values per frame
+// (tc_se.cuh).
 enum TcMode {
   kTcMid = 0,
   kTcMidAq = 1,
@@ -44,7 +45,8 @@ enum TcMode {
   kTcEntryOut = 4,
   kTcMidSe = 5,
   kTcMidAqSe = 6,
-  kTcEntryMidSe = 7
+  kTcEntryMidSe = 7,
+  kTcEntryMidAq = 8
 };
 
 __host__ __device__ constexpr bool tc_se_mode(int mode) {

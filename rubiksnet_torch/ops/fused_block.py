@@ -187,6 +187,18 @@ def tap_shift(v: torch.Tensor, taps: torch.Tensor, max_shift: int):
     return out
 
 
+def aq_mix(a, aw):
+    """The attention mix of the rubiks3d-aq blocks' fused forms: ``w0 *
+    a[t-1] + w1 * a[t] + w2 * a[t+1]`` along T of a (N, T, H, W, C), zero
+    boundary frames, in float32 and rounded to a's dtype once; aw: the three
+    (C,) rows of normalized attention weights."""
+    w0, w1, w2 = aw
+    ap = F.pad(a.float(), (0, 0, 0, 0, 0, 0, 1, 1))
+    t = a.shape[1]
+    return (w0 * ap[:, 0:t] + w1 * ap[:, 1:t + 1]
+            + w2 * ap[:, 2:t + 2]).to(a.dtype)
+
+
 def fused_block_plain(x, vt, wm, se=None, *, aq=False, max_shift):
     """The B blocks in sequence, in plain PyTorch."""
     taps_n = taps_from_rows(vt.shape[1], 4, aq)
@@ -195,11 +207,7 @@ def fused_block_plain(x, vt, wm, se=None, *, aq=False, max_shift):
         s1, b1, s2, b2 = vt[b, 0], vt[b, 1], vt[b, 2], vt[b, 3]
         a = torch.relu(x.float() * s1 + b1).to(dt)
         if aq:
-            w0, w1, w2 = vt[b, 4 + 3 * taps_n:]
-            ap = F.pad(a.float(), (0, 0, 0, 0, 0, 0, 1, 1))
-            t = a.shape[1]
-            a = (w0 * ap[:, 0:t] + w1 * ap[:, 1:t + 1]
-                 + w2 * ap[:, 2:t + 2]).to(dt)
+            a = aq_mix(a, vt[b, 4 + 3 * taps_n:])
         mid = torch.relu((a @ wm[b, 0]).float() * s2 + b2).to(dt)
         v = tap_shift(mid.float(), vt[b, 4:4 + 3 * taps_n], max_shift)
         if se is not None:

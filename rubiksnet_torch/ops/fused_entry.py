@@ -2,13 +2,17 @@
 (K3).
 
     a   = relu(bn1(x))
-    out = W3 . [SE] shift3d_s2(relu(bn2(W2 . a))) + Wsc . a[:, :, ::2, ::2]
+    out = W3 . [SE] shift3d_s2(relu(bn2(W2 . [AQ] a))) + Wsc . a[:, :, ::2, ::2]
 
 With ``se`` (the SE tiers) the stride-2 shifted activation is gated per
 (clip, frame, channel) by ``sigmoid(relu(mean_hw . fc1) . fc2)``, the mean
-taken over the decimated (H/2, W/2) grid. Counterpart of
-``rubiksnet_tpu/ops/pallas/fused_entry.py`` (rubiks3d only: the executor
-keeps rubiks3d-aq entries on the module path).
+taken over the decimated (H/2, W/2) grid. With ``aq=True`` (the rubiks3d-aq
+entries, params from :func:`stack_entry_params_aq`) ``a`` is mixed along T
+with three per-channel attention taps before W2, as K2 mixes it, and the
+shift is the 2D shift at stride 2: an identity T tap row. The shortcut reads
+``a`` unmixed. Counterpart of ``rubiksnet_tpu/ops/pallas/fused_entry.py``;
+the AQ form has none there (the JAX executor runs those entries as XLA
+compositions). The AQ form takes no SE gate and no quantized shift.
 :func:`fused_entry_run` makes one call into ``csrc/fused_entry.cu`` for a
 CUDA tensor (bfloat16: the tensor-core kernels of ``csrc/fused_entry_tc.cu``
 under :func:`fused_entry_plan`, the gate's sums in launch A and one gate
@@ -26,6 +30,7 @@ import torch
 
 from ..utils.profiling import LaunchCounter
 from . import _build
+from .attention_shift import TEMPERATURE, attention_shift_weights
 from .fused_block import (
     KERNEL_MAX_TAPS,
     SE_GATE_LAUNCHES,
@@ -38,6 +43,7 @@ from .fused_block import (
     _mma_plan,
     _mma_smem,
     _sm_count,
+    aq_mix,
     blocks_per_sm,
     conv1x1_matrix,
     kernel_taps,
@@ -51,6 +57,8 @@ from .fused_block import (
 )
 
 LAUNCHES = LaunchCounter("fused_entry")
+# K3 with the attention mix (the rubiks3d-aq entries), counted apart.
+AQ_LAUNCHES = LaunchCounter("fused_entry_aq")
 
 
 @torch.no_grad()
@@ -71,14 +79,36 @@ def stack_entry_params(block, dtype, max_shift, quantize=False):
             conv1x1_matrix(block.shortcut, dtype))
 
 
-def fused_entry_plain(x, params, se=None, *, max_shift):
+@torch.no_grad()
+def stack_entry_params_aq(block, dtype, max_shift):
+    """Fold one stride-2 rubiks3d-aq block: the arrays of
+    :func:`stack_entry_params`, with vt1 (5, Cin) = folded bn1 then the three
+    rows of normalized attention weights (frames t - 1, t, t + 1), and vt2's
+    taps an identity T row, then the H and W taps of the (2, mid) 2D shift.
+    Fractional shifts only: the 2D quantize rule has no tap form."""
+    s1, b1 = _bn_fold(block.bn1)
+    s2, b2 = _bn_fold(block.bn2)
+    shift2d = block.as3.shift
+    shift3 = torch.cat([torch.zeros_like(shift2d[:1]), shift2d])
+    taps = stack_taps(shift3, dtype, max_shift, False)
+    aw = attention_shift_weights(block.aq_shift.weight.to(dtype),
+                                 TEMPERATURE).float()  # (Cin, 3)
+    vt1 = torch.cat([torch.stack([s1, b1]).float(), aw.t()]).contiguous()
+    vt2 = torch.cat([torch.stack([s2, b2]).float(), taps]).contiguous()
+    return (vt1, vt2, conv1x1_matrix(block.conv2_1x1, dtype),
+            conv1x1_matrix(block.conv3, dtype),
+            conv1x1_matrix(block.shortcut, dtype))
+
+
+def fused_entry_plain(x, params, se=None, *, max_shift, aq=False):
     """The entry block in plain PyTorch: the stride-2 shift as the
     stride-1 shift sampled at even rows and columns."""
     vt1, vt2, w2, w3, wsc = params
     taps_n = taps_from_rows(vt2.shape[0], 2)
     dt = x.dtype
     a = torch.relu(x.float() * vt1[0] + vt1[1]).to(dt)
-    mid = torch.relu((a @ w2).float() * vt2[0] + vt2[1]).to(dt)
+    mixed = aq_mix(a, vt1[2:5]) if aq else a
+    mid = torch.relu((mixed @ w2).float() * vt2[0] + vt2[1]).to(dt)
     v = tap_shift(mid.float(), vt2[2:2 + 3 * taps_n], max_shift)
     v = v[:, :, ::2, ::2]
     if se is not None:
@@ -87,7 +117,7 @@ def fused_entry_plain(x, params, se=None, *, max_shift):
     return ((v.to(dt) @ w3).float() + sc.float()).to(dt)
 
 
-def _check_args(x, params, se, max_shift):
+def _check_args(x, params, se, max_shift, aq=False):
     vt1, vt2, w2, w3, wsc = params
     if x.ndim != 5:
         raise ValueError(f"x must be (N, T, H, W, C), got {tuple(x.shape)}")
@@ -98,7 +128,7 @@ def _check_args(x, params, se, max_shift):
     taps_n = taps_from_rows(vt2.shape[0], 2)
     if taps_n > 2 * max_shift + 2:
         raise ValueError(f"{taps_n} taps exceed max_shift={max_shift}")
-    want = {"vt1": (vt1, (2, cin), torch.float32),
+    want = {"vt1": (vt1, (5 if aq else 2, cin), torch.float32),
             "vt2": (vt2, (2 + 3 * taps_n, mid), torch.float32),
             "w2": (w2, (cin, mid), x.dtype),
             "w3": (w3, (mid, mid), x.dtype),
@@ -111,6 +141,8 @@ def _check_args(x, params, se, max_shift):
                            or se.dtype != torch.float32):
         raise ValueError(f"se must be float32 (2, {mid}, Cr), got "
                          f"{se.dtype} {tuple(se.shape)}")
+    if se is not None and aq:
+        raise ValueError("K3 takes no SE gate with the attention mix (aq)")
     return taps_n
 
 
@@ -273,15 +305,19 @@ def fused_entry_plan(shape, cm, dtype, *, sms=SM_COUNT, route=None,
 
 
 def fused_entry_supported(shape, cin, mid, max_shift, dtype, se=False, *,
-                          quantize=False, sms=SM_COUNT) -> bool:
+                          aq=False, quantize=False, sms=SM_COUNT) -> bool:
     """Whether K3 takes an entry block on x of ``shape`` (N, T, H, W, Cin)
     growing to ``mid`` channels: Cin as the block's, H and W even, float32
     or bfloat16, at most ``KERNEL_MAX_TAPS`` taps per axis, a launch plan,
     and with ``se`` on the tensor cores the gate's shared memory in launch
-    A. Pure Python from the shape, the dtype and the plan (no launch), so
-    the CPU and the card answer alike; the counterpart of
+    A. With ``aq`` (the attention mix) neither ``se`` nor ``quantize``: the
+    mix's launch A has no form with the gate's sums, and the 2D quantize
+    rule has no tap form. Pure Python from the shape, the dtype and the plan
+    (no launch), so the CPU and the card answer alike; the counterpart of
     ``rubiksnet_tpu/ops/pallas/fused_entry.py::fused_entry_supported``."""
     if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if aq and (se or quantize):
         return False
     if len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0:
         return False
@@ -301,17 +337,19 @@ def fused_entry_supported(shape, cin, mid, max_shift, dtype, se=False, *,
     return True
 
 
-def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
-                       scratch=None, **knobs):
+def fused_entry_kernel(x, params, se=None, *, max_shift, aq=False,
+                       route=None, scratch=None, **knobs):
     """Kernel K3 on CUDA tensors: one C call (two launches, three with the
     gather pre-pass, and with ``se`` one more for the gate on the
-    tensor-core route, two on the SIMT route). ``route`` "simt" runs
+    tensor-core route, two on the SIMT route). ``aq``: the attention mix in
+    launch A (params from :func:`stack_entry_params_aq`; counted by
+    ``AQ_LAUNCHES``, not ``LAUNCHES``). ``route`` "simt" runs
     bfloat16 on the previous route (the common.cuh GEMM and se_gate.cuh),
     for timing it beside the tensor-core kernels; the port never passes
     it. ``scratch``: None, or a dict that receives ``mid``, ``partial`` and
     ``gate``, to check the gate on its own. ``knobs``: as
     :func:`fused_entry_plan` takes them."""
-    taps_n = _check_args(x, params, se, max_shift)
+    taps_n = _check_args(x, params, se, max_shift, aq)
     if taps_n > KERNEL_MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes <= {KERNEL_MAX_TAPS} taps")
     for arr in (x, *params) if se is None else (x, *params, se):
@@ -356,17 +394,18 @@ def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
             stage = torch.empty((rows, -(-(cmid + cin) // 16) * 16),
                                 dtype=x.dtype, device=x.device)
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 12,
+    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 13,
                                 P, P, P)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), vt1.data_ptr(), vt2.data_ptr(), w2.data_ptr(),
                 w3.data_ptr(), wsc.data_ptr(), se_ptr, partial_ptr, gate_ptr,
                 mid.data_ptr(), out.data_ptr(), code, n, t, h, w, cin, cmid,
-                taps_n, max_shift, cr, slices, int(plan.route == "mma"), ints,
+                taps_n, max_shift, cr, slices, int(bool(aq)),
+                int(plan.route == "mma"), ints,
                 stage.data_ptr() if stage is not None else None,
                 _build.stream_of(x))
     _build.check(rc, "rubiks_fused_entry")
-    LAUNCHES.count += 1
+    (AQ_LAUNCHES if aq else LAUNCHES).count += 1
     if se is not None and plan.route == "mma":
         SE_GATE_LAUNCHES.count += 1
     if scratch is not None:
@@ -374,12 +413,14 @@ def fused_entry_kernel(x, params, se=None, *, max_shift, route=None,
     return out
 
 
-def fused_entry_run(x, params, se=None, *, max_shift):
+def fused_entry_run(x, params, se=None, *, max_shift, aq=False):
     """Apply one fused stride-2 entry block to x (N, T, H, W, Cin), H and W
     even; returns (N, T, H/2, W/2, mid). params from
-    :func:`stack_entry_params`; se: None or (2, mid, Cr) float32, one entry
-    of ``fused_block.stack_se_params``. Calls the operator
+    :func:`stack_entry_params`, or with ``aq=True`` from
+    :func:`stack_entry_params_aq` (``aq`` is never inferred from vt1's
+    rows); se: None or (2, mid, Cr) float32, one entry of
+    ``fused_block.stack_se_params`` (not with ``aq``). Calls the operator
     ``rubiksnet::fused_entry_run`` (``ops/library.py``): K3 for a CUDA
     tensor, the plain version for a CPU tensor."""
     return torch.ops.rubiksnet.fused_entry_run.default(
-        x, *params, se, max_shift)
+        x, *params, se, max_shift, aq)

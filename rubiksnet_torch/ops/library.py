@@ -22,7 +22,7 @@ shift operators from the autograd Functions of ``shift3d.py`` and
 | operator | kernel on the card | CPU |
 | --- | --- | --- |
 | ``fused_block_run`` | K2 ``fused_block.py::fused_block_kernel`` | ``fused_block_plain`` |
-| ``fused_entry_run`` | K3 ``fused_entry.py::fused_entry_kernel`` | ``fused_entry_plain`` |
+| ``fused_entry_run`` | K3 ``fused_entry.py::fused_entry_kernel`` (``aq``: K3-AQ) | ``fused_entry_plain`` |
 | ``shift3d_forward`` | K1 ``shift3d.py::shift3d_kernel`` (staged) | ``shift3d_plain`` |
 | ``shift2d_forward`` | ``shift2d.py::shift2d_kernel`` | ``shift2d_plain`` |
 
@@ -91,23 +91,28 @@ fused_block_run = _define(
 # K3: a stride-2 fused entry block (ops/fused_entry.py).
 
 
-def _entry_cpu(x, vt1, vt2, w2, w3, wsc, se, max_shift):
+def _entry_cpu(x, vt1, vt2, w2, w3, wsc, se, max_shift, aq=False):
     params = (vt1, vt2, w2, w3, wsc)
-    fused_entry._check_args(x, params, se, max_shift)
-    return fused_entry.fused_entry_plain(x, params, se, max_shift=max_shift)
+    fused_entry._check_args(x, params, se, max_shift, aq)
+    return fused_entry.fused_entry_plain(x, params, se, max_shift=max_shift,
+                                         aq=aq)
 
 
-def _entry_fake(x, vt1, vt2, w2, w3, wsc, se, max_shift):
+def _entry_fake(x, vt1, vt2, w2, w3, wsc, se, max_shift, aq=False):
     n, t, h, w, _ = x.shape
     return x.new_empty((n, t, h // 2, w // 2, w2.shape[1]))
 
 
+# ``aq`` (the attention mix) came after the first programs were saved: its
+# default keeps them loadable. The dispatcher leaves a trailing argument that
+# equals its default out of the call, so the implementations default it too.
 fused_entry_run = _define(
     "fused_entry_run(Tensor x, Tensor vt1, Tensor vt2, Tensor w2, "
-    "Tensor w3, Tensor wsc, Tensor? se, int max_shift) -> Tensor",
-    lambda x, vt1, vt2, w2, w3, wsc, se, max_shift:
+    "Tensor w3, Tensor wsc, Tensor? se, int max_shift, bool aq=False) "
+    "-> Tensor",
+    lambda x, vt1, vt2, w2, w3, wsc, se, max_shift, aq=False:
         fused_entry.fused_entry_kernel(x, (vt1, vt2, w2, w3, wsc), se,
-                                       max_shift=max_shift),
+                                       max_shift=max_shift, aq=aq),
     _entry_cpu,
     _entry_fake)
 

@@ -6,6 +6,7 @@ of the plan's knobs.
     python3 -m rubiksnet_torch.utils.fused_entry_probe --host --sweep
     python3 -m rubiksnet_torch.utils.fused_entry_probe --se --ptxas --check \
         --sweep
+    python3 -m rubiksnet_torch.utils.fused_entry_probe --aq --check --sweep
 
 ``--ptxas`` compiles K2's and K3's sources once more with ``-Xptxas -v``
 and prints each kernel's registers, spills and shared memory, and the
@@ -28,8 +29,15 @@ route; every setting is held against the plain version before it is timed.
 launch (``se_gate_tc.cu``; launch A with the gate's sums is
 ``rubiks_entry_tc_kernel<7>``, beside the unchanged ``<3>`` and ``<4>``),
 ``--check`` runs K3-SE only, ``--sweep`` times K3-SE (launch A with the
-sums, the gate, the pre-pass, launch B). Needs a CUDA card; prints its name
-and power limit.
+sums, the gate, the pre-pass, launch B). ``--aq`` turns ``--check`` and
+``--sweep`` to K3-AQ, the rubiks3d-aq entry (launch A with the attention
+mix is ``rubiks_entry_tc_kernel<8>``; the shift is 2D, an identity T row):
+``--check`` at the four entry shapes (Large-AQ's) at batch 2 and 8 in f32
+and bf16, bf16 on both routes, at the served batches, and at the CASES the
+2D shift can take (no quantized shift); the sweep holds each setting
+against the plain version with the mix and beside the module path (the
+block's own forward: bn1, the attention shift, the 1x1 convs, the 2D shift
+kernel). Needs a CUDA card; prints its name and power limit.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ CASES = [
 def launch_of(name: str) -> str | None:
     """Which part of K3 a device kernel of the profiler is: "A" and "B" (the
     tensor-core launches, rubiks_entry_tc_kernel<3> or, with the gate's
-    sums, <7>, and <4>), "G" (launch B's gather pre-pass), "gate" (the SE
+    sums, <7>, or with the attention mix <8>, and <4>), "G" (launch B's
+    gather pre-pass), "gate" (the SE
     gate: one launch on the tensor-core route, two on the SIMT route) or
     "simt" (the previous route's GEMM)."""
     if "rubiks_entry_gather_kernel" in name:
@@ -76,21 +85,31 @@ def launch_of(name: str) -> str | None:
     at = name.find("rubiks_entry_tc_kernel")
     if at >= 0:
         mode = name[at:at + 32]
-        return "A" if "3>" in mode or "7>" in mode else "B"
+        return "A" if any(m in mode for m in ("3>", "7>", "8>")) else "B"
     if any(k in name for k in ("se_partial_kernel", "se_gate_kernel",
                                "se_gate_tc_kernel")):
         return "gate"
     return "simt" if "gemm_kernel" in name else None
 
 
-def make_entry(cin, cm, se, dtype, max_shift, kind, cpu_gen, dev):
-    """(params, se) of one random stride-2 entry block on ``dev``."""
+def make_block(cin, cm, se, max_shift, kind, cpu_gen, dev, aq=False):
+    """One random stride-2 entry block on ``dev``, in eval mode; ``aq``: the
+    rubiks3d-aq form (attention shift, 2D shift)."""
     quantize = kind == "quantize"
-    blk = RubiksShiftBlock(cin, cm, 2, quantize, "rubiks3d", se,
+    blk = RubiksShiftBlock(cin, cm, 2, quantize,
+                           "rubiks3d-aq" if aq else "rubiks3d", se,
                            generator=cpu_gen)
-    k2.randomize_block(blk, blk.as3.rubiks3d.shift, kind, max_shift, cpu_gen)
-    blk = blk.to(dev).eval()
-    params = fe.stack_entry_params(blk, dtype, max_shift, quantize)
+    k2.randomize_block(blk, blk.as3.shift if aq else blk.as3.rubiks3d.shift,
+                       kind, max_shift, cpu_gen)
+    return blk.to(dev).eval()
+
+
+def make_entry(cin, cm, se, dtype, max_shift, kind, cpu_gen, dev, aq=False):
+    """(params, se) of one random stride-2 entry block on ``dev``."""
+    blk = make_block(cin, cm, se, max_shift, kind, cpu_gen, dev, aq)
+    params = (fe.stack_entry_params_aq(blk, dtype, max_shift) if aq else
+              fe.stack_entry_params(blk, dtype, max_shift,
+                                    kind == "quantize"))
     if kind == "wide":
         vt2 = params[1]
         tn = taps_from_rows(vt2.shape[0], 2)
@@ -100,15 +119,16 @@ def make_entry(cin, cm, se, dtype, max_shift, kind, cpu_gen, dev):
 
 
 def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
-               dev, route=None, gate_errs=None):
+               dev, route=None, gate_errs=None, aq=False):
     """One comparison of K3 with the plain version, the kernel run twice;
     with ``se`` also the gate against the plain gate of the kernel's mid
-    (appended to ``gate_errs`` where given), bit-identical on the rerun.
-    Returns (ok, max_abs, text, the plan the kernel ran under)."""
+    (appended to ``gate_errs`` where given), bit-identical on the rerun;
+    ``aq``: K3-AQ. Returns (ok, max_abs, text, the plan the kernel ran
+    under)."""
     params, sep = make_entry(shape[-1], cm, se, dtype, max_shift, kind,
-                             cpu_gen, dev)
+                             cpu_gen, dev, aq)
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    kw = dict(max_shift=max_shift)
+    kw = dict(max_shift=max_shift, aq=aq)
     scratch = {}
     got = fe.fused_entry_kernel(x, params, sep, route=route, scratch=scratch,
                                 **kw)
@@ -129,7 +149,8 @@ def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
     ok = ok and same and finite and got.shape == ref.shape
     plan = fe.fused_entry_plan(shape, cm, dtype, sms=_sm_count(dev.index),
                                route=route)
-    text = (f"K3{'-SE' if se else ''} {label} {tuple(shape)}->{cm} "
+    text = (f"K3{'-SE' if se else ''}{'-AQ' if aq else ''} {label} "
+            f"{tuple(shape)}->{cm} "
             f"{str(dtype)[6:]}: max_abs={max_abs:.3e} rel_max={rel_max:.3e} "
             f"rel_l2={rel_l2:.3e} [{what}] rerun "
             f"{'bit-identical' if same else 'DIFFERS'}")
@@ -158,21 +179,32 @@ def model_cases():
             for h, cin, cm in ENTRY_SHAPES]
 
 
-def route_kernels(gen, cpu_gen, dev):
-    """By the profiler's kernel names: a bf16 call (with the gate) runs the
-    tensor-core kernels and no SIMT GEMM, an f32 call the SIMT GEMM and no
-    tensor-core kernel. Returns (ok, text)."""
+def aq_cases():
+    """K3-AQ's checks besides the served batches: the four entry shapes at
+    batch 2 and 8, and the CASES the 2D shift can take (a quantized one has
+    no tap form)."""
+    return (model_cases() + served_cases((8,))
+            + [case for case in CASES if case[-1] != "quantize"])
+
+
+def route_kernels(gen, cpu_gen, dev, aq=False):
+    """By the profiler's kernel names: a bf16 call (with the gate; ``aq``:
+    with the attention mix, launch A <8>) runs the tensor-core kernels and
+    no SIMT GEMM, an f32 call the SIMT GEMM and no tensor-core kernel.
+    Returns (ok, text)."""
     ok, texts = True, []
-    for dt, want, never in ((torch.bfloat16, "rubiks_entry_tc_kernel",
-                             "gemm_kernel"),
+    tc = "rubiks_entry_tc_kernel<8>" if aq else "rubiks_entry_tc_kernel"
+    for dt, want, never in ((torch.bfloat16, tc, "gemm_kernel"),
                             (torch.float32, "gemm_kernel", "rubiks_entry")):
-        params, sep = make_entry(288, 576, True, dt, 1, "frac", cpu_gen, dev)
+        params, sep = make_entry(288, 576, not aq, dt, 1, "frac", cpu_gen,
+                                 dev, aq)
         x = torch.randn((2, FRAMES, 14, 14, 288), generator=gen,
                         device=dev).to(dt)
         times = cuda_kernel_times(lambda: fe.fused_entry_kernel(
-            x, params, sep, max_shift=1), iters=3)
+            x, params, sep, max_shift=1, aq=aq), iters=3)
         names = sorted(times)
-        texts.append(f"K3-SE 14x14x288->576 {str(dt)[6:]}, device kernels "
+        texts.append(f"K3-{'AQ' if aq else 'SE'} 14x14x288->576 "
+                     f"{str(dt)[6:]}, device kernels "
                      f"by the profiler: " + "; ".join(
                          f"{nm[:60]} x{times[nm][0] / 3:g}" for nm in names))
         ok &= (any(want in nm for nm in names)
@@ -180,23 +212,25 @@ def route_kernels(gen, cpu_gen, dev):
     return ok, "\n  ".join(texts)
 
 
-def check(dev, se_only=False) -> bool:
+def check(dev, se_only=False, aq=False) -> bool:
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     ok = True
     bf, f32 = torch.bfloat16, torch.float32
-    runs = [(case, f32, None) for case in model_cases() + CASES]
-    runs += [(case, bf, None) for case in model_cases() + CASES]
+    cases = aq_cases() if aq else model_cases() + CASES
+    runs = [(case, f32, None) for case in cases]
+    runs += [(case, bf, None) for case in cases]
     runs += [(case, bf, "simt") for case in model_cases()]
     runs += [(case, bf, None) for case in served_cases()]
+    forms = (False,) if aq else (True,) if se_only else (False, True)
     for (label, n, t, h, w, cin, cm, k, kind), dt, route in runs:
-        for se in (True,) if se_only else (False, True):
+        for se in forms:
             good, _, text, _ = check_case(label, (n, t, h, w, cin), cm, k,
                                           kind, se, dt, gen, cpu_gen, dev,
-                                          route)
+                                          route, aq=aq)
             print("  " + text)
             ok &= good
-    good, text = route_kernels(gen, cpu_gen, dev)
+    good, text = route_kernels(gen, cpu_gen, dev, aq)
     print(f"  {text} {'ok' if good else 'FAIL'}")
     return ok and good
 
@@ -237,9 +271,9 @@ SETTINGS = [{}] + [_pinned(launch, *k) for launch in ("a", "b") for k in (
                                {"route": "simt"}, {}]
 
 
-def sweep(dev, batch, se=False) -> bool:
+def sweep(dev, batch, se=False, aq=False) -> bool:
     """Times every setting, each held against the plain version first;
-    with ``se`` K3-SE."""
+    with ``se`` K3-SE, with ``aq`` K3-AQ beside the block's module path."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -248,8 +282,21 @@ def sweep(dev, batch, se=False) -> bool:
     for h, cin, cm in ENTRY_SHAPES:
         shape = (batch, FRAMES, h, h, cin)
         x = torch.randn(shape, generator=gen, device=dev).to(bf)
-        params, sep = make_entry(cin, cm, se, bf, 1, "frac", cpu_gen, dev)
-        ref = fe.fused_entry_plain(x, params, sep, max_shift=1)
+        blk = make_block(cin, cm, se, 1, "frac", cpu_gen, dev, aq)
+        params = (fe.stack_entry_params_aq(blk, bf, 1) if aq
+                  else fe.stack_entry_params(blk, bf, 1))
+        sep = stack_se_params([blk])[0] if se else None
+        ref = fe.fused_entry_plain(x, params, sep, max_shift=1, aq=aq)
+        if aq:
+            with torch.no_grad():
+                module = lambda: blk(x)
+                rel_l2 = k2.rel_errors(module(), ref)[2]
+                dev_ms = sum(ms for _, ms in cuda_kernel_times(
+                    module, iters=5).values()) / 5
+                print(f"  K3-AQ {h}x{h}x{cin}->{cm} batch {batch}, the "
+                      f"block's module path: rel_l2 {rel_l2:.1e} against "
+                      f"plain, device {dev_ms:.4f} ms, events "
+                      f"{cuda_time_ms(module, iters=20):.4f} ms")
         for i, setting in enumerate(SETTINGS):
             knobs = dict(setting)
             route = knobs.pop("route", None)
@@ -261,13 +308,15 @@ def sweep(dev, batch, se=False) -> bool:
                 continue  # the setting does not fit this width
             over = {} if route == "simt" else {"overlap": False}
             fn = lambda: fe.fused_entry_kernel(x, params, sep, max_shift=1,
-                                               route=route, **over, **knobs)
+                                               aq=aq, route=route, **over,
+                                               **knobs)
             try:
                 got = fn()
             except ValueError:
                 continue  # the gate's sums do not fit beside this setting
             rel_l2 = k2.rel_errors(got, ref)[2]
-            label = (f"K3{'-SE' if se else ''} {h}x{h}x{cin}->{cm} batch "
+            label = (f"K3{'-SE' if se else ''}{'-AQ' if aq else ''} "
+                     f"{h}x{h}x{cin}->{cm} batch "
                      f"{batch} "
                      f"{setting or 'defaults'} [{plan.describe()}]")
             if not rel_l2 <= k2.TOL_BF16_REL_L2:
@@ -307,7 +356,11 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--se", action="store_true")
+    ap.add_argument("--aq", action="store_true")
     args = ap.parse_args(argv)
+    if args.se and args.aq:
+        ap.error("K3 has no form with both the SE gate and the attention "
+                 "mix")
     if not torch.cuda.is_available():
         print("fused_entry_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -318,13 +371,13 @@ def main(argv=None) -> int:
                          "fused_entry.cu")
                         + (("se_gate_tc.cu",) if args.se else ()))
     if args.check:
-        if not check(dev, args.se):
+        if not check(dev, args.se, args.aq):
             print("fused_entry_probe: a comparison failed", file=sys.stderr)
             return 1
     if args.host:
         host(dev)
     if args.sweep:
-        if not sweep(dev, args.batch, args.se):
+        if not sweep(dev, args.batch, args.se, args.aq):
             print("fused_entry_probe: a swept setting disagrees with the "
                   "plain version", file=sys.stderr)
             return 1

@@ -68,15 +68,18 @@ def block_work(n, h, c, itemsize, rows, aq=False, se=False):
     return nbytes, 4 * m * c * c, other
 
 
-def entry_work(n, h, cin, cm, itemsize, rows, se=False):
-    """One stride-2 entry block on (n, FRAMES, h, h, cin)."""
+def entry_work(n, h, cin, cm, itemsize, rows, se=False, aq=False):
+    """One stride-2 entry block on (n, FRAMES, h, h, cin). ``aq``: the
+    attention mix reads x's frames t - 1 and t + 1 besides t (two more
+    reads of x, and three rows of weights), adds six operations an input
+    element, and the 2D shift reads four corners, not eight."""
     m, mo = n * FRAMES * h * h, n * FRAMES * (h // 2) * (h // 2)
-    nbytes = (m * cin + mo * cm + 2 * cin * cm + cm * cm) * itemsize + (
-        2 * cin + rows * cm) * 4
+    nbytes = (m * cin * (3 if aq else 1) + mo * cm + 2 * cin * cm
+              + cm * cm) * itemsize + ((5 if aq else 2) * cin + rows * cm) * 4
     if se:
         nbytes += 2 * cm * (cm // 12) * 4
-    other = (m * 2 * (cin + cm) + mo * cm * 8 * FLOPS_PER_CORNER
-             + (3 * m * cm if se else 0))
+    other = (m * 2 * (cin + cm) + mo * cm * (4 if aq else 8) * FLOPS_PER_CORNER
+             + (3 * m * cm if se else 0) + (6 * m * cin if aq else 0))
     return nbytes, 2 * m * cin * cm + 2 * mo * (cm + cin) * cm, other
 
 

@@ -138,6 +138,29 @@ def test_large_routes_every_block_at_224():
     assert names == ["layer4_0"]
 
 
+def test_large_aq_routes_every_block_at_224():
+    """Large-AQ at 224 px, bfloat16 on the card's 132 SMs: 47 blocks on K2
+    with the attention mix and the 4 entries on K3 with it, nothing on the
+    module path; quantized, every block stays on the module path."""
+    model = create_rubiksnet("large", 174, variant="rubiks3d-aq", max_shift=1,
+                             device="cpu", dtype=torch.bfloat16)
+    executor = FusedExecutor(model)
+    for batch in (1, 8, 32, 64):
+        steps = executor.route((batch, 8, 224, 224, 3))
+        blocks = [n for k, ns, _ in steps if k == "block" for n in ns]
+        entries = [n for k, ns, _ in steps if k == "entry" for n in ns]
+        assert (len(blocks), entries) == (47, ENTRIES)
+        assert not [k for k, _, _ in steps if k == "module"]
+        assert executor.declined[((batch, 8, 224, 224, 3), 132)] == []
+    assert all(params[0][0].shape[0] == 5  # vt1 holds the attention rows
+               for k, _, params in executor.steps if k == "entry")
+    quantized = create_rubiksnet("large", 174, variant="rubiks3d-aq",
+                                 max_shift=1, quantize=True, device="cpu",
+                                 dtype=torch.bfloat16)
+    steps = FusedExecutor(quantized).route((8, 8, 224, 224, 3))
+    assert [k for k, _, _ in steps] == ["module"] * 51
+
+
 def test_supported_follows_the_kernels_limits():
     """The checks are pure Python: K3 declines odd H or W and another Cin;
     both decline more than 16 taps per axis and other dtypes."""

@@ -204,9 +204,39 @@ def test_unported_configurations_raise(tier, variant):
                                    err_msg=route)
         np.testing.assert_allclose(got.numpy(), want_fused, rtol=TOL,
                                    atol=TOL, err_msg=route)
-    kinds = [kind for kind, _, _ in FusedExecutor(model).steps]
-    assert kinds.count("module") == (4 if variant == "rubiks3d-aq" else 0)
+    executor = FusedExecutor(model)
+    kinds = [kind for kind, _, _ in executor.steps]
+    assert kinds.count("module") == 0 and kinds.count("entry") == 4
+    # K3 takes the AQ entries, with the attention mix, but not under Small's
+    # SE gate: those four stay on the module path at this shape.
+    route = [kind for kind, _, _ in executor.route(v.shape)]
+    assert route.count("module") == (
+        4 if (tier, variant) == ("small", "rubiks3d-aq") else 0)
     assert all(c.count == 0 for c in launch_counters().values())
+
+
+def test_aq_entry_k3_declines_stays_on_the_module_path():
+    """rubiks3d-aq at 56 px: the third entry meets 7 x 7, which K3 declines,
+    so that block alone runs on the module path (its 2D shift there) and
+    the other three entries take K3 with the attention mix; the logits
+    equal the JAX model's eval logits, float32 at TOL."""
+    bundle = tiny_bundle(seed=8, variant="rubiks3d-aq")
+    video = np.random.default_rng(8).standard_normal(
+        (1, 4, 56, 56, 3)).astype(np.float32)
+    want = np.asarray(bundle.model.apply(bundle.variables, jnp.asarray(video),
+                                         train=False))
+    model = _port_of(bundle, "tiny", "rubiks3d-aq")
+    executor = FusedExecutor(model)
+    v = torch.from_numpy(video)
+    with torch.no_grad():
+        got = executor(v).numpy()
+    steps = executor.route(v.shape)
+    assert [names for kind, names, _ in steps if kind == "module"] == [
+        ("layer3_0",)]
+    assert [names[0] for kind, names, _ in steps if kind == "entry"] == [
+        "layer1_0", "layer2_0", "layer4_0"]
+    assert executor.declined[(v.shape, 132)] == [("entry", ("layer3_0",))]
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 def test_quantized_aq_logits_match_jax():
@@ -278,15 +308,20 @@ def test_full_width_parameters_match_jax(tier, variant):
         assert got["backbone.layer2.1.se.fc.2.weight"].shape == (144, 12)
 
 
+# The ids keep the names the cases had when the AQ entries ran on the
+# module path (blocks, entries, modules 47-0-4 and 13-0-4).
 @pytest.mark.parametrize("tier,variant,blocks,entries,modules", [
-    ("large", "rubiks3d-aq", 47, 0, 4),
+    ("large", "rubiks3d-aq", 47, 4, 0),
     ("small", "rubiks3d", 13, 4, 0),
-    ("small", "rubiks3d-aq", 13, 0, 4),
-])
+    ("small", "rubiks3d-aq", 13, 4, 0),
+], ids=["large-rubiks3d-aq-47-0-4", "small-rubiks3d-13-4-0",
+        "small-rubiks3d-aq-13-0-4"])
 def test_fused_routing_of_aq_and_se(tier, variant, blocks, entries, modules):
     """rubiks3d-aq: stride-1 runs on K2 with the AQ taps, the four entries
-    on the module path. SE tier: runs on K2 and entries on K3, each with
-    its gate weights."""
+    on K3 with the attention mix (vt1 holds the three attention rows). SE
+    tier: runs on K2 and entries on K3, each with its gate weights; with
+    both (Small-AQ) the structure proposes K3 and route() declines it, so
+    the entries run on the module path."""
     model = create_rubiksnet(tier, 174, variant=variant, max_shift=1,
                              device="cpu")
     executor = FusedExecutor(model)
@@ -304,6 +339,12 @@ def test_fused_routing_of_aq_and_se(tier, variant, blocks, entries, modules):
             assert vt.shape[1] == rows and (sep is not None) == se
         elif kind == "entry":
             assert (params[1] is not None) == se
+            assert params[0][0].shape[0] == (5 if variant == "rubiks3d-aq"
+                                             else 2)
+    route = executor.route((2, 8, 224, 224, 3))
+    assert [ns for k, ns, _ in route if k == "module"] == (
+        [(n,) for n in strided] if (tier, variant) == ("small", "rubiks3d-aq")
+        else [])
     model.variant = "rubiks2d"
     with pytest.raises(ValueError, match="unknown variant"):
         FusedExecutor(model)

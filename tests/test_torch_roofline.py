@@ -83,6 +83,19 @@ def test_entry_work_keeps_its_values(h, cin, cm, se):
     assert roofline.entry_work(BATCH, h, cin, cm, 2, 11, se) == ENTRY[h, se]
 
 
+@pytest.mark.parametrize("h,cin,cm", ENTRY_SHAPES)
+def test_entry_work_with_the_attention_mix(h, cin, cm):
+    """K3-AQ's count is K3's with two more reads of x (the mix's frames t - 1
+    and t + 1) and three rows of weights, six more operations an input
+    element, and four shift corners an output element, not eight."""
+    m = BATCH * roofline.FRAMES * h * h
+    mo = m // 4
+    nbytes, mm, other = roofline.entry_work(BATCH, h, cin, cm, 2, 11)
+    assert roofline.entry_work(BATCH, h, cin, cm, 2, 11, aq=True) == (
+        nbytes + 2 * m * cin * 2 + 3 * cin * 4, mm,
+        other + 6 * m * cin - mo * cm * 4 * roofline.FLOPS_PER_CORNER)
+
+
 def test_bound_times_use_the_peaks():
     work = BLOCK[14, False, False]
     tb, to = roofline.bound_times_ms(work, torch.bfloat16)

@@ -32,7 +32,10 @@ from rubiksnet_torch.ops.fused_block import (
     stack_block_params_aq,
     stack_se_params,
 )
-from rubiksnet_torch.ops.fused_entry import stack_entry_params
+from rubiksnet_torch.ops.fused_entry import (
+    stack_entry_params,
+    stack_entry_params_aq,
+)
 from rubiksnet_torch.scripts import export_model
 from rubiksnet_torch.serving import export as serving_export
 from rubiksnet_torch.serving import (
@@ -156,13 +159,16 @@ def _block_args(se, aq):
     return (x, vt, wm, stack_se_params(blocks) if se else None, aq, 1)
 
 
-def _entry_args(se):
+def _entry_args(se, aq=False):
     model = create_rubiksnet("small" if se else "tiny", CLASSES, T,
+                             "rubiks3d-aq" if aq else "rubiks3d",
                              max_shift=1, device="cpu")
     blk = model.backbone.layer1[0]
-    params = stack_entry_params(blk, torch.float32, 1)
+    params = (stack_entry_params_aq(blk, torch.float32, 1) if aq
+              else stack_entry_params(blk, torch.float32, 1))
     x = _rand(np.random.default_rng(2), 2, T, 8, 6, blk.in_planes)
-    return (x, *params, stack_se_params([blk])[0] if se else None, 1)
+    return (x, *params, stack_se_params([blk])[0] if se else None, 1,
+            *((True,) if aq else ()))
 
 
 def _shift_args(dims, stride, padding, quantize):
@@ -182,6 +188,8 @@ OPCHECK_CASES = {
                                                                     True)),
     "fused_entry": lambda: (library.fused_entry_run, _entry_args(False)),
     "fused_entry_se": lambda: (library.fused_entry_run, _entry_args(True)),
+    "fused_entry_aq": lambda: (library.fused_entry_run,
+                               _entry_args(False, aq=True)),
     "shift3d": lambda: (library.shift3d_forward,
                         _shift_args(3, [1, 1, 1], [0, 0, 0], False)),
     "shift3d_strided_quantized": lambda: (
@@ -229,7 +237,8 @@ def test_graph_holds_the_operators(weights, programs):
 @pytest.mark.parametrize("fused", [False, True])
 def test_aq_graph_holds_the_operators(fused):
     """rubiks3d-aq: the module path's 2D shifts are shift2d_forward nodes;
-    fused, K2 runs and the four entries' 2D shifts on the module path."""
+    fused, K2 runs and the four entries on K3 with the attention mix, and
+    no shift2d_forward node."""
     model = create_rubiksnet("tiny", CLASSES, T, "rubiks3d-aq", max_shift=1,
                              device="cpu")
     program = export_eval_fn(model, N, num_crops=CROPS, input_size=SIZE,
@@ -240,7 +249,7 @@ def test_aq_graph_holds_the_operators(fused):
         route = FusedExecutor(model).route((N * CROPS, T, SIZE, SIZE, 3))
         runs = sum(kind == "block" for kind, _, _ in route)
         assert counts == {"rubiksnet.fused_block_run": runs,
-                          "rubiksnet.shift2d_forward": 4}
+                          "rubiksnet.fused_entry_run": 4}
     else:
         assert counts == {"rubiksnet.shift2d_forward": blocks}
     assert operator_counts(program)["aten.gather"] == 0

@@ -95,7 +95,7 @@ def test_off_enters_nothing_and_keeps_nothing(entered):
 
 @pytest.mark.parametrize("variant,kinds", [
     ("rubiks3d", {"rubiksnet.serve.block", "rubiksnet.serve.entry"}),
-    ("rubiks3d-aq", {"rubiksnet.serve.block", "rubiksnet.serve.module"})])
+    ("rubiks3d-aq", {"rubiksnet.serve.block", "rubiksnet.serve.entry"})])
 def test_executor_spans_under_the_profiler(variant, kinds):
     ex = FusedExecutor(model(variant).eval())
     video = clips()
@@ -124,6 +124,26 @@ def test_executor_spans_under_the_profiler(variant, kinds):
         steps = [r for r in children if r.name in kinds]
         assert sum(r.attrs["blocks"] for r in steps) == len(ex.blocks)
     assert all(r.device_s is None for r in records)  # no card
+
+
+def test_quantized_aq_executor_spans_the_module_path():
+    """Quantized rubiks3d-aq keeps every block on the module path (the 2D
+    quantize rule has no tap form): one ``.module`` span a block, beside
+    the stem and the head, under the call."""
+    torch.manual_seed(0)
+    m = create_rubiksnet("tiny", CLASSES, T, "rubiks3d-aq", max_shift=1,
+                         quantize=True, device="cpu").eval()
+    ex = FusedExecutor(m)
+    video = clips()
+    ex(video)
+    profiling.reset()  # the set-up spans
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ex(video)
+    assert "rubiksnet.serve.module" in {e.name for e in prof.events()}
+    names = [r.name for r in profiling.spans()]
+    assert set(names) == {"rubiksnet.serve.call", "rubiksnet.serve.stem",
+                          "rubiksnet.serve.module", "rubiksnet.serve.head"}
+    assert names.count("rubiksnet.serve.module") == len(ex.blocks)
 
 
 def test_train_step_spans_under_the_profiler():
@@ -251,7 +271,8 @@ def test_launch_counters_are_the_registrys():
     counters = launch_counters()
     assert sorted(counters) == sorted([
         "shift3d", "shift3d_inverse", "shift_grad", "fused_block",
-        "fused_entry", "se_gate", "shift2d", "shift2d_inverse"])
+        "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
+        "shift2d_inverse"])
     registry = profiling.counters()
     assert {n: c.count for n, c in counters.items()}.items() <= (
         registry.items())
