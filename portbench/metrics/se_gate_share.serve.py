@@ -1,0 +1,18 @@
+"""se_gate_share.serve: per cent of the traced window's busy time (the
+union of every device operation's intervals) taken by the SE gate's
+launches, K2's and K3's alike, the operations named below, overlapping
+launches counted once; None where the trace holds none (a configuration
+without SE, or a program whose gate has another name) (moves
+clips_per_s)."""
+
+from portbench import yardstick as ys
+
+NAMES = ("se_gate_tc_kernel",)  # the gate launch of K2-SE and K3-SE
+
+
+def read(ctx):
+    ops = ctx.trace.matching(NAMES)
+    if not ops:
+        return None
+    busy = ys.union_length([(a, b) for _, a, b in ops])
+    return 100.0 * busy / ctx.trace.busy_s

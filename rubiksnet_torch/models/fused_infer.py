@@ -216,7 +216,8 @@ class FusedExecutor:
         Spans (``utils/profiling.py``): ``rubiksnet.serve.call`` (call id
         :attr:`calls`) around ``.stem``, one ``.block`` a K2 run (attribute
         ``blocks``), ``.entry`` a K3 block, ``.module`` a block on the
-        module path, and ``.head``, device times on ``.call`` and
+        module path (each step's attribute ``se``: whether its blocks carry
+        the SE gate), and ``.head``, device times on ``.call`` and
         ``.module`` only; the first eager call at each shape and SM count
         inside ``rubiksnet.setup.first_call``."""
         model = self.model
@@ -261,8 +262,9 @@ class FusedExecutor:
             for kind, names, params in steps:
                 if kind not in STEP_SPANS:
                     raise ValueError(f"unknown step kind {kind!r}")
+                gate = params.se if kind == "module" else params[-1]
                 with span(STEP_SPANS[kind], x if kind == "module" else None,
-                          blocks=len(names)):
+                          blocks=len(names), se=gate is not None):
                     if kind == "block":
                         x = fused_block_run(x, *params, aq=self.aq,
                                             max_shift=model.max_shift)

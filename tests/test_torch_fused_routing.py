@@ -178,15 +178,37 @@ def test_supported_follows_the_kernels_limits():
     assert not fused_block_supported((2, 4, 7, 7, 54), 1, torch.float64)
 
 
+def test_small_routes_every_block_at_224():
+    """Small in bfloat16 at max_shift 1 (shifts in (-1, 1)), 224 px, on the
+    card's 132 SMs, at the serving batch 64 and around it: its 13
+    stride-1 blocks in 5 K2 runs and its 4 entries on K3, every step with
+    the SE gate, nothing declined, nothing on the module path."""
+    model = create_rubiksnet("small", 174, max_shift=1, device="cpu",
+                             dtype=torch.bfloat16)
+    executor = FusedExecutor(model)
+    for batch in (32, 64, 128):
+        shape = (batch, 8, 224, 224, 3)
+        steps = executor.route(shape)
+        runs = [ns for k, ns, _ in steps if k == "block"]
+        entries = [n for k, ns, _ in steps if k == "entry" for n in ns]
+        assert [len(r) for r in runs] == [1, 2, 3, 5, 2]
+        assert entries == ENTRIES
+        assert all(params[-1] is not None for _, _, params in steps)
+        assert not [k for k, _, _ in steps if k == "module"]
+        assert executor.declined[(shape, 132)] == []
+
+
 # The largest max_shift whose SE gate fits beside K2's and K3's launch A
 # plan, per batch, at Small's widths (14 x 14 x 288, K3 growing to 576).
 # chip_smoke.py's phase 9 (e) holds the rule to the C side's own check on
 # the card at K2's edge at batch 8 (5 runs, 6 is refused) and K3's at batch
-# 2 (1 runs, 2 is refused).
-SE_EDGE = {1: (7, 6), 2: (7, 1), 8: (5, 1), 32: (2, 1)}
+# 2 (1 runs, 2 is refused); at batch 64, the serving batch, the same check
+# on the card found K2's edge at 2 (3 is refused) and K3's at 1 (2 is
+# refused).
+SE_EDGE = {1: (7, 6), 2: (7, 1), 8: (5, 1), 32: (2, 1), 64: (2, 1)}
 
 
-@pytest.mark.parametrize("batch", [1, 2, 8, 32])
+@pytest.mark.parametrize("batch", [1, 2, 8, 32, 64])
 @pytest.mark.parametrize("max_shift", [1, 2, 4, 7])
 def test_se_gate_shared_memory(batch, max_shift):
     """With SE on the tensor cores, K2 and K3 decline exactly the plans whose

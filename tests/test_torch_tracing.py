@@ -126,6 +126,55 @@ def test_executor_spans_under_the_profiler(variant, kinds):
     assert all(r.device_s is None for r in records)  # no card
 
 
+@pytest.mark.parametrize("tier,se", [("tiny", False), ("small", True)])
+def test_executor_step_spans_say_whether_they_are_gated(tier, se):
+    """Each ``.block`` and ``.entry`` span carries ``se``: True on every
+    step of the SE tier, False without SE, so the records split gated runs
+    from ungated ones (``span_totals`` over either part)."""
+    torch.manual_seed(0)
+    ex = FusedExecutor(create_rubiksnet(tier, CLASSES, T, max_shift=1,
+                                        device="cpu").eval())
+    video = clips()
+    ex(video)
+    profiling.reset()  # the set-up spans
+    with profile(activities=[ProfilerActivity.CPU]):
+        ex(video)
+    steps = [r for r in profiling.spans() if r.name in (
+        "rubiksnet.serve.block", "rubiksnet.serve.entry")]
+    assert steps and all(r.attrs["se"] is se for r in steps)
+    gated = profiling.span_totals([r for r in steps if r.attrs["se"]])
+    if se:
+        assert gated["rubiksnet.serve.block"]["count"] == 5
+        assert gated["rubiksnet.serve.entry"]["count"] == 4
+        assert sum(r.attrs["blocks"] for r in steps) == 17
+    else:
+        assert gated == {}
+
+
+@pytest.mark.card
+def test_se_gate_counter_counts_a_launch_per_gated_block():
+    """On the card, one fused forward of Small in bfloat16 launches K2 for
+    its 13 stride-1 blocks, K3 for its 4 entries and the SE gate once for
+    each of the 17, as the registry's counters read them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    torch.manual_seed(0)
+    m = create_rubiksnet("small", CLASSES, T, max_shift=1,
+                         dtype=torch.bfloat16).eval()
+    ex = FusedExecutor(m)
+    video = clips().cuda()
+    ex(video)
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    ex(video)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(counters, 0)
+    want.update(fused_block=13, fused_entry=4, se_gate=17)
+    assert {n: c.count for n, c in counters.items()} == want
+    assert profiling.counters("se_gate") == {"se_gate": 17}
+
+
 def test_quantized_aq_executor_spans_the_module_path():
     """Quantized rubiks3d-aq keeps every block on the module path (the 2D
     quantize rule has no tap form): one ``.module`` span a block, beside
