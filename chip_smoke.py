@@ -10,8 +10,10 @@ fused_block_tc.cu,
 K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
 inside K2 and K3: on the tensor-core route its sums in launch A, tc_se.cuh,
 and one gate launch, se_gate_tc.cu, on the SIMT route se_gate.cuh's two
-launches; and the 2D shift's forward and input gradient,
-shift2d.cu) from rubiksnet_torch/ops/csrc, holds each against its plain
+launches; the 2D shift's forward and input gradient,
+shift2d.cu; and the train-mode BN and ReLU pair, bn_relu_train.cu, held
+at every BN shape of a Large train step at batch 32 and timed there) from
+rubiksnet_torch/ops/csrc, holds each against its plain
 PyTorch version at every shape of its path (K2 and K3 also off the model's
 shapes, and in bf16 at every batch size they are timed or served at,
 because their launch plans depend on the batch: a K2 or K3 plan that did
@@ -265,7 +267,13 @@ SMALL_BLOCK_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 3), (14, 288, 5),
 # keys.
 LAUNCH_COUNTERS = ("shift3d", "shift3d_inverse", "shift_grad", "fused_block",
                    "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
-                   "shift2d_inverse")
+                   "shift2d_inverse", "bn_relu_train",
+                   "bn_relu_train_backward")
+# Train-mode BN and ReLU sites of a train step (bn1 and bn2 of each block,
+# bn_last): Large and Large-AQ, Small; each one forward and one backward
+# of the kernel pair outside a data or time group.
+BN_SITES, SMALL_BN_SITES = 103, 35
+BN_BATCH = 32  # clips of the BN pair's check and timing: the train cell's
 
 # Every kernel of the JSON line: where it lives and what it replaces.
 KERNELS = {
@@ -310,6 +318,11 @@ KERNELS = {
     # launch A (tc_se.cuh), then one launch per SE block.
     "se_gate": ("rubiksnet_torch/ops/csrc/se_gate_tc.cu",
                 "rubiksnet_tpu/ops/pallas/fused_block.py:215"),
+    # Train-mode BN and its ReLU, forward and backward (three launches
+    # each way): no TPU kernel, XLA fuses the JAX package's flax BatchNorm
+    # (rubiksnet_tpu/nn/backbone.py:27); here it ran as plain PyTorch ops.
+    "bn_relu_train": ("rubiksnet_torch/ops/csrc/bn_relu_train.cu",
+                      "none (rubiksnet_tpu/nn/backbone.py:27, XLA)"),
 }
 
 
@@ -745,6 +758,46 @@ def large_step_vs_plain(dev, gen):
         fail("Large f32 kernel step disagrees with the plain step")
 
 
+def check_bn_relu(errs, dev):
+    """The train-mode BN and ReLU pair against the plain ops
+    (``utils/bn_relu_probe.py``: its tolerances and their reasons) at
+    every BN shape of a Large train step, bfloat16 at BN_BATCH clips and
+    float32 at a quarter of it, and off the model's shapes; output, running
+    statistics and count, dx, dweight, dbias, each rerun bit-identical."""
+    from rubiksnet_torch.utils import bn_relu_probe as probe
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"[kernels] bn_relu_train vs plain ops, Large's BN shapes, bf16 "
+          f"at batch {BN_BATCH}, f32 at {BN_BATCH // 4}; then off the model")
+    cases = [(f"{b}x{FRAMES}x{h}x{h}x{c}", (b, FRAMES, h, h, c), dt, 0)
+             for h, c, _ in probe.SITES
+             for dt, b in ((torch.bfloat16, BN_BATCH),
+                           (torch.float32, BN_BATCH // 4))]
+    for label, shape, dt, offset in cases + probe.CASES:
+        ok, worst = probe.check_one(label, *probe.inputs(shape, dt, gen, dev,
+                                                         offset))
+        errs["bn_relu_train"].append(worst)
+        if not ok:
+            fail(f"bn_relu_train {label} outside tolerance")
+        torch.cuda.empty_cache()
+
+
+def time_bn_relu(timer, dev, name, smi):
+    """The pair's six launches at each BN shape of a Large train step at
+    BN_BATCH clips, bfloat16: device time by the profiler and by events,
+    beside the bound (x and dy read once, the output and dx written once),
+    the plain ops and ``F.batch_norm`` with ``F.relu`` (library_ms), summed
+    over the step's BN_SITES."""
+    from rubiksnet_torch.utils import bn_relu_probe as probe
+
+    print(f"[timing] bn_relu_train, {name} ({smi})")
+    t = probe.time_sites(dev, BN_BATCH)
+    row = timer.rows["bn_relu_train"]
+    row.update(ms=t["events"], device_ms=t["kernels"], plain_ms=t["plain"],
+               library_ms=t["library"], bytes_ms=t["bound"],
+               bound_ms=t["bound"])
+
+
 def train_phase(dev, gen, name, smi):
     """Phase 8: the training path. Returns the launch counts of one Large
     bf16 train step at batch 8 (counters zeroed just before it)."""
@@ -780,7 +833,8 @@ def train_phase(dev, gen, name, smi):
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
     want = dict(dict.fromkeys(LAUNCH_COUNTERS, 0), shift3d=51,
-                shift3d_inverse=51, shift_grad=51)
+                shift3d_inverse=51, shift_grad=51, bn_relu_train=BN_SITES,
+                bn_relu_train_backward=BN_SITES)
     loss = float(metrics["loss"])
     print(f"[train] (c) launches of one Large bf16 train step, batch "
           f"{TIME_BATCH}: {launches}; loss {loss:.4f}")
@@ -1587,9 +1641,10 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         print(f"  2D shift gradient (plain PyTorch, no kernel) {h}x{h}x{c} "
               f"stride {s}: {ms:.4f} ms (x{count} per train step)")
     time_gate(timer, gen, cpu_gen, dev)
+    time_bn_relu(timer, dev, name, smi)
     for kind in timer.rows:
         backward = kind in ("shift3d_inverse", "shift_grad",
-                            "shift2d_inverse")
+                            "shift2d_inverse", "bn_relu_train")
         timer.summary(kind, "train step" if backward else "forward")
     print(f"  2D shift gradient (plain PyTorch, no kernel): "
           f"{plain2d_grad_ms:.3f} ms per Large-AQ train step")
@@ -2393,10 +2448,13 @@ def step_alone(model, step_s, batch, dev, gen, name, smi, warm=2, timed=5):
 
 def check_train_launches(label, counts, steps, val_batches):
     """51 K1 a forward (train steps and validation batches), 51 K1-inverse
-    and K4 a train step, nothing else."""
+    and K4 and BN_SITES of the BN pair each way a train step, nothing
+    else."""
     want = dict.fromkeys(counts, 0)
     want.update(shift3d=51 * (steps + val_batches),
-                shift3d_inverse=51 * steps, shift_grad=51 * steps)
+                shift3d_inverse=51 * steps, shift_grad=51 * steps,
+                bn_relu_train=BN_SITES * steps,
+                bn_relu_train_backward=BN_SITES * steps)
     print(f"  {label}: launches {counts} for {steps} train steps and "
           f"{val_batches} validation batches "
           f"{'ok' if counts == want else 'FAIL'}")
@@ -3717,7 +3775,8 @@ def tensor_parallel_phase(dev, name, smi):
     zero = {k: 0 for k in steps[0]["counts"]}
     want = dict(zero, shift3d=shifts, shift3d_inverse=shifts,
                 shift_grad=shifts, gather_channels=TP_SHARDED,
-                model_all_reduce=TP_SHARDED)
+                model_all_reduce=TP_SHARDED, bn_relu_train=BN_SITES,
+                bn_relu_train_backward=BN_SITES)
     for r, res in enumerate(steps):
         print(f"[tensor parallel] (b) rank {r}: launches and collectives of "
               f"one train step at batch {TIME_BATCH}: {res['counts']}")
@@ -3796,6 +3855,8 @@ def tensor_parallel_phase(dev, name, smi):
         want = dict(zero, shift3d=shifts * (n_steps + n_val),
                     shift3d_inverse=shifts * n_steps,
                     shift_grad=shifts * n_steps,
+                    bn_relu_train=BN_SITES * n_steps,
+                    bn_relu_train_backward=BN_SITES * n_steps,
                     gather_channels=TP_SHARDED * (n_steps + n_val),
                     model_all_reduce=TP_SHARDED * n_steps)
         ok = (n_steps == TP_SCRIPT_STEPS and res["counts"] == want
@@ -3821,7 +3882,8 @@ def tensor_parallel_phase(dev, name, smi):
     print(f"[tensor parallel] phase 12 took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {k: steps[0]["counts"][k]
-            for k in ("shift3d", "shift3d_inverse", "shift_grad")} | {
+            for k in ("shift3d", "shift3d_inverse", "shift_grad",
+                      "bn_relu_train")} | {
         "shift2d": aq[0]["counts"]["shift2d"]}
 
 
@@ -3926,7 +3988,9 @@ def measurement_phase(errs, gen, cpu_gen, dev, name, smi):
         "--tier", "large", "--mode", "train", "--batch-sizes",
         str(TIME_BATCH), "--iters", "3"])
     check_bench_line("bench train Large bf16", line, name,
-                     {"shift3d": 51, "shift3d_inverse": 51, "shift_grad": 51})
+                     {"shift3d": 51, "shift3d_inverse": 51, "shift_grad": 51,
+                      "bn_relu_train": BN_SITES,
+                      "bn_relu_train_backward": BN_SITES})
     torch.cuda.empty_cache()
 
     stage = MICRO_STAGE[0]
@@ -4081,6 +4145,7 @@ def main() -> int:
     check_block_served_shapes(errs, gen, cpu_gen, dev)
     check_entry_cases(errs, gen, cpu_gen, dev)
     check_entry_served_shapes(errs, gen, cpu_gen, dev)
+    check_bn_relu(errs, dev)
     torch.cuda.synchronize()
     print(f"[clock] kernel checks done at "
           f"{time.perf_counter() - started:.0f} s")
@@ -4139,16 +4204,19 @@ def main() -> int:
 
     # Phase 8: training, each configuration's train step counted inside.
     train_launches = train_phase(dev, gen, name, smi)
-    for k in ("shift3d_inverse", "shift_grad"):
+    for k in ("shift3d_inverse", "shift_grad", "bn_relu_train"):
         launches[k] = train_launches[k]
     torch.cuda.empty_cache()
     aq_launches = train_config(
         "Large rubiks3d-aq", "large", "rubiks3d-aq",
-        {"shift2d": 51, "shift2d_inverse": 51}, dev, gen, name, smi)
+        {"shift2d": 51, "shift2d_inverse": 51, "bn_relu_train": BN_SITES,
+         "bn_relu_train_backward": BN_SITES}, dev, gen, name, smi)
     launches["shift2d_inverse"] = aq_launches["shift2d_inverse"]
     torch.cuda.empty_cache()
     train_config("Small rubiks3d (SE)", "small", "rubiks3d",
-                 {"shift3d": 17, "shift3d_inverse": 17, "shift_grad": 17},
+                 {"shift3d": 17, "shift3d_inverse": 17, "shift_grad": 17,
+                  "bn_relu_train": SMALL_BN_SITES,
+                  "bn_relu_train_backward": SMALL_BN_SITES},
                  dev, gen, name, smi)
     print(f"[clock] training done at {time.perf_counter() - started:.0f} s")
 

@@ -12,12 +12,14 @@ dtype is that of the input.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_relu import bn_relu_train, bn_train_plain
 from ..ops.fused_block import BN_EPS, fold_bn
 from ..parallel.mesh import all_reduce_sum, column_parallel, group_size
 from ..parallel.temporal import reduction_groups
@@ -47,6 +49,8 @@ class BN(nn.Module):
     differentiable all-reduce, so the backward is the global one too, as
     in a jitted JAX step over a sharded batch. Eval mode uses the running
     statistics. Either way the output is in the input's dtype.
+    :meth:`relu` is ``relu(self(x))``, on the kernel pair of
+    ``ops/bn_relu.py`` where :func:`kernel_route` says so.
     """
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
@@ -64,19 +68,30 @@ class BN(nn.Module):
             scale, bias = fold_bn(self.weight, self.bias, self.running_mean,
                                   self.running_var, self.eps)
             return (x.float() * scale + bias).to(x.dtype)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        dims = tuple(range(x.ndim - 1))
         groups = reduction_groups()
-        if groups:
-            var, mean = global_var_mean(xf, dims, groups)
-        else:
-            var, mean = torch.var_mean(xf, dim=dims, correction=0)
-        with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-            self.running_var.mul_(0.9).add_(var, alpha=0.1)
-            self.num_batches_tracked += 1
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(x.dtype)
+        var_mean = (functools.partial(global_var_mean, groups=groups)
+                    if groups else None)
+        return bn_train_plain(x, self.weight, self.bias, self.running_mean,
+                              self.running_var, self.num_batches_tracked,
+                              self.eps, var_mean)
+
+    def relu(self, x, plain=False):
+        """``relu(self(x))``: in train mode the kernel pair where
+        :func:`kernel_route` takes x, which raises on a dtype or layout the
+        kernels do not take; else the plain ops."""
+        if kernel_route(x, self.training, plain):
+            return bn_relu_train(x, self.weight, self.bias, self.running_mean,
+                                 self.running_var, self.num_batches_tracked,
+                                 self.eps)
+        return torch.relu(self(x))
+
+
+def kernel_route(x, training, plain):
+    """Whether train-mode BN and its ReLU run on the kernel pair: a CUDA x
+    in train mode with ``plain`` False and no active data or time group
+    (whose statistics are all-reduced by :func:`global_var_mean`)."""
+    return (training and not plain and x.device.type == "cuda"
+            and not reduction_groups())
 
 
 def global_var_mean(x, dims, groups):
@@ -203,9 +218,9 @@ class RubiksShiftBlock(nn.Module):
         return None if self.variant == "rubiks3d" else self.conv2[0]
 
     def forward(self, x, plain=False):
-        out = torch.relu(self.bn1(x))
+        out = self.bn1.relu(x, plain)
         shortcut = x if self.shortcut is None else self.shortcut(out)
-        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn2.relu(self.conv2(out), plain)
         out = self.as3(out, plain=plain)
         if self.se is not None:
             out = self.se(out)
@@ -246,12 +261,12 @@ class RubiksNetBackbone(nn.Module):
             for b, blk in enumerate(getattr(self, f"layer{s}")):
                 yield f"layer{s}_{b}", blk
 
-    def pool(self, x):
+    def pool(self, x, plain=False):
         """bn_last, ReLU, spatial mean: (N, T, H, W, C) -> (N, T, C)."""
-        return torch.relu(self.bn_last(x)).mean(dim=(2, 3))
+        return self.bn_last.relu(x, plain).mean(dim=(2, 3))
 
     def forward(self, video, plain=False):
         x = self.conv1(video)
         for _, blk in self.named_blocks():
             x = blk(x, plain=plain)
-        return self.pool(x)
+        return self.pool(x, plain)

@@ -2,6 +2,7 @@
 
 from . import library  # registers the rubiksnet:: operators
 from .attention_shift import attention_shift, attention_shift_weights
+from .bn_relu import bn_relu_train
 from .fused_block import (
     fused_block_run,
     stack_block_params,
@@ -34,6 +35,7 @@ from .shift3d import (
 __all__ = [
     "attention_shift",
     "attention_shift_weights",
+    "bn_relu_train",
     "compute_output_shape_2d",
     "compute_output_shape_3d",
     "fused_block_run",
@@ -63,13 +65,16 @@ def launch_counters():
     K4 (shift_grad), K2 (fused_block), K3 (fused_entry), K3 with the
     attention mix (fused_entry_aq), the SE gate of their tensor-core route
     (se_gate) and the 2D shift's forward and
-    input-gradient kernels (shift2d, shift2d_inverse), by name: the
-    registry's counters of these kernels (``utils.profiling.counters``)."""
-    from . import fused_block, fused_entry, shift2d, shift3d
+    input-gradient kernels (shift2d, shift2d_inverse), and the train-mode
+    BN and ReLU pair's forward and backward (bn_relu_train,
+    bn_relu_train_backward), by name: the registry's counters of these
+    kernels (``utils.profiling.counters``)."""
+    from . import bn_relu, fused_block, fused_entry, shift2d, shift3d
 
     return {c.name: c for c in (shift3d.LAUNCHES, shift3d.INVERSE_LAUNCHES,
                                 shift3d.SHIFT_GRAD_LAUNCHES,
                                 fused_block.LAUNCHES, fused_entry.LAUNCHES,
                                 fused_entry.AQ_LAUNCHES,
                                 fused_block.SE_GATE_LAUNCHES,
-                                shift2d.LAUNCHES, shift2d.INVERSE_LAUNCHES)}
+                                shift2d.LAUNCHES, shift2d.INVERSE_LAUNCHES,
+                                bn_relu.LAUNCHES, bn_relu.BACKWARD_LAUNCHES)}

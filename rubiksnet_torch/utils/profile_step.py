@@ -26,6 +26,7 @@ from .benchmark import cuda_call_times_ms, cuda_kernel_times, nvidia_smi_line
 
 # (class, substrings of the kernel name), first match wins.
 CLASSES = (
+    ("BN and ReLU in train mode (bn_relu_train_*)", ("bn_relu_train",)),
     ("2D shift and its input gradient (shift2d_kernel)", ("shift2d_kernel",)),
     ("K1 (bwd3d_forward_kernel; previous route shift3d_fwd_kernel)",
      ("bwd3d_forward", "shift3d_fwd_kernel")),

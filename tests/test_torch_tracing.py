@@ -321,7 +321,7 @@ def test_launch_counters_are_the_registrys():
     assert sorted(counters) == sorted([
         "shift3d", "shift3d_inverse", "shift_grad", "fused_block",
         "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
-        "shift2d_inverse"])
+        "shift2d_inverse", "bn_relu_train", "bn_relu_train_backward"])
     registry = profiling.counters()
     assert {n: c.count for n, c in counters.items()}.items() <= (
         registry.items())
