@@ -5,14 +5,10 @@ launches counted once; None where the trace holds none (a configuration
 without SE, or a program whose gate has another name) (moves
 clips_per_s)."""
 
-from portbench import yardstick as ys
+from portbench.readers import busy_share
 
 NAMES = ("se_gate_tc_kernel",)  # the gate launch of K2-SE and K3-SE
 
 
 def read(ctx):
-    ops = ctx.trace.matching(NAMES)
-    if not ops:
-        return None
-    busy = ys.union_length([(a, b) for _, a, b in ops])
-    return 100.0 * busy / ctx.trace.busy_s
+    return busy_share(ctx, NAMES)

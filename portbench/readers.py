@@ -21,6 +21,17 @@ def mfu(ctx, mode):
     return 100.0 * flops / q["window_s"] / ys.peak_flops(ctx.config["dtype"])
 
 
+def busy_share(ctx, needles):
+    """Per cent of the traced window's busy time that the device
+    operations named by ``needles`` took, overlapping launches counted
+    once; None where the trace holds none."""
+    ops = ctx.trace.matching(needles)
+    if not ops:
+        return None
+    busy = ys.union_length([(a, b) for _, a, b in ops])
+    return 100.0 * busy / ctx.trace.busy_s
+
+
 def roofline(ctx, needles, bound_per_call):
     """Per cent of the least time (``bound_per_call`` seconds a call) that
     the device operations named by ``needles`` took in the traced window,

@@ -25,7 +25,8 @@ def test_the_cell_is_found_by_its_files():
                                                        "setup_s"]
     assert {m["name"] for m in cell["per_layer"]} == {
         "idle_share.serve", "mfu.serve", "device_ops_per_clip.serve",
-        "k2_roofline.serve", "program_setup_s.serve", "se_gate_share.serve"}
+        "k2_roofline.serve", "program_setup_s.serve", "se_gate_share.serve",
+        "entry_share.serve"}
 
 
 def test_gate_share_counts_overlapping_launches_once():

@@ -1,6 +1,6 @@
-"""The four per-layer metrics that read the program's own spans
-(``module_path_share.serve``, ``backward_share.train``,
-``program_setup_s.serve``, ``program_setup_s.train``): a fabricated
+"""The three per-layer metrics that read the program's own spans
+(``backward_share.train``, ``program_setup_s.serve``,
+``program_setup_s.train``): a fabricated
 registry gives the expected share or seconds; a program without the
 registry, with no matching span, or with no device times gives None and
 does not raise."""
@@ -13,9 +13,7 @@ import pytest
 
 from portbench import span_readers, spec
 
-SHARES = {"module_path_share.serve": ("rubiksnet.serve.module",
-                                      "rubiksnet.serve.call"),
-          "backward_share.train": ("rubiksnet.train.backward",
+SHARES = {"backward_share.train": ("rubiksnet.train.backward",
                                    "rubiksnet.train.step")}
 SETUP = ("program_setup_s.serve", "program_setup_s.train")
 TRACE_CALLS = 2  # calls traced with the device's activity alone
@@ -115,21 +113,26 @@ def test_spans_without_device_times_give_none(install, metric):
 
 
 def test_the_programs_registry_on_the_cpu():
-    """The port's own registry: a CPU call has no device times, so the
-    shares read None, and its set-up spans read seconds."""
+    """The port's own registry: a CPU step has no device times, so the
+    share reads None, and the set-up spans read seconds."""
     import torch
 
     from rubiksnet_torch.models import FusedExecutor, create_rubiksnet
+    from rubiksnet_torch.train import make_train_step, sgd_with_shift_mult
     from rubiksnet_torch.utils import profiling
 
     profiling.reset()
     model = create_rubiksnet("tiny", 5, 2, "rubiks3d-aq", max_shift=1,
-                             device="cpu").eval()
-    ex = FusedExecutor(model)
+                             device="cpu")
+    step = make_train_step(model, sgd_with_shift_mult(model, 1e-3, 0.1))
+    video = torch.zeros((2, 2, 32, 32, 3))
     with profiling.recording():
-        ex(torch.zeros((1, 2, 32, 32, 3)))
+        step(video, torch.zeros(2, dtype=torch.long))
+        FusedExecutor(model.eval())(video)
     try:
-        assert read("module_path_share.serve") is None
+        assert any(r.name == "rubiksnet.train.backward"
+                   for r in profiling.spans())
+        assert read("backward_share.train") is None
         assert read("program_setup_s.serve") > 0.0
     finally:
         profiling.reset()
