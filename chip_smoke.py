@@ -4,16 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 shift3d, K1-inverse shift3d_inverse and
-K4 shift_grad on their staged route shift3d_bwd.cu, their first forms
-shift3d.cu and shift_grad.cu, K2 fused_block with its tensor-core launches
-fused_block_tc.cu,
+K4 shift_grad on their staged route shift3d_bwd.cu, K2 fused_block with
+its tensor-core launches fused_block_tc.cu,
 K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
-inside K2 and K3: on the tensor-core route its sums in launch A, tc_se.cuh,
-and one gate launch, se_gate_tc.cu, on the SIMT route se_gate.cuh's two
-launches; the 2D shift's forward and input gradient,
-shift2d.cu; and the train-mode BN and ReLU pair, bn_relu_train.cu, held
-at every BN shape of a Large train step at batch 32 and timed there) from
-rubiksnet_torch/ops/csrc, holds each against its plain
+inside K2 and K3: in bf16 its sums in launch A, tc_se.cuh, and one gate launch,
+se_gate_tc.cu, in f32 se_gate.cuh's two launches; the 2D shift's forward and
+input gradient, shift2d.cu; and the train-mode BN and ReLU pair,
+bn_relu_train.cu, held at every BN shape of a Large train step at batch 32 and
+timed there) from rubiksnet_torch/ops/csrc, holds each against its plain
 PyTorch version at every shape of its path (K2 and K3 also off the model's
 shapes, and in bf16 at every batch size they are timed or served at,
 because their launch plans depend on the batch: a K2 or K3 plan that did
@@ -34,8 +32,8 @@ and Small at batch 8). Before training, phase 7: the device loader
 (rubiksnet_torch.data.device_loader: nvjpeg and the resize_crop_u8 kernel,
 built with the kernels, in parallel): (a) nvjpeg's probe and the frames
 by decode route; (c) nvjpeg against Pillow on frames of six sizes within
-DECODE_BOUND; (b) resize_crop_u8 on both its routes (staged, the
-default, and previous) against its plain version on that decode, 1 and 3
+DECODE_BOUND; (b) resize_crop_u8 (its staged kernel) against its plain
+version on that decode, 1 and 3
 crops, upscales, downscales of every ksize and a portrait frame,
 bit-identical; then the evaluator (rubiksnet_torch.scripts.
 test_models) end to end on RubiksNet-Large in bf16 over 64 synthetic
@@ -50,8 +48,8 @@ run), each loader's first batch against the plain model, each loader's
 logits bit-identical across prefetch depths, (f) the two loaders' logits
 compared (informational), and each run's s/video, steady videos/s and
 host-wait share printed; resize_crop_u8 timed at the evaluator's three
-shapes (1-clip of 427x240 and of 340x256, 2-clip of 427x240), both
-routes beside its plain version, the library's interpolate or sliced
+shapes (1-clip of 427x240 and of 340x256, 2-clip of 427x240) beside its
+plain version, the library's interpolate or sliced
 copy and the bound. Last, the
 training entry points as a user runs them
 (phase 9; RubiksNet-Large in float32, 8x224x224, batch 8):
@@ -116,7 +114,8 @@ fused executor at batch 8 and 64 (K2's and K3's plans at 64 held against
 plain first) and a Large bf16 train step at batch 8, each line correct,
 its launches a call those of the phases above, its mfu and busy share in
 (0, 1]; the shift microbench at 14x14x288, batch 64, every mode and route
-held against plain; the data-pipeline bench over 8 videos, the native
+(kernel, plain, library) held against plain; the data-pipeline bench over
+8 videos, the native
 loader built exactly where the toolchain probe says it can be, the device
 loader built, its row within DECODE_BOUND of PIL's. Every
 process it starts (nvcc, the ranks, the serving process) is waited for,
@@ -133,26 +132,20 @@ exists (a depthwise convolution for the shifts); the rows of the kernels
 on phase 11's and phase 12's paths also carry their launches a rank there
 (parallel_launches, tensor_parallel_launches); the last row is the
 device loader's resize_crop_u8 (its launches those of phase 7's device
-runs; its times, both routes and the library's version at three shapes:
-the row's own keys at a 1-clip batch of 427x240 frames, which it
-resizes, copy_* at one of the evaluator's 340x256 frames, only cropped,
-clip2_* at the 2-clip batch of 427x240, 3 crops a frame; previous_* the
-first kernel's). K1's, K1-inverse's and
-K4's rows, K2's three and K3's two carry their device time by the profiler
-and the time of the route they replaced (for K1, K1-inverse and K4 their
-first forms, shift3d.cu and shift_grad.cu; for K2 and K3 in bf16 the SIMT
-GEMM of common.cuh), taken in this run; the 2D shift's two rows their
-device time; K2's also the time of a forward's blocks
-as the models call them, one run per stage. The SE gate's row (se_gate) carries
-its device time over Small's 17 SE blocks beside what its sums add to
-launch A and the previous route's two gate launches in the same call.
+runs; its times and the library's version at three shapes: the row's own
+keys at a 1-clip batch of 427x240 frames, which it resizes, copy_* at one
+of the evaluator's 340x256 frames, only cropped, clip2_* at the 2-clip
+batch of 427x240, 3 crops a frame). K1's, K1-inverse's and K4's rows,
+K2's three, K3's three and the 2D shift's two carry their device time by
+the profiler; K2's also the time of a forward's blocks as the models call
+them, one run per stage. The SE gate's row (se_gate) carries its device
+time over Small's 17 SE blocks and what its sums add to launch A.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import functools
 import importlib.util
 import io
 import json
@@ -278,9 +271,7 @@ BN_BATCH = 32  # clips of the BN pair's check and timing: the train cell's
 # Every kernel of the JSON line: where it lives and what it replaces.
 KERNELS = {
     # The 3D shift on its staged route (one device body, three kernels:
-    # the forward, the input gradient, the shift gradient); the first forms
-    # (shift3d.cu, shift_grad.cu) are timed beside them as the previous
-    # route.
+    # the forward, the input gradient, the shift gradient).
     "shift3d": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
                 "rubiksnet_tpu/ops/pallas/shift_kernel.py:169"),
     "shift3d_inverse": ("rubiksnet_torch/ops/csrc/shift3d_bwd.cu",
@@ -514,18 +505,8 @@ def check_shift_staged(errs, gen, dev):
     every fourth shift an integer, the forward and the input gradient
     fractional and quantized, every run repeated bit-identically; K1 with a
     bfloat16 shift against its float32 widening; then arms the guard on
-    the staged route's plans. On the previous route (shift3d.cu,
-    shift_grad.cu) at every Large shift shape, K4 twice bit-identical."""
-    from rubiksnet_torch.ops.shift3d import (
-        DIRECTIONS,
-        compute_output_shape_3d,
-        shift3d_input_grad_kernel,
-        shift3d_input_grad_plain,
-        shift3d_kernel,
-        shift3d_plain,
-        shift3d_shift_grad_kernel,
-        shift3d_shift_grad_plain,
-    )
+    the staged route's plans."""
+    from rubiksnet_torch.ops.shift3d import DIRECTIONS, shift3d_kernel
     from rubiksnet_torch.utils import shift3d_bwd_probe as probe
 
     print(f"[kernels] K1 shift3d, K1-inverse shift3d_inverse and K4 "
@@ -590,50 +571,6 @@ def check_shift_staged(errs, gen, dev):
     guard.armed = True
     print(f"  {len(guard.checked)} configurations and plans passed; every "
           f"later staged call is held to them")
-
-    print("[kernels] the previous route: K1 and K1-inverse (shift3d.cu) and "
-          "K4 (shift_grad.cu) vs plain")
-    for h, c, s in SHIFT_SHAPES:
-        stride = (1, s, s)
-        x_shape = (BATCH_CHECK, FRAMES, h, h, c)
-        og_shape = compute_output_shape_3d(x_shape, stride, (0, 0, 0))
-        for dt in (torch.float32, torch.bfloat16):
-            shift = rand_shift(c, gen, dev, integer_every=4)
-            og = randn(og_shape, dt, gen, dev)
-            x = randn(x_shape, dt, gen, dev)
-            for q in (False, True):
-                got = shift3d_kernel(x, shift, stride, (0, 0, 0), q,
-                                     route="previous")
-                ref = shift3d_plain(x, shift, stride, (0, 0, 0), q)
-                judge(f"K1 previous {h}x{h}x{c} stride {s} {str(dt)[6:]} "
-                      f"{'quantize' if q else 'fractional'}", got, ref, dt,
-                      [])
-                got = shift3d_input_grad_kernel(og, shift, x_shape, stride,
-                                                (0, 0, 0), q,
-                                                route="previous")
-                ref = shift3d_input_grad_plain(og, shift, x_shape, stride,
-                                               (0, 0, 0), q)
-                judge(f"K1-inverse previous {h}x{h}x{c} stride {s} "
-                      f"{str(dt)[6:]} {'quantize' if q else 'fractional'}",
-                      got, ref, dt, [])
-            got = shift3d_shift_grad_kernel(og, x, shift, stride,
-                                            route="previous")
-            again = shift3d_shift_grad_kernel(og, x, shift, stride,
-                                              route="previous")
-            ref = shift3d_shift_grad_plain(og, x, shift, stride)
-            label = f"K4 previous {h}x{h}x{c} stride {s} {str(dt)[6:]}"
-            if got.shape != (3, c) or not torch.isfinite(got).all():
-                fail(f"{label}: bad result {tuple(got.shape)}")
-            if not torch.equal(got, again):
-                fail(f"{label}: two runs on the same inputs differ")
-            max_abs, _, rel_l2 = errors(got, ref)
-            tol = TOL_SHIFT_GRAD[str(dt)[6:]]
-            ok = rel_l2 <= tol
-            print(f"  {label}: max_abs={max_abs:.3e} rel_l2={rel_l2:.3e} "
-                  f"[rel_l2<={tol}] bit-identical rerun "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"{label} outside tolerance")
 
 
 def overfit_tiny(dev):
@@ -1079,7 +1016,7 @@ def check_block_served_shapes(errs, gen, cpu_gen, dev):
     aq+se, a run of 2 blocks, twice
     bit-identically, against the plain version, with se also the gate alone
     against the plain gate of the kernel's mid (its error to the se_gate
-    row); and the previous route, which is only timed, at TIME_BATCH."""
+    row)."""
     from rubiksnet_torch.utils import fused_block_probe as probe
 
     bf = torch.bfloat16
@@ -1098,15 +1035,6 @@ def check_block_served_shapes(errs, gen, cpu_gen, dev):
             CHECKED_PLANS[(n, t, h, w, c), aq, se] = plan
             for kd in block_kinds(aq, se):
                 errs[kd].append(max_abs)
-    for label, n, t, h, w, c, k, kind, blocks in probe.served_cases(
-            (TIME_BATCH,)):
-        for aq, se in probe.VARIANTS[:3]:
-            ok, _, text, _ = probe.check_case(
-                label + ", previous route", (n, t, h, w, c), k, kind, blocks,
-                aq, se, bf, gen, cpu_gen, dev, route="simt")
-            print("  " + text)
-            if not ok:
-                fail(f"K2 {label} aq={aq} se={se} bf16 previous route failed")
 
 
 def checked_plan(shape, aq, se, dev):
@@ -1140,8 +1068,7 @@ def check_entry_served_shapes(errs, gen, cpu_gen, dev):
     shape of the main path (Large's, Small's and Large-AQ's) at every batch
     size that is timed or served (the evaluator's EVAL_CLIPS included),
     twice bit-identically, against the plain version, K3-SE's gate
-    also alone (as K2's); and the previous route, which is only timed, at
-    TIME_BATCH."""
+    also alone (as K2's)."""
     from rubiksnet_torch.utils import fused_entry_probe as probe
 
     bf = torch.bfloat16
@@ -1159,16 +1086,6 @@ def check_entry_served_shapes(errs, gen, cpu_gen, dev):
                 fail(f"K3 {label} se={se} aq={aq} bf16 failed")
             CHECKED_ENTRY_PLANS[(n, t, h, w, cin), cm, se, aq] = plan
             errs[entry_kind(se, aq)].append(max_abs)
-    for label, n, t, h, w, cin, cm, k, kind in probe.served_cases(
-            (TIME_BATCH,)):
-        for se, aq in ENTRY_FORMS:
-            ok, _, text, _ = probe.check_case(
-                label + ", previous route", (n, t, h, w, cin), cm, k, kind,
-                se, bf, gen, cpu_gen, dev, route="simt", aq=aq)
-            print("  " + text)
-            if not ok:
-                fail(f"K3 {label} se={se} aq={aq} bf16 previous route "
-                     f"failed")
 
 
 def checked_entry_plan(shape, cm, se, dev, aq=False):
@@ -1317,19 +1234,15 @@ class Timer:
     def __init__(self, names):
         self.rows = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                         "device_ms": None, "previous_ms": None,
-                         "previous_device_ms": None,
-                         "library_device_ms": None}
+                         "device_ms": None, "library_device_ms": None}
                      for k in names}
 
     def add(self, kind, label, count, kernel_fn, plain_fn, work, dtype,
-            lib_fn=None, previous_fn=None, kernels_per_call=1, previous="",
-            note="", device=False):
-        """``previous_fn``: the route this kernel replaced (named
-        ``previous``); both then also get their device time from the
-        profiler (every device kernel of a call). ``device``: the device
-        time of ``kernel_fn`` alone. Either way ``kernel_fn`` must launch
-        exactly ``kernels_per_call`` device kernels per call."""
+            lib_fn=None, kernels_per_call=1, note="", device=False):
+        """``device``: also the device time of ``kernel_fn`` by the
+        profiler (every device kernel of a call), which must launch exactly
+        ``kernels_per_call`` device kernels per call, and that of
+        ``lib_fn``."""
         from rubiksnet_torch.utils import cuda_time_ms
 
         row = self.rows[kind]
@@ -1351,30 +1264,15 @@ class Timer:
             lib_ms = cuda_time_ms(lib_fn, iters=5)
             row["library_ms"] = (row["library_ms"] or 0.0) + count * lib_ms
             text += f", library (depthwise conv) {lib_ms:.4f} ms"
-        if device and previous_fn is None:
+        if device:
             dev_ms, n_kernels = profiled_ms(kernel_fn, "", label,
                                             expect=kernels_per_call)
             if n_kernels not in (kernels_per_call, None):
                 fail(f"{label}: one call launched {n_kernels} device "
                      f"kernels, not {kernels_per_call}")
-            row["device_ms"] = (row["device_ms"] or 0.0) + count * dev_ms
+            timed = [("device_ms", dev_ms)]
             text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernels "
                      f"per call by the profiler")
-        if previous_fn is not None:
-            dev_ms, n_kernels = profiled_ms(kernel_fn, "", label,
-                                            expect=kernels_per_call)
-            if n_kernels not in (kernels_per_call, None):
-                fail(f"{label}: one call launched {n_kernels} device "
-                     f"kernels, not {kernels_per_call}")
-            prev_dev_ms, prev_n = profiled_ms(previous_fn, "",
-                                              f"{label}, previous route")
-            prev_ms = cuda_time_ms(previous_fn)
-            timed = [("device_ms", dev_ms), ("previous_ms", prev_ms),
-                     ("previous_device_ms", prev_dev_ms)]
-            text += (f"; on the device {dev_ms:.4f} ms, {n_kernels} kernels "
-                     f"per call by the profiler; previous route ({previous}) "
-                     f"{prev_ms:.4f} ms, on the device {prev_dev_ms:.4f} ms "
-                     f"in {prev_n} kernels per call")
             if lib_fn is not None:
                 lib_dev_ms, lib_n = profiled_ms(lib_fn, "",
                                                 f"{label}, library")
@@ -1396,9 +1294,6 @@ class Timer:
                 f"({by}), library {lib}")
         if row["device_ms"] is not None:
             text += f", device_ms {row['device_ms']:.3f}"
-        if row["previous_ms"] is not None:
-            text += (f", previous_ms {row['previous_ms']:.3f}, previous route "
-                     f"on the device {row['previous_device_ms']:.3f} ms")
         if row["library_device_ms"] is not None:
             text += (f", library on the device "
                      f"{row['library_device_ms']:.3f} ms")
@@ -1408,10 +1303,10 @@ class Timer:
 def time_block_runs(timer, gen, cpu_gen, dev, small_counts):
     """K2 as the models call it: per stage one run of all its blocks in one C
     call, by events; consecutive launches overlapped (programmatic dependent
-    launch, the plan's default), not overlapped (the same plan without the
-    launch attribute), and the previous route, in turn; the plan must have
-    passed its comparison at this shape. The sums go to the rows as
-    ``runs_ms`` and ``previous_runs_ms``."""
+    launch, the plan's default) and not overlapped (the same plan without
+    the launch attribute), in turn; the plan must have passed its
+    comparison at this shape. The overlapped sum goes to the row as
+    ``runs_ms``."""
     from rubiksnet_torch.ops.fused_block import fused_block_kernel
     from rubiksnet_torch.utils import cuda_time_ms
     from rubiksnet_torch.utils import fused_block_probe as probe
@@ -1422,7 +1317,7 @@ def time_block_runs(timer, gen, cpu_gen, dev, small_counts):
     for kind, tag, aq, se in (("fused_block", "K2", False, False),
                               ("fused_block_aq", "K2-AQ", True, False),
                               ("fused_block_se", "K2-SE", False, True)):
-        sums = {"overlapped": 0.0, "not overlapped": 0.0, "previous": 0.0}
+        sums = {"overlapped": 0.0, "not overlapped": 0.0}
         for h, c, count in BLOCK_SHAPES:
             blocks = small_counts[h] if se else count
             vt, wm, sep = probe.make_run(c, blocks, aq, se, bf, k, "frac",
@@ -1431,15 +1326,13 @@ def time_block_runs(timer, gen, cpu_gen, dev, small_counts):
             plan = checked_plan(x.shape, aq, se, dev)
             text = f"  {tag} {h}x{h}x{c} run of {blocks}:"
             for label, kw in (("overlapped", {}),
-                              ("not overlapped", {"overlap": False}),
-                              ("previous", {"route": "simt"})):
+                              ("not overlapped", {"overlap": False})):
                 ms = cuda_time_ms(lambda: fused_block_kernel(
                     x, vt, wm, sep, aq=aq, max_shift=k, **kw), iters=10)
                 sums[label] += ms
                 text += f" {label} {ms:.4f} ms,"
             print(f"{text} plan: {plan.describe()}")
         timer.rows[kind]["runs_ms"] = sums["overlapped"]
-        timer.rows[kind]["previous_runs_ms"] = sums["previous"]
         print(f"  {tag} per forward, as runs: " + ", ".join(
             f"{label} {ms:.3f} ms" for label, ms in sums.items()))
 
@@ -1495,16 +1388,12 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
     for h, c, count in BLOCK_SHAPES:
         x = randn((nb, FRAMES, h, h, c), bf, gen, dev)
         shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
-        # One call of the staged K1 is one device kernel; the previous
-        # route's device time is that of all its kernels (the shift's two
-        # casts).
+        # One call of the staged K1 is one device kernel.
         timer.add("shift3d", f"K1 {h}x{h}x{c} stride 1", count,
                   lambda: shift3d_kernel(x, shift),
                   lambda: shift3d_plain(x, shift),
                   shift_work(x.numel(), x.numel(), 2, 8), bf,
-                  library_shift(x, shift, 1),
-                  lambda: shift3d_kernel(x, shift, route="previous"),
-                  previous="shift3d.cu's first form")
+                  library_shift(x, shift, 1), device=True)
         blocks = {}
         for aq, se in ((False, False), (True, False), (False, True)):
             blk = random_block(c, c, 1, False, cpu_gen, dev,
@@ -1527,11 +1416,8 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                       run(fused_block_plain, aq, se),
                       block_work(nb, h, c, 2, rows_aq if aq else rows3, aq,
                                  se), bf,
-                      previous_fn=run(functools.partial(
-                          fused_block_kernel, route="simt"), aq, se),
                       kernels_per_call=3 if se else 2,
-                      previous="the SIMT GEMM of common.cuh",
-                      note=f"; plan: {plan.describe()}")
+                      note=f"; plan: {plan.describe()}", device=True)
     time_block_runs(timer, gen, cpu_gen, dev, small_counts)
     for h, cin, cm in ENTRY_SHAPES:
         xm = randn((nb, FRAMES, h, h, cm), bf, gen, dev)
@@ -1540,10 +1426,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_kernel(xm, shift, (1, 2, 2)),
                   lambda: shift3d_plain(xm, shift, (1, 2, 2)),
                   shift_work(xm.numel() // 4, xm.numel(), 2, 8), bf,
-                  library_shift(xm, shift, 2),
-                  lambda: shift3d_kernel(xm, shift, (1, 2, 2),
-                                         route="previous"),
-                  previous="shift3d.cu's first form")
+                  library_shift(xm, shift, 2), device=True)
         x = randn((nb, FRAMES, h, h, cin), bf, gen, dev)
         for kind, tag, se in (("fused_entry", "K3", False),
                               ("fused_entry_se", "K3-SE", True)):
@@ -1558,11 +1441,9 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
             timer.add(kind, f"{tag} {h}x{h}x{cin}->{cm}", 1, new,
                       lambda: fused_entry_plain(x, params, sep, max_shift=k),
                       entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, se), bf,
-                      previous_fn=lambda: fused_entry_kernel(
-                          x, params, sep, max_shift=k, route="simt"),
                       kernels_per_call=2 + (plan.g is not None) + se,
-                      previous="the SIMT GEMM of common.cuh",
-                      note=f"; {entry_parts(new)}; plan: {plan.describe()}")
+                      note=f"; {entry_parts(new)}; plan: {plan.describe()}",
+                      device=True)
         # K3-AQ beside what it replaced on the main path: the block's module
         # path (bn1, the attention shift, the 1x1 convs, the 2D shift
         # kernel) is its "plain" time.
@@ -1579,11 +1460,9 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         timer.add("fused_entry_aq", f"K3-AQ {h}x{h}x{cin}->{cm} (plain: the "
                   f"block's module path)", 1, new, module_path,
                   entry_work(nb, h, cin, cm, 2, 2 + 3 * 3, aq=True), bf,
-                  previous_fn=lambda: fused_entry_kernel(
-                      x, params_aq, max_shift=k, aq=True, route="simt"),
                   kernels_per_call=2 + (plan.g is not None),
-                  previous="the SIMT GEMM of common.cuh",
-                  note=f"; {entry_parts(new)}; plan: {plan.describe()}")
+                  note=f"; {entry_parts(new)}; plan: {plan.describe()}",
+                  device=True)
     # The shifts' backward kernels, summed over one train step's calls (one
     # input gradient and one shift gradient per shift), and the 2D shift
     # (Large-AQ: 51 per unfused forward and per train step).
@@ -1598,8 +1477,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
         # One call of the staged input gradient is one device kernel, one of
         # the staged shift gradient two (its partials, their sum): the
-        # profiler holds them to that. The previous route's device time is
-        # that of all its kernels (the shift's two casts, K4's sum pass).
+        # profiler holds them to that.
         timer.add("shift3d_inverse", f"K1-inverse {h}x{h}x{c} stride {s}",
                   count,
                   lambda: shift3d_input_grad_kernel(og, shift, x_shape,
@@ -1607,18 +1485,12 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
                   lambda: shift3d_input_grad_plain(og, shift, x_shape,
                                                    stride),
                   shift_work(x.numel(), og.numel(), 2, 8), bf,
-                  library_shift(og, shift, s, inverse=True),
-                  lambda: shift3d_input_grad_kernel(og, shift, x_shape,
-                                                    stride,
-                                                    route="previous"),
-                  previous="shift3d.cu's first form")
+                  library_shift(og, shift, s, inverse=True), device=True)
         timer.add("shift_grad", f"K4 {h}x{h}x{c} stride {s}", count,
                   lambda: shift3d_shift_grad_kernel(og, x, shift, stride),
                   lambda: shift3d_shift_grad_plain(og, x, shift, stride),
                   shift_grad_work(og.numel(), x.numel(), 2), bf,
-                  previous_fn=lambda: shift3d_shift_grad_kernel(
-                      og, x, shift, stride, route="previous"),
-                  kernels_per_call=2, previous="shift_grad.cu's first form")
+                  kernels_per_call=2, device=True)
         x4 = x.reshape((-1,) + x_shape[2:])
         og4 = og.reshape((-1,) + tuple(og.shape[2:]))
         shift2 = shift[1:].contiguous()
@@ -1685,15 +1557,13 @@ def se_partial_pairs(plan, shape):
 def time_gate(timer, gen, cpu_gen, dev):
     """The SE gate per SE block of Small at batch TIME_BATCH, bf16, and
     summed over one Small forward (the se_gate row): device ms by the
-    profiler, launches not overlapped, of the gate launch, of launch A with
-    the gate's sums and without them (what the sums add to it), and of the
-    previous route's two gate launches (se_gate.cuh) in the same call; the
+    profiler, launches not overlapped, of the gate launch and of launch A
+    with the gate's sums and without them (what the sums add to it); the
     plain gate of the same mid (se_gate of its shift) by events. The row's
-    time is the gate launch plus what the sums add to launch A, the same
-    function as the previous route's pass over mid and gate launch. Bound:
-    the partials launch A writes, fc1, fc2 and the T taps read once and the
+    time is the gate launch plus what the sums add to launch A. Bound: the
+    partials launch A writes, fc1, fc2 and the T taps read once and the
     gate written; one multiply-add per element of mid, the fc products and
-    the taps (the previous route's: one read of mid)."""
+    the taps."""
     from rubiksnet_torch.ops import fused_block as fb
     from rubiksnet_torch.ops import fused_entry as fe
     from rubiksnet_torch.utils import cuda_time_ms
@@ -1707,8 +1577,7 @@ def time_gate(timer, gen, cpu_gen, dev):
     cases = ([("K2-SE", h, c, c, small_counts[h])
               for h, c, _ in SMALL_BLOCK_SHAPES]
              + [("K3-SE", h, cin, cm, 1) for h, cin, cm in ENTRY_SHAPES])
-    tot = dict.fromkeys(("new", "added", "old", "plain", "bytes", "ops",
-                         "old_bytes"), 0.0)
+    tot = dict.fromkeys(("new", "added", "plain", "bytes", "ops"), 0.0)
     for tag, h, cin, cm, count in cases:
         scratch = {}
         if tag == "K2-SE":
@@ -1717,10 +1586,9 @@ def time_gate(timer, gen, cpu_gen, dev):
             x = randn((nb, FRAMES, h, h, cm), bf, gen, dev)
             plan = checked_plan(x.shape, False, True, dev)
 
-            def call(route=None, se=sep):
+            def call(se=sep):
                 return fb.fused_block_kernel(x, vt, wm, se, max_shift=k,
-                                             route=route, overlap=False,
-                                             scratch=scratch)
+                                             overlap=False, scratch=scratch)
             taps, se1, stride = vt[0, 4:], sep[0], 1
             a_se, a_bare = "rubiks_tc_kernel<5>", "rubiks_tc_kernel<0>"
         else:
@@ -1729,10 +1597,9 @@ def time_gate(timer, gen, cpu_gen, dev):
             x = randn((nb, FRAMES, h, h, cin), bf, gen, dev)
             plan = checked_entry_plan(x.shape, cm, True, dev).a
 
-            def call(route=None, se=sep):
+            def call(se=sep):
                 return fe.fused_entry_kernel(x, params, se, max_shift=k,
-                                             route=route, overlap=False,
-                                             scratch=scratch)
+                                             overlap=False, scratch=scratch)
             taps, se1, stride = params[1][2:], sep, 2
             a_se = "rubiks_entry_tc_kernel<7>"
             a_bare = "rubiks_entry_tc_kernel<3>"
@@ -1741,10 +1608,6 @@ def time_gate(timer, gen, cpu_gen, dev):
         added = (profiled_ms(call, a_se, f"{label} A with sums")[0]
                  - profiled_ms(lambda: call(se=None), a_bare,
                                f"{label} A")[0])
-        old = (profiled_ms(lambda: call("simt"), "se_partial_kernel",
-                           f"{label} previous pass")[0]
-               + profiled_ms(lambda: call("simt"), "se_gate_kernel",
-                             f"{label} previous gate")[0])
         call()
         mid = scratch["mid"]
         plain = cuda_time_ms(lambda: fb.se_gate(fb.tap_shift(
@@ -1756,32 +1619,27 @@ def time_gate(timer, gen, cpu_gen, dev):
                       + frames * cm)
         ops = (2 * mid.numel() + pairs * cm
                + frames * (4 * cm * cr + 4 * cm))
-        for key, v in (("new", new), ("added", added), ("old", old),
-                       ("plain", plain), ("bytes", nbytes), ("ops", ops),
-                       ("old_bytes", mid.numel() * 2)):
+        for key, v in (("new", new), ("added", added), ("plain", plain),
+                       ("bytes", nbytes), ("ops", ops)):
             tot[key] += count * v
         bound = max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_F32)
         print(f"  {label} (x{count} per Small forward): gate launch {new:.4f}"
               f" ms, launch A with the sums {added:+.4f} ms against without;"
-              f" previous route's two launches {old:.4f} ms; plain "
-              f"{plain:.4f} ms; bound {bound:.4f} ms, previous route's "
-              f"{1e3 * mid.numel() * 2 / HBM_BYTES_PER_S:.4f}; plan "
+              f" plain {plain:.4f} ms; bound {bound:.4f} ms; plan "
               f"{plan.describe()}")
     # Every time of this row is the device's (the gate launches inside K2's
     # and K3's calls, so events cannot time them apart).
     row = timer.rows["se_gate"]
     whole = tot["new"] + tot["added"]
     row.update(ms=whole, plain_ms=tot["plain"], device_ms=whole,
-               previous_ms=tot["old"], previous_device_ms=tot["old"],
                bytes_ms=1e3 * tot["bytes"] / HBM_BYTES_PER_S,
                ops_ms=1e3 * tot["ops"] / PEAK_F32)
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
     row["launch_a_added_ms"] = tot["added"]
     print(f"  SE gate over Small's 17 SE blocks: gate launches "
           f"{tot['new']:.4f} ms + launch A's sums {tot['added']:.4f} ms = "
-          f"{whole:.4f} ms; previous route {tot['old']:.4f} ms (bound "
-          f"{1e3 * tot['old_bytes'] / HBM_BYTES_PER_S:.4f}); bound "
-          f"{row['bound_ms']:.4f} ms (bytes {row['bytes_ms']:.4f}, "
+          f"{whole:.4f} ms; bound {row['bound_ms']:.4f} ms (bytes "
+          f"{row['bytes_ms']:.4f}, "
           f"operations {row['ops_ms']:.4f}); plain {tot['plain']:.4f} ms")
 
 
@@ -2095,23 +1953,22 @@ def check_loader(dev, name, smi):
         origins = loader_origins(sizes, crops)
         ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
                                    group=LOADER_COPIES)
-        for route in dl.ROUTES:
-            got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
-                                 group=LOADER_COPIES, route=route)
-            again = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
-                                   group=LOADER_COPIES, route=route)
-            torch.cuda.synchronize()
-            same = torch.equal(got, ref) and torch.equal(got, again)
-            worst = int((got.int() - ref.int()).abs().max())
-            print(f"  (b) resize_crop_u8 ({route}) vs plain_resize_crop, "
-                  f"{crops} crop{'s' if crops > 1 else ''} a frame, "
-                  f"{len(blobs)} frames of {len(LOADER_FRAMES)} sizes in one "
-                  f"launch, scale {EVAL_SCALE}, crop {SIZE}: max |diff| "
-                  f"{worst}, {'bit-identical' if same else 'DIFFER'} (rerun "
-                  f"included)")
-            if not same:
-                fail(f"resize_crop_u8 ({route}) differs from its plain "
-                     f"version ({crops} crops)")
+        got = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                             group=LOADER_COPIES)
+        again = dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                               group=LOADER_COPIES)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref) and torch.equal(got, again)
+        worst = int((got.int() - ref.int()).abs().max())
+        print(f"  (b) resize_crop_u8 vs plain_resize_crop, "
+              f"{crops} crop{'s' if crops > 1 else ''} a frame, "
+              f"{len(blobs)} frames of {len(LOADER_FRAMES)} sizes in one "
+              f"launch, scale {EVAL_SCALE}, crop {SIZE}: max |diff| "
+              f"{worst}, {'bit-identical' if same else 'DIFFER'} (rerun "
+              f"included)")
+        if not same:
+            fail(f"resize_crop_u8 differs from its plain version ({crops} "
+                 f"crops)")
     return 0
 
 
@@ -2120,15 +1977,15 @@ def time_loader_kernel(dev, launches, name, smi):
     ``resize_crop_probe.SHAPES`` (the evaluator's 1-clip batch of 427x240
     frames, resized to 455x256: the row's own keys; of its 340x256 frames,
     only cropped: copy_*; its 2-clip batch of 427x240, 3 crops a frame:
-    clip2_*), random frames packed as the decoder packs them: both routes
-    held to plain bit for bit, then the staged kernel by events around the
+    clip2_*), random frames packed as the decoder packs them: the staged
+    kernel held to plain bit for bit, then timed by events around the
     wrapper's calls (its host work included) and its launch alone
     (``resize_crop_launch``) on the device by the profiler
-    (``device_ms_by`` says where events stood in), the previous route the
-    same way (previous_*), the plain version, the bound, and the
-    library's version (``resize_crop_probe.library_version``:
-    F.interpolate with antialias, or the sliced copy) by events and on the
-    device, with its largest difference to the kernel (informational)."""
+    (``device_ms_by`` says where events stood in), the plain version, the
+    bound, and the library's version (``resize_crop_probe.
+    library_version``: F.interpolate with antialias, or the sliced copy)
+    by events and on the device, with its largest difference to the kernel
+    (informational)."""
     from rubiksnet_torch.data import device_loader as dl
     from rubiksnet_torch.utils import cuda_time_ms
     from rubiksnet_torch.utils.resize_crop_probe import (
@@ -2147,24 +2004,20 @@ def time_loader_kernel(dev, launches, name, smi):
         rgb, sizes, origins = batch(dev, w, h, frames, crops)
         ref = dl.plain_resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
                                    group)
-        timed = {}
-        for route in dl.ROUTES:
-            def kernel(route=route):
-                return dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
-                                      group, route=route)
 
-            if not torch.equal(kernel(), ref):
-                fail(f"resize_crop_u8 ({route}) differs from plain at "
-                     f"{label}")
-            ms = cuda_time_ms(kernel)
-            # The kernel alone: its launch, the wrapper's work done once.
-            launch, _ = dl.resize_crop_launch(rgb, sizes, EVAL_SCALE, SIZE,
-                                              origins, group, route=route)
-            dev_ms, seen = profiled_ms(launch, "resize_crop_u8",
-                                       f"resize_crop_u8 {route} {label}",
-                                       expect=1)
-            timed[route] = (ms, dev_ms,
-                            "profiler" if seen is not None else "events")
+        def kernel():
+            return dl.resize_crop(rgb, sizes, EVAL_SCALE, SIZE, origins,
+                                  group)
+
+        if not torch.equal(kernel(), ref):
+            fail(f"resize_crop_u8 differs from plain at {label}")
+        ms = cuda_time_ms(kernel)
+        # The kernel alone: its launch, the wrapper's work done once.
+        launch, _ = dl.resize_crop_launch(rgb, sizes, EVAL_SCALE, SIZE,
+                                          origins, group)
+        dev_ms, seen = profiled_ms(launch, "resize_crop_u8",
+                                   f"resize_crop_u8 {label}", expect=1)
+        by = "profiler" if seen is not None else "events"
         plain_ms = cuda_time_ms(lambda: dl.plain_resize_crop(
             rgb, sizes, EVAL_SCALE, SIZE, origins, group), iters=2,
             warmup=1)
@@ -2182,14 +2035,9 @@ def time_loader_kernel(dev, launches, name, smi):
         tb, to = resize_crop_bound_ms(resize_crop_work(
             sizes, EVAL_SCALE, SIZE, origins))
         bound = max(tb, to)
-        (ms, dev_ms, by), (p_ms, p_dev_ms, p_by) = (timed["staged"],
-                                                    timed["previous"])
         lib_by = "profiler" if lib_seen is not None else "events"
         row.update({f"{key}ms": ms, f"{key}device_ms": dev_ms,
                     f"{key}device_ms_by": by,
-                    f"{key}previous_ms": p_ms,
-                    f"{key}previous_device_ms": p_dev_ms,
-                    f"{key}previous_device_ms_by": p_by,
                     f"{key}plain_ms": plain_ms,
                     f"{key}bound_ms": bound,
                     f"{key}bound_by": "bytes" if tb >= to else "operations",
@@ -2206,10 +2054,9 @@ def time_loader_kernel(dev, launches, name, smi):
               f"{EVAL_SCALE}, crop {SIZE}: staged {dev_ms:.4f} ms on the "
               f"device (by the {by}; {bound / dev_ms:.1%} of the bound), "
               f"{ms:.4f} ms by events around the wrapper's calls (its host "
-              f"work included); previous {p_dev_ms:.4f} ms on the device (by "
-              f"the {p_by}), {p_ms:.4f} ms by events; plain {plain_ms:.4f} "
-              f"ms; library ({what}) {lib_dev_ms:.4f} ms on the device (by "
-              f"the {lib_by}), {lib_ms:.4f} ms by events, max |diff| to the "
+              f"work included); plain {plain_ms:.4f} ms; library ({what}) "
+              f"{lib_dev_ms:.4f} ms on the device (by the {lib_by}), "
+              f"{lib_ms:.4f} ms by events, max |diff| to the "
               f"kernel {lib_diff} (informational); bound {bound:.4f} ms "
               f"({'bytes' if tb >= to else 'operations'}; bytes {tb:.4f}, "
               f"float64 operations {to:.4f}) ({name}, {smi})")
@@ -3998,10 +3845,10 @@ def measurement_phase(errs, gen, cpu_gen, dev, name, smi):
         "--stages", stage, "--batch", str(MICRO_BATCH), "--rounds", "2"])
     if line["device"] != name:
         fail(f"shift_microbench: device {line['device']!r}, not {name!r}")
-    want = {"fwd": {"kernel", "previous", "plain", "library"},
-            "bwd": {"kernel", "previous", "plain"},
-            "input_grad": {"kernel", "previous", "plain", "library"},
-            "shift_grad": {"kernel", "previous", "plain"}}
+    want = {"fwd": {"kernel", "plain", "library"},
+            "bwd": {"kernel", "plain"},
+            "input_grad": {"kernel", "plain", "library"},
+            "shift_grad": {"kernel", "plain"}}
     for mode, routes in want.items():
         cell = line["cases"][stage][mode]
         if set(cell["routes"]) != routes:
@@ -4272,12 +4119,8 @@ def main() -> int:
             "library_ms": row["library_ms"]})
         if row["device_ms"] is not None:
             kernels[-1].update(device_ms=row["device_ms"])
-        if row["previous_ms"] is not None:
-            kernels[-1].update(previous_ms=row["previous_ms"],
-                               previous_device_ms=row["previous_device_ms"])
         if "runs_ms" in row:
-            kernels[-1].update(runs_ms=row["runs_ms"],
-                               previous_runs_ms=row["previous_runs_ms"])
+            kernels[-1].update(runs_ms=row["runs_ms"])
         if "launch_a_added_ms" in row:
             kernels[-1].update(launch_a_added_ms=row["launch_a_added_ms"])
         if k in exported_launches:

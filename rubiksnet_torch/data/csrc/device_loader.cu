@@ -30,25 +30,19 @@
 //     floats, plus 0.5, truncated and clamped. Every product and sum is
 //     spelled with __dmul_rn / __dadd_rn, so no multiply-add is contracted
 //     into an FMA (g++ on x86-64 rounds each step); the file is also built
-//     with -fmad=false. Two kernels:
-//       - resize_crop_u8_staged (the default route): a block a band of
-//         output rows of one crop (a launch plan in device_loader.py,
-//         resize_crop_plan). A resized frame's block stages its column and
-//         row taps, then the source rows its taps reach (only the columns
-//         the crop's taps reach, as the aligned 16-byte words that cover
-//         them, by cp.async), computes the horizontal pass once per staged
-//         row, column and channel into floats in shared memory (the float
-//         resize_rgb keeps between its passes, so sharing it across output
-//         rows is exact), then the vertical pass, four output bytes a
-//         thread. A block walks a run of bands: its taps are staged once,
-//         and the next band's source rows are copied in while this band
-//         computes. A frame only cropped is copied: 16-byte stores, each
-//         from the two aligned 16-byte loads that cover it, shifted into
-//         place.
-//       - resize_crop_u8_kernel (route "previous", the first form): a block
-//         a row of an output crop, a thread an output byte, its taps read
-//         from device memory and its source bytes through L1, the
-//         horizontal pass recomputed for each vertical tap.
+//     with -fmad=false. The kernel, resize_crop_u8_staged: a block a band
+//     of output rows of one crop (a launch plan in device_loader.py,
+//     resize_crop_plan). A resized frame's block stages its column and row
+//     taps, then the source rows its taps reach (only the columns the
+//     crop's taps reach, as the aligned 16-byte words that cover them, by
+//     cp.async), computes the horizontal pass once per staged row, column
+//     and channel into floats in shared memory (the float resize_rgb keeps
+//     between its passes, so sharing it across output rows is exact), then
+//     the vertical pass, four output bytes a thread. A block walks a run of
+//     bands: its taps are staged once, and the next band's source rows are
+//     copied in while this band computes. A frame only cropped is copied:
+//     16-byte stores, each from the two aligned 16-byte loads that cover
+//     it, shifted into place.
 //
 // Bound: bytes at the evaluator's shapes (each source byte the crops reach
 // read once, each output byte written once). Copying, the staged kernel
@@ -139,67 +133,6 @@ int decode_batched(Route* route, const std::vector<int>& idx,
   return 0;
 }
 
-// Per frame: where its RGB starts in the decode buffer, its decoded size,
-// its resized size, and where its coefficients are (cx, cy: rows of the
-// (lo, count) table; wx, wy: first weight; kx, ky: weights a row). cx < 0:
-// no resize (the shorter side already equals the scale, or scale 0).
-struct FrameDesc {
-  long long src_off;
-  int w, h, rw, rh;
-  int cx, cy, wx, wy, kx, ky;
-};
-static_assert(sizeof(FrameDesc) == 48, "FrameDesc layout is fixed by "
-              "device_loader.py");
-
-// Block (y, o) writes row y of output crop o = (g * k + kc) * group + f:
-// group g's frames are crop-major (crop kc of all its `group` frames, then
-// crop kc + 1), frame g * group + f of the batch; its threads walk the
-// row's crop * 3 bytes, one channel-pixel each, in 32-bit index math.
-__global__ void resize_crop_u8_kernel(
-    const uint8_t* __restrict__ src, const FrameDesc* __restrict__ frames,
-    const int* __restrict__ origins, const int* __restrict__ taps,
-    const double* __restrict__ weights, int k, int group, int crop,
-    uint8_t* __restrict__ out) {
-  const int y = blockIdx.x;
-  const int o = blockIdx.y;
-  const int r = o % (k * group);
-  const int kc = r / group;
-  const int i = (o / (k * group)) * group + r % group;
-  const FrameDesc d = frames[i];
-  const int ox = origins[(i * k + kc) * 2];
-  const int fy = origins[(i * k + kc) * 2 + 1] + y;
-  const uint8_t* s = src + d.src_off;
-  uint8_t* dst = out + (static_cast<long long>(o) * crop + y) * crop * 3;
-  const int ylo = d.cx < 0 ? 0 : taps[2 * (d.cy + fy)];
-  const int yn = d.cx < 0 ? 0 : taps[2 * (d.cy + fy) + 1];
-  const double* ky = weights + d.wy + static_cast<long long>(fy) * d.ky;
-  for (int e = threadIdx.x; e < crop * 3; e += blockDim.x) {
-    const int ch = e % 3;
-    const int fx = ox + e / 3;
-    int v;
-    if (d.cx < 0) {
-      v = s[(static_cast<long long>(fy) * d.w + fx) * 3 + ch];
-    } else {
-      const int xlo = taps[2 * (d.cx + fx)], xn = taps[2 * (d.cx + fx) + 1];
-      const double* kx = weights + d.wx + static_cast<long long>(fx) * d.kx;
-      double acc = 0.0;
-      for (int a = 0; a < yn; ++a) {
-        const uint8_t* row =
-            s + (static_cast<long long>(ylo + a) * d.w + xlo) * 3 + ch;
-        double hsum = 0.0;  // resize_rgb's horizontal pass at (ylo + a, fx)
-        for (int b = 0; b < xn; ++b)
-          hsum = __dadd_rn(hsum, __dmul_rn(kx[b],
-                                           static_cast<double>(row[b * 3])));
-        const float t = __double2float_rn(hsum);
-        acc = __dadd_rn(acc, __dmul_rn(ky[a], static_cast<double>(t)));
-      }
-      v = __double2int_rz(__dadd_rn(acc, 0.5));
-      v = v < 0 ? 0 : (v > 255 ? 255 : v);
-    }
-    dst[e] = static_cast<uint8_t>(v);
-  }
-}
-
 // ------------------------------------------------------- the staged route
 
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block can use
@@ -207,7 +140,7 @@ constexpr int kPlanLen = 20;      // ints of a plan (device_loader.py)
 constexpr int kMaxThreads = 512;  // threads a block, at most (two an SM)
 constexpr double kTwo52 = 4503599627370496.0;
 
-// Per frame of the staged route: its RGB, and for a resized frame its axis
+// Per frame: its RGB, and for a resized frame its axis
 // tables on the card (a (first tap, count) pair and kx or ky weights an
 // output column or row). xt null: the frame is only cropped.
 struct StagedFrame {
@@ -311,8 +244,9 @@ __device__ void copy_band(const uint8_t* s, int w, int fx, int fy, int rows,
 }
 
 // Block (run * tiles + tile, o): a run of `run` bands of `rows` output rows
-// and columns [tile * tile_w, +tile_w) of output crop o (o as in the
-// previous kernel: group-major, crop-major inside a group). Its taps are
+// and columns [tile * tile_w, +tile_w) of output crop o = (g * k + kc) *
+// group + f: group g's frames are crop-major (crop kc of all its `group`
+// frames, then crop kc + 1), frame g * group + f of the batch. Its taps are
 // staged once; the source rows of band j + 1 are copied in (cp.async, two
 // buffers) while band j computes.
 __global__ void __launch_bounds__(kMaxThreads, 2) resize_crop_u8_staged(
@@ -561,32 +495,12 @@ int rdl_decode(void* state, const unsigned char* const* data,
   return static_cast<int>(cudaGetLastError());
 }
 
-// resize_crop_u8 over n frames (FrameDesc each, device), k crops a frame
-// (origins: n x k x (x, y), device, in resized coordinates), frames grouped
-// `group` at a time (crop-major inside a group), into out (device, n * k x
-// crop x crop x 3), on `stream`: one block a row of an output crop, so at
-// most 65535 output crops a launch.
-int rdl_resize_crop_u8(const void* src, const void* frames,
-                       const void* origins, const void* taps,
-                       const void* weights, int n, int k, int group,
-                       int crop, void* out, void* stream) {
-  if (n == 0 || k == 0 || crop == 0) return 0;
-  if (static_cast<long long>(n) * k > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(crop, n * k);
-  resize_crop_u8_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src),
-      static_cast<const FrameDesc*>(frames),
-      static_cast<const int*>(origins), static_cast<const int*>(taps),
-      static_cast<const double*>(weights), k, group, crop,
-      static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // resize_crop_u8_staged over n frames (StagedFrame each, device), k crops
-// a frame (origins as above), in groups of `group`, into out, under `plan`
-// (host, kPlanLen ints: StagedPlan's fields, then the dynamic shared
-// memory in bytes), on `stream`: a grid of runs x tiles blocks a crop,
-// at most 65535 output crops a launch.
+// a frame (origins: n x k x (x, y), device, in resized coordinates), frames
+// grouped `group` at a time (crop-major inside a group), into out (device,
+// n * k x crop x crop x 3), under `plan` (host, kPlanLen ints: StagedPlan's
+// fields, then the dynamic shared memory in bytes), on `stream`: a grid of
+// runs x tiles blocks a crop, at most 65535 output crops a launch.
 int rdl_resize_crop_staged(const void* src, const void* frames,
                            const void* origins, int n, int k, int group,
                            int crop, const int* plan, int plan_len,

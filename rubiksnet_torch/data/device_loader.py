@@ -7,16 +7,16 @@ batch of JPEG byte strings into one device buffer of interleaved RGB) and
 one hand-written kernel, ``resize_crop_u8``: the shorter-side triangle
 resize (PIL's BILINEAR, the C++ loader's ``resize_rgb``) and the crop of a
 batch of frames, 1 or 3 crops a frame, to uint8 channel-last on the card,
-bit for bit the C++ loader's on the same RGB. Its default route is the
-staged kernel (:func:`resize_crop_plan`: a block a band of rows of a crop,
-the source rows and the horizontal pass in shared memory, a copy route for
-frames only cropped; the coefficient tables kept on the card, the batch's
-few bytes through reused pinned buffers); ``route="previous"`` keeps the
-first kernel callable for timing beside it.
+bit for bit the C++ loader's on the same RGB. The kernel is staged
+(:func:`resize_crop_plan`: a block a band of rows of a crop, the source rows
+and the horizontal pass in shared memory, a copy route for frames only
+cropped; the coefficient tables kept on the card, the batch's few bytes
+through reused pinned buffers).
 
 The library is built with ``nvcc`` (``sm_90a``, ``-lnvjpeg``) at first use
-into the git-ignored ``rubiksnet_torch/build/``, keyed by a digest of the
-source and flags, and loaded with ``ctypes``; it is a library of its own,
+by the port's one builder (``ops/_build.py``) into the git-ignored
+``rubiksnet_torch/build/``, keyed by a digest of the source and flags, and
+loaded with ``ctypes``; it is a library of its own,
 apart from the model's kernels, so a machine without nvjpeg still builds
 and runs those. A build that fails raises; nothing falls back to PIL.
 
@@ -35,13 +35,11 @@ import ctypes
 import ctypes.util
 import functools
 import glob
-import hashlib
 import io
 import json
 import math
 import os
 import site
-import subprocess
 import sys
 import threading
 from pathlib import Path
@@ -50,11 +48,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops._build import NVCC_FLAGS, _find_nvcc, stream_of
+from ..ops import _build
 from ..utils.profiling import LaunchCounter, setup_span, span
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "device_loader.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 # -fmad=false: no multiply-add contraction anywhere in the file (the kernel
 # also spells each step with __dmul_rn / __dadd_rn); the C++ loader, built
 # by g++ for x86-64, rounds every product and every sum.
@@ -120,7 +117,7 @@ def _cuda_roots():
     roots = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
              "/usr/local/cuda", *sorted(glob.glob("/usr/local/cuda-*"))]
     try:
-        roots.append(str(Path(_find_nvcc()).resolve().parent.parent))
+        roots.append(str(Path(_build._find_nvcc()).resolve().parent.parent))
     except RuntimeError:
         pass
     seen = []
@@ -176,7 +173,7 @@ def toolchain_present() -> bool:
     library), without building: the probe that decides for the device
     loader before a build is tried."""
     try:
-        _find_nvcc()
+        _build._find_nvcc()
     except RuntimeError:
         return False
     files = nvjpeg_files()
@@ -194,7 +191,7 @@ def probe() -> dict:
            "create_gpu_hybrid": None, "create_default": None,
            "hardware_engines": None}
     try:
-        out["nvcc"] = _find_nvcc()
+        out["nvcc"] = _build._find_nvcc()
     except RuntimeError as err:
         out["nvcc_error"] = str(err)
     if out["library"] is None:
@@ -234,25 +231,19 @@ def probe() -> dict:
 # ------------------------------------------------------------- the build
 
 
-def _link_flags():
-    """nvcc's include and link flags for nvjpeg: its header's directory,
-    and its library's directory as a link path and run path."""
+def _nvjpeg_flags():
+    """nvcc's flags for nvjpeg: (compile: its header's directory; link: its
+    library's directory as a link path and run path, and the library)."""
     files = nvjpeg_files()
     if not files["headers"]:
         raise RuntimeError("nvjpeg.h not found (the CUDA roots and the site "
                            "directories): the device loader cannot be built")
-    flags = [f"-I{os.path.dirname(files['headers'][0])}"]
+    link = ()
     lib = _nvjpeg_library(files)
     if lib is not None and os.path.dirname(lib):
         d = os.path.dirname(lib)
-        flags += [f"-L{d}", "-Xlinker", f"-rpath,{d}"]
-    return tuple(flags) + ("-lnvjpeg",)
-
-
-def _digest(flags) -> str:
-    h = hashlib.sha256(" ".join(flags).encode())
-    h.update(SOURCE.read_bytes())
-    return h.hexdigest()[:16]
+        link = (f"-L{d}", "-Xlinker", f"-rpath,{d}")
+    return (f"-I{os.path.dirname(files['headers'][0])}",), link + ("-lnvjpeg",)
 
 
 # C entry -> argument types (csrc/device_loader.cu, extern "C").
@@ -265,8 +256,6 @@ _SIGNATURES = {
                    ctypes.POINTER(ctypes.c_size_t), INT, INT_P,
                    ctypes.POINTER(ctypes.c_longlong), PTR, PTR, INT_P,
                    INT_P],
-    "rdl_resize_crop_u8": [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR,
-                           PTR],
     "rdl_resize_crop_staged": [PTR, PTR, PTR, INT, INT, INT, INT, INT_P, INT,
                                PTR, PTR],
 }
@@ -274,45 +263,20 @@ _SIGNATURES = {
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (once per source and flags digest) and load the device loader's
-    library, inside the span ``rubiksnet.setup.loader_library`` (attribute
-    ``built``: nvcc ran); raises RuntimeError where nvcc or nvjpeg is
-    missing or the build fails."""
+    """Build (once per source and flags digest, ``ops/_build.py``) and load
+    the device loader's library, inside the span
+    ``rubiksnet.setup.loader_library`` (attribute ``built``: nvcc ran);
+    raises RuntimeError where nvcc or nvjpeg is missing or the build
+    fails."""
     with setup_span("rubiksnet.setup.loader_library", built=False) as rec:
-        return _load_library(rec)
-
-
-def _load_library(rec) -> ctypes.CDLL:
-    nvcc = _find_nvcc()
-    flags = NVCC_FLAGS + LOADER_FLAGS + _link_flags()
-    lib_path = BUILD_DIR / f"librubiks_device_loader_{_digest(flags)}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, *LOADER_FLAGS, "-shared", "-o", str(tmp),
-             str(SOURCE), *_link_flags()],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"building the device loader failed ({proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-        rec.attrs["built"] = True
-    try:
-        lib = ctypes.CDLL(str(lib_path))
-    except OSError as e:
-        raise RuntimeError(f"loading {lib_path} failed: {e}") from e
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = INT
-    lib.rdl_destroy.argtypes = [PTR]
-    lib.rdl_destroy.restype = None
-    lib.rdl_error_string.argtypes = [INT]
-    lib.rdl_error_string.restype = ctypes.c_char_p
-    return lib
+        nvcc = _build._find_nvcc()
+        include, link = _nvjpeg_flags()
+        lib, rec.attrs["built"] = _build.build_library(
+            "rubiks_device_loader", nvcc, [SOURCE],
+            flags=_build.NVCC_FLAGS + LOADER_FLAGS + include, link_flags=link)
+        _build.bind(lib, _SIGNATURES)
+        _build.bind(lib, {"rdl_destroy": [PTR]}, None)
+        return _build.bind(lib, {"rdl_error_string": [INT]}, ctypes.c_char_p)
 
 
 def _check(code: int, name: str) -> None:
@@ -418,7 +382,7 @@ class Decoder:
                 self.buffer = torch.empty(max(total, 1), dtype=torch.uint8,
                                           device=self.device)
             if stream is None:
-                stream = stream_of(self.buffer)
+                stream = _build.stream_of(self.buffer)
             data, lens = self._arrays(blobs)
             hw, rest = ctypes.c_int(0), ctypes.c_int(0)
             _check(self.lib.rdl_decode(
@@ -649,64 +613,9 @@ def plain_resize_crop(rgb, sizes, scale_size, crop_size, origins,
     return out
 
 
-# ------------------------------- resize and crop: the first kernel's tables
-
-MAX_OUTPUT_CROPS = 65535  # both kernels' grids: the output crops along y
-FRAME_DESC = np.dtype([
-    ("src_off", "<i8"), ("w", "<i4"), ("h", "<i4"), ("rw", "<i4"),
-    ("rh", "<i4"), ("cx", "<i4"), ("cy", "<i4"), ("wx", "<i4"),
-    ("wy", "<i4"), ("kx", "<i4"), ("ky", "<i4")])  # device_loader.cu
-
-
-def kernel_tables(sizes, resized, origins, scale_size):
-    """The kernel's inputs besides the pixels, as one byte buffer: the
-    frames' descriptors (``FRAME_DESC``), their crop origins (int32), the
-    (first tap, count) rows of every axis the batch resizes (int32) and
-    their weights (float64), each coefficient table once a batch. ->
-    (bytes as uint8, the four sections' byte offsets)."""
-    n = len(sizes)
-    desc = np.zeros(n, FRAME_DESC)
-    desc["src_off"] = sizes[:, 2]
-    desc["w"], desc["h"] = sizes[:, 0], sizes[:, 1]
-    desc["rw"], desc["rh"] = resized[:, 0], resized[:, 1]
-    desc["cx"] = desc["cy"] = -1
-    taps, weights, where = [], [], {}
-    rows = nweights = 0
-    shapes, inverse = _shape_groups(sizes)
-    for j, (w, h) in enumerate(shapes.tolist()):
-        if not resizes(w, h, scale_size):
-            continue
-        rw, rh = resized_size(w, h, scale_size)
-        mask = inverse == j
-        for axis, key in (("x", (w, rw)), ("y", (h, rh))):
-            if key not in where:
-                co = triangle_coeffs(*key)
-                where[key] = (rows, nweights, co.ksize)
-                taps.append(np.stack([co.lo, co.counts], 1))
-                weights.append(co.weights.reshape(-1))
-                rows += len(co.lo)
-                nweights += co.weights.size
-            for field, value in zip("cwk", where[key]):
-                desc[field + axis][mask] = value
-    parts = [desc.view(np.uint8), origins.astype(np.int32).view(np.uint8)
-             .reshape(-1),
-             np.concatenate(taps).astype(np.int32).view(np.uint8).reshape(-1)
-             if taps else np.zeros(0, np.uint8),
-             np.concatenate(weights).view(np.uint8) if weights
-             else np.zeros(0, np.uint8)]
-    offsets, pos = [], 0
-    for p in parts:
-        offsets.append(pos)
-        pos += -(-p.size // 8) * 8
-    buf = np.zeros(max(pos, 8), np.uint8)
-    for p, o in zip(parts, offsets):
-        buf[o:o + p.size] = p
-    return buf, offsets
-
-
 # ------------------------------------- resize and crop: the staged kernel
 
-ROUTES = ("staged", "previous")  # resize_crop's kernels, the default first
+MAX_OUTPUT_CROPS = 65535  # the kernel's grid: the output crops along y
 
 # resize_crop_plan's knobs (read off ``utils/resize_crop_probe.py
 # --sweep``): output rows a band of a resized frame, bands a block walks,
@@ -966,7 +875,7 @@ def to_device(payload: np.ndarray, device) -> torch.Tensor:
 
 
 def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
-                out=None, route="staged"):
+                out=None):
     """Shorter-side resize to ``scale_size`` and crop of a batch of decoded
     frames (``rgb``, ``sizes`` as :func:`decode_batch` gives them), ``k``
     crops a frame: ``origins`` (n, k, 2) (x, y) in resized coordinates (-1
@@ -974,18 +883,14 @@ def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
     ``out`` when given; frames in groups of ``group`` (default all n), each
     group crop-major: crop 0 of its frames, then crop 1, ... (a group of a
     video's frames gives ``rl_load_frames_mc_u8``'s order). On the card one
-    launch of ``resize_crop_u8`` (:func:`resize_crop_launch`): ``route``
-    "staged" (the default) or "previous" (the first kernel, a block a row
-    of a crop); on the CPU :func:`plain_resize_crop`."""
-    if route not in ROUTES:
-        raise ValueError(f"resize_crop: route {route!r}, not one of "
-                         f"{ROUTES}")
+    launch of ``resize_crop_u8_staged`` (:func:`resize_crop_launch`); on the
+    CPU :func:`plain_resize_crop`."""
     if rgb.device.type == "cpu":
         with span("rubiksnet.data.resize_crop"):
             return plain_resize_crop(rgb, sizes, scale_size, crop_size,
                                      origins, group, out)
     launch, out = resize_crop_launch(rgb, sizes, scale_size, crop_size,
-                                     origins, group, out, route)
+                                     origins, group, out)
     if launch is not None:
         with span("rubiksnet.data.resize_crop", rgb):
             launch()
@@ -993,19 +898,16 @@ def resize_crop(rgb, sizes, scale_size, crop_size, origins, group=None,
 
 
 def resize_crop_launch(rgb, sizes, scale_size, crop_size, origins,
-                       group=None, out=None, route="staged"):
+                       group=None, out=None):
     """:func:`resize_crop`'s work on the card up to its launch: the checks,
-    the output, the batch's bytes on the card (the staged route's through
-    :func:`staged_tables` and :func:`to_device`, its coefficient tables
-    kept per size by :func:`axis_table`, its plan :func:`resize_crop_plan`;
-    the previous route's tables built each call, :func:`kernel_tables`). ->
-    (launch, out): ``launch()`` launches ``route``'s kernel on this batch
-    on the current stream and counts it in ``LAUNCHES`` (None for an empty
-    batch). ``resize_crop`` calls it once; a timing that calls it again
-    times the kernel without the host's work."""
-    if route not in ROUTES:
-        raise ValueError(f"resize_crop: route {route!r}, not one of "
-                         f"{ROUTES}")
+    the output, the batch's bytes on the card (through
+    :func:`staged_tables` and :func:`to_device`, the coefficient tables
+    kept per size by :func:`axis_table`), the plan
+    :func:`resize_crop_plan`. -> (launch, out): ``launch()`` launches the
+    kernel on this batch on the current stream and counts it in
+    ``LAUNCHES`` (None for an empty batch). ``resize_crop`` calls it once;
+    a timing that calls it again times the kernel without the host's
+    work."""
     if rgb.device.type != "cuda":
         raise ValueError(f"resize_crop: no kernel for device {rgb.device}")
     if rgb.dtype != torch.uint8 or rgb.dim() != 1 or not (
@@ -1027,31 +929,21 @@ def resize_crop_launch(rgb, sizes, scale_size, crop_size, origins,
             out = _output(out, (n * k, crop_size, crop_size, 3), rgb.device)
             if n == 0:
                 return None, out
-            if route == "previous":
-                buf, (o_desc, o_orig, o_taps, o_wts) = kernel_tables(
-                    sizes, resized, origins, scale_size)
-            else:
-                buf, o_orig, axes = staged_tables(sizes, resized, origins,
-                                                  scale_size, rgb.device)
-                plan = resize_crop_plan(crop_size, axes,
-                                        out.data_ptr() % 16 == 0)
+            buf, o_orig, axes = staged_tables(sizes, resized, origins,
+                                              scale_size, rgb.device)
+            plan = resize_crop_plan(crop_size, axes,
+                                    out.data_ptr() % 16 == 0)
         with span("rubiksnet.data.copy", rgb):
             tables = to_device(buf, rgb.device)
-    lib = load_library()
+    entry = load_library().rdl_resize_crop_staged
     base = tables.data_ptr()
-    if route == "previous":
-        entry = lib.rdl_resize_crop_u8
-        args = (rgb.data_ptr(), base + o_desc, base + o_orig, base + o_taps,
-                base + o_wts, n, k, group, crop_size, out.data_ptr())
-    else:
-        entry = lib.rdl_resize_crop_staged
-        args = (rgb.data_ptr(), base, base + o_orig, n, k, group, crop_size,
-                (ctypes.c_int * len(plan))(*plan), len(plan), out.data_ptr())
+    args = (rgb.data_ptr(), base, base + o_orig, n, k, group, crop_size,
+            (ctypes.c_int * len(plan))(*plan), len(plan), out.data_ptr())
 
     def launch():
         with torch.cuda.device(rgb.device):
-            code = entry(*args, stream_of(rgb))
-        _check(code, f"resize_crop_u8 ({route})")
+            code = entry(*args, _build.stream_of(rgb))
+        _check(code, "resize_crop_u8_staged")
         LAUNCHES.count += 1
 
     launch.keep = (tables, out)  # the pointers in args stay valid

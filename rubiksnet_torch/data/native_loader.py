@@ -5,13 +5,13 @@ shorter-side triangle-filter resize of PIL's BILINEAR, crop and (in the
 float32 entries) normalize, the frames of one call decoded in parallel by a
 pool of threads and written channel-last.
 
-The library is built with ``g++`` at its first use into the git-ignored
-``rubiksnet_torch/build/``, keyed by a digest of the source and flags (as
-``ops/_build.py`` keys the kernels), and loaded with ``ctypes.CDLL``, which
-releases the interpreter lock during each call. A build that fails raises;
-nothing falls back. ``available()`` says whether it builds here (the
-evaluator's ``--loader auto``), ``toolchain_present()`` whether g++ and
-libjpeg's header and library are here at all, without building.
+The library is built with ``g++`` at its first use by the port's one builder
+(``ops/_build.py``) into the git-ignored ``rubiksnet_torch/build/``, keyed by a
+digest of the source and flags, and loaded with ``ctypes.CDLL``, which releases
+the interpreter lock during each call. A build that fails raises; nothing falls
+back. ``available()`` says whether it builds here (the evaluator's ``--loader
+auto``), ``toolchain_present()`` whether g++ and libjpeg's header and library
+are here at all, without building.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
@@ -28,9 +27,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..ops import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rubiks_loader.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall")
 LIBS = ("-ljpeg", "-lpthread")
 
 _INT_P = ctypes.POINTER(ctypes.c_int)
@@ -70,42 +70,18 @@ def toolchain_present() -> bool:
     return proc.returncode == 0
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode())
-    h.update(SOURCE.read_bytes())
-    return h.hexdigest()[:16]
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (once per source digest) and load the loader library; raises
-    RuntimeError where g++ or libjpeg is missing or the build fails."""
-    lib_path = BUILD_DIR / f"librubiks_loader_{_digest()}.so"
-    if not lib_path.exists():
-        cxx = _find_cxx()
-        if cxx is None:
-            raise RuntimeError(
-                "g++ not found: the native frame loader cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp), *LIBS],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"building the native frame loader failed "
-                f"({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    try:
-        lib = ctypes.CDLL(str(lib_path))
-    except OSError as e:
-        raise RuntimeError(f"loading {lib_path} failed: {e}") from e
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """Build (once per source and flags digest, ``ops/_build.py``) and load
+    the loader library; raises RuntimeError where g++ or libjpeg is missing
+    or the build fails."""
+    cxx = _find_cxx()
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found: the native frame loader cannot be built")
+    lib, _ = _build.build_library("rubiks_loader", cxx, [SOURCE],
+                                  flags=CXX_FLAGS, link_flags=LIBS)
+    return _build.bind(lib, _SIGNATURES)
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,7 +32,7 @@ from torch.autograd.function import once_differentiable
 
 from ..utils.profiling import LaunchCounter
 from . import _build
-from .shift3d import _sm_count
+from .fused_block import _sm_count
 
 __all__ = [
     "BACKWARD_LAUNCHES",

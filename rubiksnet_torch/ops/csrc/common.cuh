@@ -1,19 +1,19 @@
-// Device code shared by the port's kernels (shift3d.cu, shift_grad.cu,
+// Device code shared by the port's kernels (shift2d.cu, shift3d_bwd.cu,
 // fused_block.cu, fused_block_tc.cu, fused_entry.cu, se_gate.cuh): dtype
-// conversions, the per-axis taps and corner sum of the one-pass shifts, a
-// tiled GEMM whose operand loads and output stores are functors, and the
-// loaders and stores the fused kernels plug into it.
+// conversions, the per-axis taps of the shifts, a tiled GEMM whose operand
+// loads and output stores are functors, and the loaders and stores the
+// fused kernels plug into it.
 //
 // The GEMM here is the simple form: a block keeps its rows' whole A tile in
 // shared memory and runs 64-wide column tiles against it, with 16-deep B
 // slabs loaded one slab ahead; 128 threads each hold a 4x4 f32 accumulator
-// (SIMT FMA in both dtypes). Its A loader is where the fused kernels put
+// (SIMT FMA). Its A loader is where the fused kernels put
 // their prologues (bn/relu, the shift gather) and its store functor is
 // where they put their epilogues (bn/relu, residual add), so neither
 // intermediate makes an extra pass over device memory. It serves K2
 // (fused_block.cu) and K3 (fused_entry.cu) in float32, where the products
 // must stay full f32. What bounds it on the H100 is a serial chain per block,
-// not arithmetic or bytes: 2-byte loads, two barriers per 16-deep slab of A
+// not arithmetic or bytes: scalar loads, two barriers per 16-deep slab of A
 // and of B with nothing in flight across them, the weights re-read by every
 // block through registers, the gather's nested loops. K2 and K3 in bfloat16
 // left it for fused_block_tc.cu and fused_entry_tc.cu (tensor cores,
@@ -56,97 +56,10 @@ struct AxisTaps {
   float w[2];
 };
 
-// Taps of a shift by s (already rounded to the compute dtype) reading cells
-// j0 + {0, 1} with weights (1 - r, r), where j0 = base + floor(s) and r is
-// the remainder; quantize (the 3D rule) reads the one cell j0 + (r >= 0.5).
-__device__ __forceinline__ AxisTaps raw_taps(int base, float s,
-                                             int quantize) {
-  const float f = floorf(s);
-  const float r = s - f;
-  const int j0 = base + (int)f;
-  AxisTaps a;
-  if (quantize) {
-    a.idx[0] = j0 + (r >= 0.5f);
-    a.w[0] = 1.f;
-    a.idx[1] = -1;
-    a.w[1] = 0.f;
-  } else {
-    a.idx[0] = j0;
-    a.w[0] = 1.f - r;
-    a.idx[1] = j0 + 1;
-    a.w[1] = r;
-  }
-  return a;
-}
-
-// Forward: output position o of a source of extent d reads input cells
-// o * stride - pad + floor(s) + {0, 1}.
-__device__ __forceinline__ AxisTaps forward_taps(int o, int stride, int pad,
-                                                 float s, int d,
-                                                 int quantize) {
-  AxisTaps a = raw_taps(o * stride - pad, s, quantize);
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-    if (a.w[k] == 0.f || a.idx[k] < 0 || a.idx[k] >= d) a.idx[k] = -1;
-  return a;
-}
-
-// Inverse (input gradient): input position i pulls from output positions
-// j / stride, j = i + pad + floor(-s) + {0, 1}, where j is a non-negative
-// multiple of the stride and j / stride < d_out (the reference's stride
-// gating; j is tested for sign first, so C's truncating % and / agree with
-// the floor rule).
-__device__ __forceinline__ AxisTaps inverse_taps(int i, int stride, int pad,
-                                                 float s, int d_out,
-                                                 int quantize) {
-  AxisTaps a = raw_taps(i + pad, -s, quantize);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int j = a.idx[k];
-    const bool ok = a.w[k] != 0.f && j >= 0 && j % stride == 0 &&
-                    j / stride < d_out;
-    a.idx[k] = ok ? j / stride : -1;
-  }
-  return a;
-}
-
-// sum over the 2x2x2 corners of wT * wH * wW * src[t, h, w], in f32; src
-// points at channel c of one clip of a (T, H, W, C) tensor.
-template <class T>
-__device__ __forceinline__ float corner_sum(const T* __restrict__ src,
-                                            const AxisTaps (&a)[3], int H,
-                                            int W, int C) {
-  float acc = 0.f;
-#pragma unroll
-  for (int dt = 0; dt < 2; ++dt) {
-    if (a[0].idx[dt] < 0) continue;
-#pragma unroll
-    for (int dh = 0; dh < 2; ++dh) {
-      if (a[1].idx[dh] < 0) continue;
-      const float wth = a[0].w[dt] * a[1].w[dh];
-      const T* row = src + ((int64_t)a[0].idx[dt] * H + a[1].idx[dh]) *
-                               (int64_t)W * C;
-#pragma unroll
-      for (int dw = 0; dw < 2; ++dw) {
-        if (a[2].idx[dw] < 0) continue;
-        acc = fmaf(wth * a[2].w[dw], to_f32(row[(int64_t)a[2].idx[dw] * C]),
-                   acc);
-      }
-    }
-  }
-  return acc;
-}
-
-// Four consecutive values p[0..3] as f32 (p 16-byte aligned for float,
-// 8-byte for bf16).
+// Four consecutive values p[0..3] (p 16-byte aligned).
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
 }
 
 constexpr int kBM = 32, kBN = 64, kBK = 16, kThreads = 128;
@@ -158,8 +71,7 @@ constexpr int kAStride = kBM + 4;  // A row stride: aligned rows, 2-way banks
 // be multiples of the tile (C = 72 or 54 is not a multiple of 16).
 //
 // A block owns kBM rows. It loads their whole A tile (kBM x K) into shared
-// memory once, in the operand type T (A values are already rounded to T,
-// so bf16 storage loses nothing and halves the bytes), then runs its
+// memory once, in the operand type T, then runs its
 // 64-wide column tiles against it: the A loader's work (the shift gather)
 // is done once per element, not once per column tile. grid.y splits the
 // column tiles only when there are too few row tiles to keep the SMs busy
@@ -264,7 +176,7 @@ inline int sm_count() {
   return count;
 }
 
-// Launch the GEMM with A held in shared memory as T (float or bf16).
+// Launch the GEMM with A held in shared memory as T.
 template <class T, class ALoad, class BLoad, class Epi>
 inline cudaError_t launch_gemm(int64_t M, int N, int K, ALoad aload,
                                BLoad bload, Epi epi, cudaStream_t stream) {

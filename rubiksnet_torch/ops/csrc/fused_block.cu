@@ -21,20 +21,19 @@
 //      the same thread, and launch B reads nothing else of x.
 // With aq, launch A's loader mixes the activated input along T with the
 // three attention taps and the T tap row is the identity. With se, launch
-// B's loader multiplies by the gate: on the tensor-core route launch A sums
-// its weighted values per frame as it stores mid (tc_se.cuh) and one launch
-// makes the gate from those sums (se_gate_tc.cu); on the SIMT route two
-// small launches compute it from one pass over mid (se_gate.cuh). The bn and
+// B's loader multiplies by the gate: in bfloat16 launch A sums its weighted
+// values per frame as it stores mid (tc_se.cuh) and one launch makes the gate
+// from those sums (se_gate_tc.cu); in float32 two small launches compute it
+// from one pass over mid (se_gate.cuh). The bn and
 // tap arithmetic is f32 and the GEMM operands are rounded to x's dtype, as in
 // the TPU kernel.
 //
-// Two routes. bfloat16, the serving dtype, runs fused_block_tc.cu: tensor-core
-// products, resident weights, 16-byte loads, a gather of one channel per lane;
-// its header says what bounds it. float32 runs the common.cuh GEMM below (SIMT
-// f32 products: tensor cores would make them TF32), which also stays callable
-// for bfloat16 as route 0 so that both can be timed in one process. (Cutting
-// a run into groups of clips, A then B per group so that mid stays in L2,
-// measured slower at every batch: more and smaller launches.)
+// One route per dtype. bfloat16, the serving dtype, runs fused_block_tc.cu:
+// tensor-core products, resident weights, 16-byte loads, a gather of one
+// channel per lane; its header says what bounds it. float32 runs the
+// common.cuh GEMM below (SIMT f32 products: tensor cores would make them
+// TF32). (Cutting a run into groups of clips, A then B per group so that mid
+// stays in L2, measured slower at every batch: more and smaller launches.)
 #include "common.cuh"
 #include "fused_block_tc.cuh"
 #include "se_gate.cuh"
@@ -135,24 +134,21 @@ extern "C" {
 // the three rows of attention taps. wm: (B, 2, C, C) of dtype, W2 and W3 as
 // (in, out). se: null, or (B, 2, C, Cr) float32 (fc1, fc2 transposed) with
 // scratch partial and gate (N*T, C) float32; partial is (N*T, slices, C),
-// slices = ceil(H / 8), on route 0 (se_gate.cuh's pass over mid) and (row
-// tiles, slices, C), slices = tc_se_slots(wm_ * 16, H * W), on route 1
-// (launch A's sums, tc_se.cuh). route: 0 the common.cuh GEMM (either
-// dtype), 1 the tensor-core kernels (bfloat16 only) under the plan pw, wm_,
-// wn_, n_split, grid_x, smem_bytes, overlap of
-// ops/fused_block.py::fused_block_plan.
+// slices = ceil(H / 8), in float32 (se_gate.cuh's pass over mid) and (row
+// tiles, slices, C), slices = tc_se_slots(wm_ * 16, H * W), in bfloat16
+// (launch A's sums, tc_se.cuh). float32 runs the common.cuh GEMM, bfloat16
+// the tensor-core kernels under the plan pw, wm_, wn_, n_split, grid_x,
+// smem_bytes, overlap of ops/fused_block.py::fused_block_plan.
 int rubiks_fused_block_run(const void* x, const float* vt, const void* wm,
                            const float* se, float* partial, float* gate,
                            void* mid, void* out, int dtype, int B, int N,
                            int T, int H, int W, int C, int taps_n, int K,
-                           int aq, int Cr, int slices, int route, int pw,
-                           int wm_, int wn_, int n_split, int grid_x,
-                           int smem_bytes, int overlap, void* stream) {
+                           int aq, int Cr, int slices, int pw, int wm_,
+                           int wn_, int n_split, int grid_x, int smem_bytes,
+                           int overlap, void* stream) {
   using namespace rubiks;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
-  if ((route != 0 && route != 1) || (route == 1 && dtype != kBF16))
-    return (int)cudaErrorInvalidValue;
   if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
   const TcPlan plan = {pw,      wm_,    wn_,        n_split,
                        grid_x,  smem_bytes, overlap};
@@ -165,13 +161,9 @@ int rubiks_fused_block_run(const void* x, const float* vt, const void* wm,
     const char* w3 = w2 + (size_t)C * C * esz;
     const float* seb = se != nullptr ? se + (size_t)b * 2 * C * Cr : nullptr;
     int rc;
-    if (route == 1)
+    if (dtype == kBF16)
       rc = fused_block_tc(plan, src, vtb, w2, w3, seb, partial, gate, mid, out,
                           N, T, H, W, C, taps_n, K, aq, Cr, slices, s);
-    else if (dtype == kBF16)
-      rc = fused_block<__nv_bfloat16>(src, vtb, w2, w3, seb, partial, gate,
-                                      mid, out, N, T, H, W, C, taps_n, K, aq,
-                                      Cr, slices, s);
     else
       rc = fused_block<float>(src, vtb, w2, w3, seb, partial, gate, mid, out,
                               N, T, H, W, C, taps_n, K, aq, Cr, slices, s);

@@ -24,16 +24,15 @@
 //      strided shortcut is a second K range of the same accumulator instead
 //      of an identity residual.
 // With se, B's shift gather multiplies by the gate (the mean over the
-// decimated (H/2, W/2) grid); the shortcut range is not gated. On the
-// tensor-core route launch A sums the gate's weighted values per frame
-// (tc_se.cuh) and one launch makes the gate (se_gate_tc.cu); on the SIMT
-// route two small launches compute it from one pass over mid (se_gate.cuh).
+// decimated (H/2, W/2) grid); the shortcut range is not gated. In bfloat16
+// launch A sums the gate's weighted values per frame (tc_se.cuh) and one
+// launch makes the gate (se_gate_tc.cu); in float32 two small launches
+// compute it from one pass over mid (se_gate.cuh).
 //
-// Two routes, as K2 has. bfloat16, the serving dtype, runs fused_entry_tc.cu
-// (tensor-core products, resident weights, 16-byte loads; its header says
-// how). float32 runs the common.cuh GEMM below (SIMT f32 products: tensor
-// cores would make them TF32), which also stays callable for bfloat16 as
-// route 0 so that both can be timed in one process.
+// One route per dtype, as K2 has. bfloat16, the serving dtype, runs
+// fused_entry_tc.cu (tensor-core products, resident weights, 16-byte loads;
+// its header says how). float32 runs the common.cuh GEMM below (SIMT f32
+// products: tensor cores would make them TF32).
 #include "common.cuh"
 #include "fused_entry_tc.cuh"
 #include "se_gate.cuh"
@@ -183,12 +182,12 @@ extern "C" {
 // then the T, H, W tap weights (with aq the T row is the identity). w2, wsc:
 // (Cin, Cm), w3: (Cm, Cm), of dtype, (in, out). se: null, or (2, Cm, Cr)
 // float32 (fc1, fc2 transposed) with scratch partial and gate (N*T, Cm)
-// float32; partial is (N*T, slices, Cm), slices = ceil(H / 8), on route 0
+// float32; partial is (N*T, slices, Cm), slices = ceil(H / 8), in float32
 // (se_gate.cuh's pass over mid) and (launch A's row tiles, slices, Cm),
-// slices = tc_se_slots(A's wm * 16, H * W), on route 1 (tc_se.cuh); se must
-// be null with aq. route: 0 the common.cuh GEMM (either dtype; plan and
-// stage unused), 1 the tensor-core kernels (bfloat16 only) under plan,
-// 16 ints of ops/fused_entry.py::fused_entry_plan: launch A's (pw, wm, wn,
+// slices = tc_se_slots(A's wm * 16, H * W), in bfloat16 (tc_se.cuh); se
+// must be null with aq. float32 runs the common.cuh GEMM (plan and stage
+// unused), bfloat16 the tensor-core kernels under plan, 16 ints of
+// ops/fused_entry.py::fused_entry_plan: launch A's (pw, wm, wn,
 // n_split, grid_x, smem_bytes), launch B's, the gather pre-pass's (rows,
 // grid_x, smem_bytes; rows 0: none) and overlap. stage: with the pre-pass,
 // bfloat16 scratch of N*T*(H/2)*(W/2) rows rounded up to both launches'
@@ -198,13 +197,11 @@ int rubiks_fused_entry(const void* x, const float* vt1, const float* vt2,
                        const float* se, float* partial, float* gate,
                        void* mid, void* out, int dtype, int N, int T, int H,
                        int W, int Cin, int Cm, int taps_n, int K, int Cr,
-                       int slices, int aq, int route, const int* plan,
-                       void* stage, void* stream) {
+                       int slices, int aq, const int* plan, void* stage,
+                       void* stream) {
   using namespace rubiks;
   auto s = static_cast<cudaStream_t>(stream);
-  if ((route != 0 && route != 1) || (route == 1 && dtype != kBF16))
-    return (int)cudaErrorInvalidValue;
-  if (route == 1) {
+  if (dtype == kBF16) {
     if (plan == nullptr) return (int)cudaErrorInvalidValue;
     const int* pa = plan;
     const int* pb = plan + 6;
@@ -216,10 +213,6 @@ int rubiks_fused_entry(const void* x, const float* vt1, const float* vt2,
                           se, partial, gate, stage, mid, out, N, T, H, W, Cin,
                           Cm, taps_n, K, Cr, slices, aq, s);
   }
-  if (dtype == kBF16)
-    return fused_entry<__nv_bfloat16>(x, vt1, vt2, w2, w3, wsc, se, partial,
-                                      gate, mid, out, N, T, H, W, Cin, Cm,
-                                      taps_n, K, Cr, slices, aq, s);
   if (dtype == kF32)
     return fused_entry<float>(x, vt1, vt2, w2, w3, wsc, se, partial, gate,
                               mid, out, N, T, H, W, Cin, Cm, taps_n, K, Cr,

@@ -8,8 +8,8 @@
 // (row tile, frame slot, channel) (tc_se.cuh). Replaces se_gate /
 // se_conv3_batched of rubiksnet_tpu/ops/pallas/fused_block.py (also reached
 // from fused_frames.py) and gate_from_mean of ops/pallas/fused_entry.py for
-// bfloat16; float32 and the route "simt" keep se_gate.cuh's two launches,
-// whose first pass reads all of mid again.
+// bfloat16; float32 keeps se_gate.cuh's two launches, whose first pass
+// reads all of mid again.
 //
 // What bounds it on the card: the bytes of the partials (a frame's tiles,
 // read for each frame whose T taps reach it, mostly from L2) and of fc1 and

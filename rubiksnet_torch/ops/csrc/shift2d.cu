@@ -18,7 +18,7 @@
 // negated).
 //
 // What bounds it on the card. The one-pass 3D kernel run on a one-frame
-// view (shift3d.cu, this function's first form) was bound by its operation
+// view (this function's first form) was bound by its operation
 // count: about 300 per 2-byte element (64-bit divisions to unflatten the
 // index, the taps of both axes recomputed per element). The function itself
 // is bound by bytes: 4 multiply-adds per element against 2 bytes read and 2

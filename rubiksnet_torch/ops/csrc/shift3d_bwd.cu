@@ -12,8 +12,7 @@
 // rubiksnet_tpu/ops/pallas/shift_grad_kernel.py::
 // rubiks_shift3d_shift_grad_pallas (corrected taps :64-85) with the XLA
 // shift gradient of the strided entries (ops/shift3d.py::
-// rubiks_shift_3d_shift_grad). The first forms of all three (shift3d.cu,
-// shift_grad.cu) stay callable as the previous route.
+// rubiks_shift_3d_shift_grad).
 //
 // What the three compute. Forward: out[n, t', h', w', c] is the trilinear
 // interpolation of x at o * stride - pad + s per axis (o the output
@@ -28,8 +27,12 @@
 // reference's rule). Shift gradient: per output element the corners of x at
 // o * stride - pad + {lo, hi} per axis, lo = floor(s) moved back one cell
 // where the remainder is exactly 0, hi = floor(s) + 1, lerp weights (1 - r,
-// r); dT, dH, dW as in shift_grad.cu, each times og, summed over (N, To, Ho,
-// Wo) in f32. Quantize does not enter it (the reference's rule).
+// r); with those corners q[a][b][c] (a, b, c: small/large along T, H, W)
+//   dT = sum_{b,c} lH_b lW_c (q[1][b][c] - q[0][b][c])
+//   dH = sum_{a,c} lT_a lW_c (q[a][1][c] - q[a][0][c])
+//   dW = sum_{a,b} lT_a lH_b (q[a][b][1] - q[a][b][0])
+// (tests/oracle.py:167-182), each times og, summed over (N, To, Ho, Wo) in
+// f32. Quantize does not enter it (the reference's rule).
 //
 // One body. Per axis a destination position p reads raw coordinates
 // q = p * mul + off + {lo_c, hi_c} and the source cell q / div where div
@@ -43,16 +46,16 @@
 //
 // What bounds them on the card. The functions are bound by bytes (the
 // forward reads x and writes out; the input gradient reads og and writes gx;
-// the shift gradient reads og and x). The first forms were bound by their
-// instruction count (shift3d.cu's header): four 64-bit divisions per element
-// to unflatten its index, the taps of all three axes recomputed per
-// element, a division by the stride per tap, 2-byte loads. The design is
-// shift2d.cu's, carried into 3D; what bounds it is latency, a block's chain
-// of dependent steps (the tap range, the first rows' copies, then per row
-// its barrier and a thread's run of columns, each column four dependent
-// shared loads and their sums): a trace of the blocks (BWD3D_TRACE) puts
-// 89-99% of a row's time in the thread's own instructions and little in the
-// waits for copies.
+// the shift gradient reads og and x). The first forms, one thread per
+// element, were bound by their instruction count: four 64-bit divisions
+// per element to unflatten its index, the taps of all three axes
+// recomputed per element, a division by the stride per tap, 2-byte loads.
+// The design is shift2d.cu's, carried into 3D; what bounds it is latency,
+// a block's chain of dependent steps (the tap range, the first rows'
+// copies, then per row its barrier and a thread's run of columns, each
+// column four dependent shared loads and their sums): a trace of the
+// blocks (BWD3D_TRACE) puts 89-99% of a row's time in the thread's own
+// instructions and little in the waits for copies.
 //
 //
 // * Grid = (clip, destination frame, band of destination rows) x channel
@@ -967,5 +970,10 @@ int rubiks_bwd3d_trace(void* buf) {
                                  sizeof(buf));
 }
 #endif
+
+// The message of a code any entry point of the kernel library returned.
+const char* rubiks_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
 
 }  // extern "C"

@@ -2,7 +2,7 @@
 // launches of K2 (fused_block_tc.cu: kTcMidSe, kTcMidAqSe) and K3
 // (fused_entry_tc.cu: kTcEntryMidSe). With these, the gate is one launch per
 // SE block (se_gate_tc.cu) instead of a pass over mid and a gate launch
-// (se_gate.cuh, which float32 and the bf16 route "simt" keep).
+// (se_gate.cuh, which float32 keeps).
 //
 // The gate takes the spatial mean of shift(mid) per (frame, channel). The
 // shift is linear with zero fill, so (se_gate.cuh says why)

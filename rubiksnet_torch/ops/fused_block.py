@@ -441,33 +441,29 @@ def blocks_per_sm(smem: int, warps: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(shape, dtype, sms, route, knobs):
+def _plan(shape, dtype, sms, knobs):
     n, t, h, w, c = shape
-    if route is None:
-        route = "mma" if dtype == torch.bfloat16 else "simt"
-    if route == "simt":
-        return BlockPlan(route="simt")
-    if route != "mma":
-        raise ValueError(f"unknown route {route!r}")
     if dtype != torch.bfloat16:
-        raise ValueError("the tensor-core route takes bfloat16 only: "
-                         "float32 products stay full float32")
+        if knobs:
+            raise ValueError(f"unknown plan knobs {[k for k, _ in knobs]}: "
+                             f"the SIMT route has none")
+        return BlockPlan("simt")
     return _mma_plan(n * t * h * w, c, sms, dict(knobs))
 
 
-def fused_block_plan(shape, dtype, *, sms=SM_COUNT, route=None,
-                     **knobs) -> BlockPlan:
+def fused_block_plan(shape, dtype, *, sms=SM_COUNT, **knobs) -> BlockPlan:
     """The launch plan of one block of a run on x of ``shape`` (N, T, H, W,
-    C): the route (tensor-core products for bfloat16, SIMT for float32 or on
-    request) and, for the tensor cores, whether a block holds all of W or a
-    chunk of its columns, the rows per tile, the warps, the grid and the
-    shared memory. It depends on the shape and the dtype alone: the gather
-    reads directly whatever the taps, and the attention mix and the gate
-    ride on the loaders. ``knobs`` pin ``producers``, ``warps_m`` or
-    ``warps_n``, or switch ``overlap`` off (the probe's sweep)."""
+    C): the route, a function of the dtype (tensor-core products for
+    bfloat16, SIMT for float32), and, for the tensor cores, whether a block
+    holds all of W or a chunk of its columns, the rows per tile, the warps,
+    the grid and the shared memory. It depends on the shape and the dtype
+    alone: the gather reads directly whatever the taps, and the attention
+    mix and the gate ride on the loaders. ``knobs`` pin ``producers``,
+    ``warps_m`` or ``warps_n``, or switch ``overlap`` off (the probe's
+    sweep); the SIMT route takes none."""
     if len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0:
         raise ValueError(f"shape must be (N, T, H, W, C), got {shape}")
-    return _plan(tuple(int(d) for d in shape), dtype, int(sms), route,
+    return _plan(tuple(int(d) for d in shape), dtype, int(sms),
                  tuple(sorted(knobs.items())))
 
 
@@ -523,15 +519,13 @@ def _sm_count(index) -> int:
 
 
 def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
-                       route=None, scratch=None, **knobs):
+                       scratch=None, **knobs):
     """Kernel K2 on CUDA tensors: one C call per run, which makes two
     launches per block (and with ``se`` one more for the gate on the
-    tensor-core route, two on the SIMT route). ``route`` "simt" runs
-    bfloat16 on the previous route (the common.cuh GEMM and se_gate.cuh),
-    for timing it beside the tensor-core kernels; the port never passes
-    it. ``scratch``: None, or a dict that receives the run's ``mid``,
-    ``partial`` and ``gate`` (as the last block left them), to check the
-    gate on its own."""
+    tensor-core route, two on the SIMT route). ``scratch``: None, or a dict
+    that receives the run's ``mid``, ``partial`` and ``gate`` (as the last
+    block left them), to check the gate on its own. ``knobs``: as
+    :func:`fused_block_plan` takes them."""
     taps_n = _check_args(x, vt, wm, se, aq, max_shift)
     if taps_n > KERNEL_MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes <= {KERNEL_MAX_TAPS} taps")
@@ -543,9 +537,9 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
         raise ValueError("fused_block_kernel needs contiguous x, vt, wm, se")
     code = _build.dtype_code(x.dtype)
     plan = fused_block_plan(x.shape, x.dtype, sms=_sm_count(x.device.index),
-                            route=route, **knobs)
+                            **knobs)
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_block_run", *[P] * 8, *[I] * 20,
+    fn = _build.kernel_function("rubiks_fused_block_run", *[P] * 8, *[I] * 19,
                                 P)
     n, t, h, w, c = x.shape
     out = torch.empty_like(x)
@@ -570,10 +564,9 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
                 partial.data_ptr() if se is not None else None,
                 gate.data_ptr() if se is not None else None,
                 mid.data_ptr(), out.data_ptr(), code, nb, n, t, h, w, c,
-                taps_n, max_shift, int(bool(aq)), cr, slices,
-                int(plan.route == "mma"), plan.producers, plan.warps_m,
-                plan.warps_n, plan.n_tiles, plan.grid_x, plan.smem_bytes,
-                int(plan.overlap), _build.stream_of(x))
+                taps_n, max_shift, int(bool(aq)), cr, slices, plan.producers,
+                plan.warps_m, plan.warps_n, plan.n_tiles, plan.grid_x,
+                plan.smem_bytes, int(plan.overlap), _build.stream_of(x))
     _build.check(rc, "rubiks_fused_block_run")
     LAUNCHES.count += nb
     if se is not None and plan.route == "mma":

@@ -243,17 +243,13 @@ def _one_wave(plan, sms):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(shape, cm, dtype, sms, route, knobs):
+def _plan(shape, cm, dtype, sms, knobs):
     n, t, h, w, cin = shape
-    if route is None:
-        route = "mma" if dtype == torch.bfloat16 else "simt"
-    if route == "simt":
-        return EntryPlan(route="simt")
-    if route != "mma":
-        raise ValueError(f"unknown route {route!r}")
     if dtype != torch.bfloat16:
-        raise ValueError("the tensor-core route takes bfloat16 only: "
-                         "float32 products stay full float32")
+        if knobs:
+            raise ValueError(f"unknown plan knobs {[k for k, _ in knobs]}: "
+                             f"the SIMT route has none")
+        return EntryPlan("simt")
     knobs = dict(knobs)
     stage = knobs.pop("stage", None)
     both = {"overlap": knobs.pop("overlap")} if "overlap" in knobs else {}
@@ -282,26 +278,27 @@ def _plan(shape, cm, dtype, sms, route, knobs):
     return EntryPlan(route="mma", a=a, b=b, g=g)
 
 
-def fused_entry_plan(shape, cm, dtype, *, sms=SM_COUNT, route=None,
+def fused_entry_plan(shape, cm, dtype, *, sms=SM_COUNT,
                      **knobs) -> EntryPlan:
     """The launch plan of one entry block on x of ``shape`` (N, T, H, W,
-    Cin) growing to ``cm`` channels: the route (tensor-core products for
-    bfloat16, SIMT for float32 or on request) and, for the tensor cores, per
-    launch whether a block holds all of W or a chunk of its columns, the rows
-    per tile, the warps, the grid and the shared memory, by the rule of
-    :func:`~.fused_block.fused_block_plan` at that launch's rows, depth and
-    width as :func:`_rule_a`, :func:`_rule_b` and :func:`_one_wave` adjust
-    it, and whether launch B's rows are gathered by a pre-pass (where its
-    weights need column chunks). It depends on the shape and the dtype
-    alone. ``knobs`` pin ``a_producers``, ``a_warps_m``, ``a_warps_n``
-    (launch A) or their ``b_`` forms (launch B), ``stage`` (the pre-pass on
-    or off), or switch ``overlap`` off for all launches."""
+    Cin) growing to ``cm`` channels: the route, a function of the dtype
+    (tensor-core products for bfloat16, SIMT for float32), and, for the
+    tensor cores, per launch whether a block holds all of W or a chunk of
+    its columns, the rows per tile, the warps, the grid and the shared
+    memory, by the rule of :func:`~.fused_block.fused_block_plan` at that
+    launch's rows, depth and width as :func:`_rule_a`, :func:`_rule_b` and
+    :func:`_one_wave` adjust it, and whether launch B's rows are gathered by
+    a pre-pass (where its weights need column chunks). It depends on the
+    shape and the dtype alone. ``knobs`` pin ``a_producers``, ``a_warps_m``,
+    ``a_warps_n`` (launch A) or their ``b_`` forms (launch B), ``stage``
+    (the pre-pass on or off), or switch ``overlap`` off for all launches;
+    the SIMT route takes none."""
     if (len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0
             or shape[2] % 2 or shape[3] % 2 or cm < 1):
         raise ValueError(f"shape must be (N, T, H, W, Cin) with H and W "
                          f"even, and cm >= 1, got {shape}, {cm}")
     return _plan(tuple(int(d) for d in shape), int(cm), dtype, int(sms),
-                 route, tuple(sorted(knobs.items())))
+                 tuple(sorted(knobs.items())))
 
 
 def fused_entry_supported(shape, cin, mid, max_shift, dtype, se=False, *,
@@ -338,16 +335,13 @@ def fused_entry_supported(shape, cin, mid, max_shift, dtype, se=False, *,
 
 
 def fused_entry_kernel(x, params, se=None, *, max_shift, aq=False,
-                       route=None, scratch=None, **knobs):
+                       scratch=None, **knobs):
     """Kernel K3 on CUDA tensors: one C call (two launches, three with the
-    gather pre-pass, and with ``se`` one more for the gate on the
-    tensor-core route, two on the SIMT route). ``aq``: the attention mix in
-    launch A (params from :func:`stack_entry_params_aq`; counted by
-    ``AQ_LAUNCHES``, not ``LAUNCHES``). ``route`` "simt" runs
-    bfloat16 on the previous route (the common.cuh GEMM and se_gate.cuh),
-    for timing it beside the tensor-core kernels; the port never passes
-    it. ``scratch``: None, or a dict that receives ``mid``, ``partial`` and
-    ``gate``, to check the gate on its own. ``knobs``: as
+    gather pre-pass, and with ``se`` one more for the gate on the tensor-core
+    route, two on the SIMT route). ``aq``: the attention mix in launch A
+    (params from :func:`stack_entry_params_aq`; counted by ``AQ_LAUNCHES``, not
+    ``LAUNCHES``). ``scratch``: None, or a dict that receives ``mid``,
+    ``partial`` and ``gate``, to check the gate on its own. ``knobs``: as
     :func:`fused_entry_plan` takes them."""
     taps_n = _check_args(x, params, se, max_shift, aq)
     if taps_n > KERNEL_MAX_TAPS:
@@ -363,8 +357,7 @@ def fused_entry_kernel(x, params, se=None, *, max_shift, aq=False,
     n, t, h, w, cin = x.shape
     cmid = w2.shape[1]
     plan = fused_entry_plan(x.shape, cmid, x.dtype,
-                            sms=_sm_count(x.device.index), route=route,
-                            **knobs)
+                            sms=_sm_count(x.device.index), **knobs)
     mid = torch.empty((n, t, h, w, cmid), dtype=x.dtype, device=x.device)
     out = torch.empty((n, t, h // 2, w // 2, cmid), dtype=x.dtype,
                       device=x.device)
@@ -394,14 +387,13 @@ def fused_entry_kernel(x, params, se=None, *, max_shift, aq=False,
             stage = torch.empty((rows, -(-(cmid + cin) // 16) * 16),
                                 dtype=x.dtype, device=x.device)
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 13,
+    fn = _build.kernel_function("rubiks_fused_entry", *[P] * 11, *[I] * 12,
                                 P, P, P)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), vt1.data_ptr(), vt2.data_ptr(), w2.data_ptr(),
                 w3.data_ptr(), wsc.data_ptr(), se_ptr, partial_ptr, gate_ptr,
                 mid.data_ptr(), out.data_ptr(), code, n, t, h, w, cin, cmid,
-                taps_n, max_shift, cr, slices, int(bool(aq)),
-                int(plan.route == "mma"), ints,
+                taps_n, max_shift, cr, slices, int(bool(aq)), ints,
                 stage.data_ptr() if stage is not None else None,
                 _build.stream_of(x))
     _build.check(rc, "rubiks_fused_entry")

@@ -15,9 +15,7 @@ CUDA kernel beside its plain gather form:
 The three kernels share one device body (source rows staged in shared
 memory, one channel per thread) under the launch plan
 :func:`shift3d_bwd_plan`, which takes the direction (``FORWARD``,
-``INPUT_GRAD``, ``SHIFT_GRAD``); their first forms (``csrc/shift3d.cu``'s
-forward and inverse, ``csrc/shift_grad.cu``) stay callable as
-``route="previous"``.
+``INPUT_GRAD``, ``SHIFT_GRAD``).
 
 :func:`rubiks_shift_3d` ties them into an autograd op whose shift gradient
 is unit-normalized per channel (:func:`normalize_shift_grad_3d`): the
@@ -208,118 +206,6 @@ def normalize_shift_grad_3d(shift_grad, normalize_t_factor):
 
 
 # ---------------------------------------------------------- CUDA kernels
-
-
-def _check_cuda(name, *tensors):
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            f"{name} needs its tensors on one CUDA device, got "
-            f"{[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-
-
-def _shift_f32(shift, dtype):
-    # The shift is rounded to the compute dtype, as the gather form does.
-    return shift.to(dtype).to(torch.float32).contiguous()
-
-
-def _forward_previous(x, shift, stride, padding, quantize):
-    """K1's first form (csrc/shift3d.cu): one thread per output element,
-    trilinear weights in f32; the shift cast to the dtype and back by two
-    device kernels before it."""
-    _check_cuda("shift3d_kernel", x, shift)
-    code = _build.dtype_code(x.dtype)
-    st, sh, sw = _triple(stride)
-    pt, ph, pw = _triple(padding)
-    out_shape = compute_output_shape_3d(x.shape, (st, sh, sw), (pt, ph, pw))
-    n, t, h, w, c = x.shape
-    _, to, ho, wo, _ = out_shape
-    s32 = _shift_f32(shift, x.dtype)
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_shift3d_fwd", P, P, P, *[I] * 16, P)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), s32.data_ptr(), out.data_ptr(), code, n, t, h,
-                w, c, to, ho, wo, st, sh, sw, pt, ph, pw, int(quantize),
-                _build.stream_of(x))
-    _build.check(rc, "rubiks_shift3d_fwd")
-    LAUNCHES.count += 1
-    return out
-
-
-def _input_grad_previous(og, shift, in_shape, stride, padding, quantize):
-    """K1-inverse's first form (csrc/shift3d.cu): one thread per input
-    element, stride-gated, weights in f32; the shift cast to the dtype and
-    back by two device kernels before it."""
-    _check_cuda("shift3d_input_grad_kernel", og, shift)
-    code = _build.dtype_code(og.dtype)
-    st, sh, sw = _triple(stride)
-    pt, ph, pw = _triple(padding)
-    in_shape = tuple(int(v) for v in in_shape)
-    if compute_output_shape_3d(in_shape, (st, sh, sw),
-                               (pt, ph, pw)) != tuple(og.shape):
-        raise ValueError(f"og {tuple(og.shape)} is not the output shape of "
-                         f"{in_shape} at stride {stride} padding {padding}")
-    n, t, h, w, c = in_shape
-    _, to, ho, wo, _ = og.shape
-    s32 = _shift_f32(shift, og.dtype)
-    gx = torch.empty(in_shape, dtype=og.dtype, device=og.device)
-    P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_shift3d_inv", P, P, P, *[I] * 16, P)
-    with torch.cuda.device(og.device):
-        rc = fn(og.data_ptr(), s32.data_ptr(), gx.data_ptr(), code, n, t, h,
-                w, c, to, ho, wo, st, sh, sw, pt, ph, pw, int(quantize),
-                _build.stream_of(og))
-    _build.check(rc, "rubiks_shift3d_inv")
-    INVERSE_LAUNCHES.count += 1
-    return gx
-
-
-def shift_grad_slices(rows: int, c: int, sms: int) -> int:
-    """Row slices of the previous route of K4: one block per (slice,
-    32-channel tile), about 8 blocks per SM, at least 64 rows a slice. It
-    depends on the shape and the card only, so the summation order is
-    fixed."""
-    ctiles = -(-c // 32)
-    return max(1, min(max(1, 8 * sms // ctiles), -(-rows // 64)))
-
-
-def _shift_grad_previous(og, x, shift, stride, padding):
-    """K4's first form (csrc/shift_grad.cu): per-slice partials and a
-    second launch that sums them; the shift cast as for K1-inverse's."""
-    _check_cuda("shift3d_shift_grad_kernel", og, x, shift)
-    if og.dtype != x.dtype:
-        raise TypeError(f"og {og.dtype} and x {x.dtype} differ")
-    code = _build.dtype_code(x.dtype)
-    st, sh, sw = _triple(stride)
-    pt, ph, pw = _triple(padding)
-    if compute_output_shape_3d(x.shape, (st, sh, sw),
-                               (pt, ph, pw)) != tuple(og.shape):
-        raise ValueError(f"og {tuple(og.shape)} is not the output shape of "
-                         f"{tuple(x.shape)} at stride {stride}")
-    n, t, h, w, c = x.shape
-    _, to, ho, wo, _ = og.shape
-    s32 = _shift_f32(shift, x.dtype)
-    sms = _sm_count(x.device.index)
-    slices = shift_grad_slices(n * to * ho * wo, c, sms)
-    partial = torch.empty((slices, 3, c), dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((3, c), dtype=torch.float32, device=x.device)
-    P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_shift_grad", P, P, P, P, P,
-                                *[I] * 16, P)
-    with torch.cuda.device(x.device):
-        rc = fn(og.data_ptr(), x.data_ptr(), s32.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), code, n, t, h, w, c, to,
-                ho, wo, st, sh, sw, pt, ph, pw, slices, _build.stream_of(x))
-    _build.check(rc, "rubiks_shift_grad")
-    SHIFT_GRAD_LAUNCHES.count += 1
-    return out
-
-
-# ---------------------------------------------- the staged route's kernels
 #
 # csrc/shift3d_bwd.cu holds the arithmetic of K1, K1-inverse and K4, one
 # body in three directions. Everything else is here, where the CPU tests
@@ -330,7 +216,6 @@ def _shift_grad_previous(og, x, shift, stride, padding):
 
 FORWARD, INPUT_GRAD, SHIFT_GRAD = "forward", "input_grad", "shift_grad"
 DIRECTIONS = (FORWARD, INPUT_GRAD, SHIFT_GRAD)
-BWD_ROUTES = ("staged", "previous")
 BWD_SMEM_HEAD = 32  # the block's tap ranges
 BWD_MAX_THREADS = 384  # csrc/shift3d_bwd.cu's kMaxThreads (launch bound)
 SG_RED_BYTES = 12  # per thread: the shift gradient's three sums, reduced
@@ -538,11 +423,6 @@ def shift3d_bwd_plan(shape, out_shape, stride, dtype, direction,
                      knobs)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 _ENTRIES = {
     FORWARD: ("rubiks_shift3d_fwd_staged",
               (_build.PTR,) * 3 + (_build.INT,) * 23 + (_build.PTR,)),
@@ -618,25 +498,14 @@ def _call(fn, dev, args):
         return fn(*args)
 
 
-def _unknown_route(route):
-    return ValueError(f"unknown route {route!r}, expected one of "
-                      f"{BWD_ROUTES}")
-
-
 def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
-                   quantize=False, *, route="staged"):
+                   quantize=False):
     """Kernel K1 on a CUDA tensor x (N, T, H, W, C), contiguous, with the
-    (3, C) shift: the shifted output. ``route="staged"``: one launch of
+    (3, C) shift: the shifted output. One launch of
     ``rubiks_shift3d_fwd_staged`` (csrc/shift3d_bwd.cu), planned by
     :func:`shift3d_bwd_plan`, and no other device work, where the shift is
     float32 (another dtype is widened first, as for a module cast to
-    bfloat16; the kernel rounds it to x's dtype either way);
-    ``route="previous"``: the first form (csrc/shift3d.cu), kept to time
-    the two in one run."""
-    if route == "previous":
-        return _forward_previous(x, shift, stride, padding, quantize)
-    if route != "staged":
-        raise _unknown_route(route)
+    bfloat16; the kernel rounds it to x's dtype either way)."""
     name = _ENTRIES[FORWARD][0]
     if shift.dtype != torch.float32:
         shift = shift.float()
@@ -655,19 +524,11 @@ def shift3d_kernel(x, shift, stride=(1, 1, 1), padding=(0, 0, 0),
 
 
 def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
-                              padding=(0, 0, 0), quantize=False, *,
-                              route="staged"):
+                              padding=(0, 0, 0), quantize=False):
     """Kernel K1-inverse on a CUDA tensor og (N, To, Ho, Wo, C), contiguous,
     with the float32 (3, C) shift: the input gradient of shape ``in_shape``.
-    ``route="staged"``: one launch of ``rubiks_shift3d_inv_staged``
-    (csrc/shift3d_bwd.cu), planned by :func:`shift3d_bwd_plan`, and no
-    other device work; ``route="previous"``: the first form
-    (csrc/shift3d.cu), kept to time the two in one run."""
-    if route == "previous":
-        return _input_grad_previous(og, shift, in_shape, stride, padding,
-                                    quantize)
-    if route != "staged":
-        raise _unknown_route(route)
+    One launch of ``rubiks_shift3d_inv_staged`` (csrc/shift3d_bwd.cu),
+    planned by :func:`shift3d_bwd_plan`, and no other device work."""
     name = _ENTRIES[INPUT_GRAD][0]
     _check_staged(name, shift, og)
     dev = og.device
@@ -687,18 +548,12 @@ def shift3d_input_grad_kernel(og, shift, in_shape, stride=(1, 1, 1),
 
 
 def shift3d_shift_grad_kernel(og, x, shift, stride=(1, 1, 1),
-                              padding=(0, 0, 0), *, route="staged"):
+                              padding=(0, 0, 0)):
     """Kernel K4 on CUDA tensors: the raw (3, C) float32 shift gradient,
-    reduced per channel in a fixed order (bit-identical run to run).
-    ``route="staged"``: one call of ``rubiks_shift_grad_staged``
-    (csrc/shift3d_bwd.cu), planned by :func:`shift3d_bwd_plan`: two
-    launches (the partials, their sum) and no other device work;
-    ``route="previous"``: the first form (csrc/shift_grad.cu), the shift
-    cast as for K1-inverse's, two launches."""
-    if route == "previous":
-        return _shift_grad_previous(og, x, shift, stride, padding)
-    if route != "staged":
-        raise _unknown_route(route)
+    reduced per channel in a fixed order (bit-identical run to run). One
+    call of ``rubiks_shift_grad_staged`` (csrc/shift3d_bwd.cu), planned by
+    :func:`shift3d_bwd_plan`: two launches (the partials, their sum) and no
+    other device work."""
     name = _ENTRIES[SHIFT_GRAD][0]
     _check_staged(name, shift, x, og)
     if og.dtype != x.dtype:

@@ -13,9 +13,7 @@ Counterpart of ``scripts/shift_microbench.py``. Stage shapes (batch,
   gradient.
 
 Routes: ``kernel`` (the public functions: K1, K1-inverse and K4 on their
-staged route), ``previous`` (the first forms, ``route="previous"``;
-``bwd``: the forward, both gradients and the normalization on that
-route), ``plain`` (the gather forms), and ``library`` where one PyTorch
+staged route), ``plain`` (the gather forms), and ``library`` where one PyTorch
 call computes the same function: the depthwise ``conv3d`` over the
 shift's tap weights for ``fwd``, ``conv_transpose3d`` for ``input_grad``.
 The shift is U(-1, 1) (the model's init), where those 3x3x3 kernels hold
@@ -27,7 +25,7 @@ gradients relative L2 <= 1e-4 / 1e-3; the library twice the kernel's
 bound: its 27 weights are rounded to the dtype), then timed: ``--rounds``
 rounds, each route once a round in a seeded shuffled order, a sample being
 CUDA events around ``--iters`` back-to-back calls (the host clock with
-``--device cpu``, where ``previous`` has no form). Per route: the samples,
+``--device cpu``). Per route: the samples,
 their median, and the median over rounds of its ratio to the round's
 fastest route; per cell the ``winner`` (the lowest median ratio) and the
 bound (``utils/roofline.py``: bytes over 3.35 TB/s or operations over the
@@ -126,15 +124,7 @@ def full_backward(x, shift, og, plain):
     return torch.autograd.grad(out, (xg, sg), og)
 
 
-def previous_backward(x, shift, og):
-    """The same on the previous route (shift3d.cu, shift_grad.cu)."""
-    s3.shift3d_kernel(x, shift, route="previous")
-    gx = s3.shift3d_input_grad_kernel(og, shift, x.shape, route="previous")
-    gs = s3.shift3d_shift_grad_kernel(og, x, shift, route="previous")
-    return gx, s3.normalize_shift_grad_3d(gs, 1.0)
-
-
-def routes(mode, x, shift, og, cuda):
+def routes(mode, x, shift, og):
     """{route: callable} of one mode, and the work of one call."""
     n, shape = x.numel(), tuple(x.shape)
     item = x.element_size()
@@ -142,34 +132,23 @@ def routes(mode, x, shift, og, cuda):
     grad_work = shift_work(n, n, item, 8)
     sgrad_work = shift_grad_work(n, n, item)
     if mode == "fwd":
-        out = {"kernel": lambda: s3.rubiks_shift_3d_forward(x, shift),
-               "plain": lambda: s3.shift3d_plain(x, shift),
-               "library": library_shift(x, shift, 1)}
-        if cuda:
-            out["previous"] = lambda: s3.shift3d_kernel(x, shift,
-                                                        route="previous")
-        return out, fwd_work
+        return {"kernel": lambda: s3.rubiks_shift_3d_forward(x, shift),
+                "plain": lambda: s3.shift3d_plain(x, shift),
+                "library": library_shift(x, shift, 1)}, fwd_work
     if mode == "input_grad":
-        out = {"kernel": lambda: s3.rubiks_shift_3d_input_grad(og, shift,
-                                                               shape),
-               "plain": lambda: s3.shift3d_input_grad_plain(og, shift,
-                                                            shape),
-               "library": library_shift(og, shift, 1, inverse=True)}
-        if cuda:
-            out["previous"] = lambda: s3.shift3d_input_grad_kernel(
-                og, shift, shape, route="previous")
-        return out, grad_work
+        return {"kernel": lambda: s3.rubiks_shift_3d_input_grad(og, shift,
+                                                                shape),
+                "plain": lambda: s3.shift3d_input_grad_plain(og, shift,
+                                                             shape),
+                "library": library_shift(og, shift, 1, inverse=True)
+                }, grad_work
     if mode == "shift_grad":
-        out = {"kernel": lambda: s3.rubiks_shift_3d_shift_grad(og, x, shift),
-               "plain": lambda: s3.shift3d_shift_grad_plain(og, x, shift)}
-        if cuda:
-            out["previous"] = lambda: s3.shift3d_shift_grad_kernel(
-                og, x, shift, route="previous")
-        return out, sgrad_work
+        return {"kernel": lambda: s3.rubiks_shift_3d_shift_grad(og, x,
+                                                                shift),
+                "plain": lambda: s3.shift3d_shift_grad_plain(og, x, shift)
+                }, sgrad_work
     out = {"kernel": lambda: full_backward(x, shift, og, False),
            "plain": lambda: full_backward(x, shift, og, True)}
-    if cuda:
-        out["previous"] = lambda: previous_backward(x, shift, og)
     work = tuple(a + b + c for a, b, c in zip(fwd_work, grad_work,
                                               sgrad_work))
     return out, work
@@ -234,7 +213,7 @@ def interleave(fns, rounds, iters, cuda):
 
 
 def run_cell(mode, x, shift, og, args, cuda):
-    fns, work = routes(mode, x, shift, og, cuda)
+    fns, work = routes(mode, x, shift, og)
     ref = fns["plain"]()
     rows, failures = {}, {}
     for route, fn in fns.items():

@@ -17,21 +17,20 @@ depends on the batch), and at CASES: widths 54, 108, 216 and 432, one clip, odd 
 ``max_shift`` 3 with shifts near +-3, quantized, integer and zero shifts,
 taps with three non-zero weights per axis, a run of three blocks.
 ``--host`` times the enqueue of a 35-block run at 14x14x288 (host clock, no
-synchronisation): one call per run against one call per block, new route
-and previous; and the run itself by events, with and without the overlap of
-consecutive launches. ``--sweep`` times one block, bfloat16 at batch 8 (or
-``--batch``), at the five shapes under several settings of the plan's knobs
-(``producers``, ``warps_m``, ``warps_n``): device time by
-``torch.profiler`` and time per call by CUDA events, for rubiks3d and aq,
-beside the previous route, with the launches not overlapped so that a
+synchronisation): one call per run against one call per block; and the run
+itself by events, with and without the overlap of consecutive launches.
+``--sweep`` times one block, bfloat16 at batch 8 (or ``--batch``), at the five
+shapes under several settings of the plan's knobs (``producers``, ``warps_m``,
+``warps_n``): device time by ``torch.profiler`` and time per call by CUDA
+events, for rubiks3d and aq, with the launches not overlapped so that a
 kernel's duration holds no wait for the one before it; every setting is held
-against the plain version before it is timed. ``--se`` turns the three to
-the SE forms: ``--ptxas`` also compiles the gate launch
-(``se_gate_tc.cu``) and names each kernel's launch (K2's A with the gate's
-sums, ``rubiks_tc_kernel<5>`` and ``<6>`` with aq, beside the unchanged
-``<0>``, ``<1>``, ``<2>``), ``--check`` runs the se and aq+se variants only,
-``--sweep`` times K2-SE and K2-AQ-SE (launch A with the sums, the gate,
-launch B). Needs a CUDA card; prints its name and power limit.
+against the plain version before it is timed. ``--se`` turns the three to the
+SE forms: ``--ptxas`` also compiles the gate launch (``se_gate_tc.cu``) and
+names each kernel's launch (K2's A with the gate's sums,
+``rubiks_tc_kernel<5>`` and ``<6>`` with aq, beside the unchanged ``<0>``,
+``<1>``, ``<2>``), ``--check`` runs the se and aq+se variants only, ``--sweep``
+times K2-SE and K2-AQ-SE (launch A with the sums, the gate, launch B). Needs a
+CUDA card; prints its name and power limit.
 """
 
 from __future__ import annotations
@@ -157,7 +156,7 @@ def gate_error(scratch, taps, se, max_shift, stride, first_gate):
 
 
 def check_case(label, shape, max_shift, kind, blocks, aq, se, dtype, gen,
-               cpu_gen, dev, route=None, gate_errs=None):
+               cpu_gen, dev, gate_errs=None):
     """One comparison of the kernel with the plain version, the kernel run
     twice; with ``se`` also the last block's gate against the plain gate of
     its mid (appended to ``gate_errs`` where given), bit-identical on the
@@ -167,11 +166,9 @@ def check_case(label, shape, max_shift, kind, blocks, aq, se, dtype, gen,
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     kw = dict(aq=aq, max_shift=max_shift)
     scratch = {}
-    got = fb.fused_block_kernel(x, vt, wm, sep, route=route, scratch=scratch,
-                                **kw)
+    got = fb.fused_block_kernel(x, vt, wm, sep, scratch=scratch, **kw)
     first_gate = scratch["gate"].clone() if se else None
-    again = fb.fused_block_kernel(x, vt, wm, sep, route=route,
-                                  scratch=scratch, **kw)
+    again = fb.fused_block_kernel(x, vt, wm, sep, scratch=scratch, **kw)
     ref = fb.fused_block_plain(x, vt, wm, sep, **kw)
     torch.cuda.synchronize()
     max_abs, rel_max, rel_l2 = rel_errors(got, ref)
@@ -182,8 +179,7 @@ def check_case(label, shape, max_shift, kind, blocks, aq, se, dtype, gen,
     else:
         ok, what = rel_l2 <= TOL_BF16_REL_L2, f"rel_l2<={TOL_BF16_REL_L2}"
     ok = ok and same and finite and got.shape == ref.shape
-    plan = fb.fused_block_plan(shape, dtype, sms=fb._sm_count(dev.index),
-                               route=route)
+    plan = fb.fused_block_plan(shape, dtype, sms=fb._sm_count(dev.index))
     tag = f"K2{'-AQ' if aq else ''}{'-SE' if se else ''}"
     text = (f"{tag} {label} {tuple(shape)} {str(dtype)[6:]}: max_abs="
             f"{max_abs:.3e} rel_max={rel_max:.3e} rel_l2={rel_l2:.3e} "
@@ -313,7 +309,7 @@ def host(dev) -> None:
     enqueue it (one clip: the device is then not the limit): one C call per
     run, and one per block as the wrapper made them before. Time per run by
     events: with and without the overlap of consecutive launches
-    (programmatic dependent launch), beside the previous route."""
+    (programmatic dependent launch)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -322,26 +318,20 @@ def host(dev) -> None:
         x = torch.randn((batch, FRAMES, 14, 14, 288), generator=gen,
                         device=dev).to(bf)
 
-        def per_block(route):
+        def per_block():
             y = x
             for b in range(vt.shape[0]):
                 y = fb.fused_block_kernel(y, vt[b:b + 1], wm[b:b + 1],
-                                          max_shift=1, route=route)
+                                          max_shift=1)
             return y
 
         for label, fn in (
-                ("one call per run, tensor-core route",
+                ("one call per run",
                  lambda: fb.fused_block_kernel(x, vt, wm, max_shift=1)),
                 ("the same, launches not overlapped",
                  lambda: fb.fused_block_kernel(x, vt, wm, max_shift=1,
                                                overlap=False)),
-                ("one call per run, previous route",
-                 lambda: fb.fused_block_kernel(x, vt, wm, max_shift=1,
-                                               route="simt")),
-                ("one call per block, tensor-core route",
-                 lambda: per_block(None)),
-                ("one call per block, previous route",
-                 lambda: per_block("simt"))):
+                ("one call per block", per_block)):
             us = host_us(fn)
             ms = cuda_time_ms(fn, iters=10)
             print(f"  host {label}: {us:.1f} us to enqueue a 35-block run "
@@ -360,17 +350,16 @@ def device_ms(fn, needles, iters=5):
     return total / iters, sum(n for n, _ in times.values()) / iters, by_name
 
 
-# Kernel names of K2's launches by route, as the profiler shows them (with
+# Kernel names of K2's bfloat16 launches, as the profiler shows them (with
 # the SE gate's).
-NEEDLES = {"mma": ("rubiks_tc_kernel", "se_gate_tc_kernel"),
-           "simt": ("gemm_kernel", "se_partial_kernel", "se_gate_kernel")}
+NEEDLES = ("rubiks_tc_kernel", "se_gate_tc_kernel")
 
 def _pinned(producers, warps_m, warps_n):
     return {"producers": producers, "warps_m": warps_m, "warps_n": warps_n}
 
 
 # The sweep's settings: the plan's own choice first and last, then pinned
-# (producers, warps_m, warps_n) and the previous route.
+# (producers, warps_m, warps_n).
 # A setting that does not fit a width is skipped there.
 SETTINGS = [{}] + [_pinned(*k) for k in (
     (0, 16, 1), (0, 12, 1), (0, 8, 1), (8, 8, 1), (12, 4, 1), (12, 2, 1),
@@ -378,7 +367,7 @@ SETTINGS = [{}] + [_pinned(*k) for k in (
     (0, 8, 2), (0, 6, 2), (0, 4, 2), (8, 4, 2), (12, 2, 2), (12, 1, 2),
     (8, 1, 2), (0, 2, 2), (0, 1, 2),
     (0, 4, 4), (0, 3, 4), (0, 2, 4), (8, 2, 4), (12, 1, 4), (8, 1, 4))] + [
-        {"route": "simt"}, {}]
+        {}]
 
 
 def sweep(dev, batch, se=False) -> bool:
@@ -397,16 +386,14 @@ def sweep(dev, batch, se=False) -> bool:
             vt, wm, sep = make_run(c, 1, aq, se, bf, 1, "frac", cpu_gen, dev)
             ref = fb.fused_block_plain(x, vt, wm, sep, aq=aq, max_shift=1)
             for i, setting in enumerate(SETTINGS):
-                knobs = dict(setting)
-                route = knobs.pop("route", None)
                 try:
                     plan = fb.fused_block_plan(shape, bf, sms=fb._sm_count(
-                        dev.index), route=route, **knobs)
+                        dev.index), **setting)
                 except ValueError:
                     continue  # the setting does not fit this width
                 fn = lambda: fb.fused_block_kernel(
-                    x, vt, wm, sep, aq=aq, max_shift=1, route=route,
-                    overlap=False, **knobs)
+                    x, vt, wm, sep, aq=aq, max_shift=1, overlap=False,
+                    **setting)
                 try:
                     got = fn()
                 except ValueError:
@@ -419,7 +406,7 @@ def sweep(dev, batch, se=False) -> bool:
                           f"{rel_l2:.3e} against the plain version FAIL")
                     ok = False
                     continue
-                dev_ms, n, by_name = device_ms(fn, NEEDLES[plan.route])
+                dev_ms, n, by_name = device_ms(fn, NEEDLES)
                 evt = cuda_time_ms(fn, iters=20)
                 t = totals.setdefault((aq, i), [0.0, 0.0, 0])
                 t[0] += count * dev_ms

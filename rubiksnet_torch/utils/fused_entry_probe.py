@@ -14,26 +14,26 @@ tensor-core (HMMA) instructions of each object
 (``fused_block_probe.ptxas_report``). ``--check`` holds K3 and K3-SE against
 the plain version, each run repeated bit-identically: bf16 on the tensor
 cores at the four Large entry shapes at batch 1, 8 and 32 (the plan depends
-on the batch), f32 on the SIMT route and bf16 on both routes at batch 2, and
-at CASES (Cin 54 -> 108, ``max_shift`` 3 with shifts near +-3, quantized,
+on the batch), f32 on the SIMT route and bf16 at batch 2, and at CASES
+(Cin 54 -> 108, ``max_shift`` 3 with shifts near +-3, quantized,
 integer and zero shifts, one clip, non-square even H x W, taps with three
 weights per axis); then, by the profiler's kernel names, that bf16 runs
 ``rubiks_entry_tc_kernel`` and f32 ``gemm_kernel``. ``--host`` times the
-enqueue of one entry call (one clip, host clock): new route and previous.
-``--sweep`` times one entry, bfloat16 at batch 8 (or ``--batch``), at the
-four shapes under pinned ``producers``, ``warps_m``, ``warps_n`` of either
-launch: device time of launch A and launch B by ``torch.profiler``, with
-the launches not overlapped, beside the plan's own choice and the previous
-route; every setting is held against the plain version before it is timed.
-``--se`` turns the three to the SE forms: ``--ptxas`` also compiles the gate
-launch (``se_gate_tc.cu``; launch A with the gate's sums is
-``rubiks_entry_tc_kernel<7>``, beside the unchanged ``<3>`` and ``<4>``),
+enqueue of one entry call (one clip, host clock).
+``--sweep`` times one entry, bfloat16 at batch 8 (or ``--batch``), at the four
+shapes under pinned ``producers``, ``warps_m``, ``warps_n`` of either launch:
+device time of launch A and launch B by ``torch.profiler``, with the launches
+not overlapped, beside the plan's own choice; every setting is held against the
+plain version before it is timed. ``--se`` turns the three to the SE forms:
+``--ptxas`` also compiles the gate launch (``se_gate_tc.cu``; launch A with the
+gate's sums is ``rubiks_entry_tc_kernel<7>``, beside the unchanged ``<3>`` and
+``<4>``),
 ``--check`` runs K3-SE only, ``--sweep`` times K3-SE (launch A with the
 sums, the gate, the pre-pass, launch B). ``--aq`` turns ``--check`` and
 ``--sweep`` to K3-AQ, the rubiks3d-aq entry (launch A with the attention
 mix is ``rubiks_entry_tc_kernel<8>``; the shift is 2D, an identity T row):
 ``--check`` at the four entry shapes (Large-AQ's) at batch 2 and 8 in f32
-and bf16, bf16 on both routes, at the served batches, and at the CASES the
+and bf16, at the served batches, and at the CASES the
 2D shift can take (no quantized shift); the sweep holds each setting
 against the plain version with the mix and beside the module path (the
 block's own forward: bn1, the attention shift, the 1x1 convs, the 2D shift
@@ -79,7 +79,7 @@ def launch_of(name: str) -> str | None:
     sums, <7>, or with the attention mix <8>, and <4>), "G" (launch B's
     gather pre-pass), "gate" (the SE
     gate: one launch on the tensor-core route, two on the SIMT route) or
-    "simt" (the previous route's GEMM)."""
+    "simt" (float32's GEMM)."""
     if "rubiks_entry_gather_kernel" in name:
         return "G"
     at = name.find("rubiks_entry_tc_kernel")
@@ -119,7 +119,7 @@ def make_entry(cin, cm, se, dtype, max_shift, kind, cpu_gen, dev, aq=False):
 
 
 def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
-               dev, route=None, gate_errs=None, aq=False):
+               dev, gate_errs=None, aq=False):
     """One comparison of K3 with the plain version, the kernel run twice;
     with ``se`` also the gate against the plain gate of the kernel's mid
     (appended to ``gate_errs`` where given), bit-identical on the rerun;
@@ -130,11 +130,9 @@ def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
     x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     kw = dict(max_shift=max_shift, aq=aq)
     scratch = {}
-    got = fe.fused_entry_kernel(x, params, sep, route=route, scratch=scratch,
-                                **kw)
+    got = fe.fused_entry_kernel(x, params, sep, scratch=scratch, **kw)
     first_gate = scratch["gate"].clone() if se else None
-    again = fe.fused_entry_kernel(x, params, sep, route=route,
-                                  scratch=scratch, **kw)
+    again = fe.fused_entry_kernel(x, params, sep, scratch=scratch, **kw)
     ref = fe.fused_entry_plain(x, params, sep, **kw)
     torch.cuda.synchronize()
     max_abs, rel_max, rel_l2 = k2.rel_errors(got, ref)
@@ -147,8 +145,7 @@ def check_case(label, shape, cm, max_shift, kind, se, dtype, gen, cpu_gen,
         ok, what = (rel_l2 <= k2.TOL_BF16_REL_L2,
                     f"rel_l2<={k2.TOL_BF16_REL_L2}")
     ok = ok and same and finite and got.shape == ref.shape
-    plan = fe.fused_entry_plan(shape, cm, dtype, sms=_sm_count(dev.index),
-                               route=route)
+    plan = fe.fused_entry_plan(shape, cm, dtype, sms=_sm_count(dev.index))
     text = (f"K3{'-SE' if se else ''}{'-AQ' if aq else ''} {label} "
             f"{tuple(shape)}->{cm} "
             f"{str(dtype)[6:]}: max_abs={max_abs:.3e} rel_max={rel_max:.3e} "
@@ -218,16 +215,14 @@ def check(dev, se_only=False, aq=False) -> bool:
     ok = True
     bf, f32 = torch.bfloat16, torch.float32
     cases = aq_cases() if aq else model_cases() + CASES
-    runs = [(case, f32, None) for case in cases]
-    runs += [(case, bf, None) for case in cases]
-    runs += [(case, bf, "simt") for case in model_cases()]
-    runs += [(case, bf, None) for case in served_cases()]
+    runs = [(case, f32) for case in cases]
+    runs += [(case, bf) for case in cases + served_cases()]
     forms = (False,) if aq else (True,) if se_only else (False, True)
-    for (label, n, t, h, w, cin, cm, k, kind), dt, route in runs:
+    for (label, n, t, h, w, cin, cm, k, kind), dt in runs:
         for se in forms:
             good, _, text, _ = check_case(label, (n, t, h, w, cin), cm, k,
                                           kind, se, dt, gen, cpu_gen, dev,
-                                          route, aq=aq)
+                                          aq=aq)
             print("  " + text)
             ok &= good
     good, text = route_kernels(gen, cpu_gen, dev, aq)
@@ -237,21 +232,18 @@ def check(dev, se_only=False, aq=False) -> bool:
 
 def host(dev) -> None:
     """Host microseconds to enqueue one entry call, one clip at 14x14x288
-    -> 576 (the device is then not the limit), new route and previous."""
+    -> 576 (the device is then not the limit)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
     params, sep = make_entry(288, 576, False, bf, 1, "frac", cpu_gen, dev)
     x = torch.randn((1, FRAMES, 14, 14, 288), generator=gen,
                     device=dev).to(bf)
-    for label, route in (("tensor-core route", None),
-                         ("previous route", "simt")):
-        fn = lambda: fe.fused_entry_kernel(x, params, sep, max_shift=1,
-                                           route=route)
-        us = k2.host_us(fn)
-        print(f"  host {label}: {us:.1f} us to enqueue one entry call at "
-              f"14x14x288->576, one clip; {cuda_time_ms(fn):.4f} ms a call "
-              f"by events")
+    fn = lambda: fe.fused_entry_kernel(x, params, sep, max_shift=1)
+    us = k2.host_us(fn)
+    print(f"  host: {us:.1f} us to enqueue one entry call at "
+          f"14x14x288->576, one clip; {cuda_time_ms(fn):.4f} ms a call by "
+          f"events")
 
 
 def _pinned(launch, producers, warps_m, warps_n):
@@ -261,14 +253,13 @@ def _pinned(launch, producers, warps_m, warps_n):
 
 # The sweep's settings: the plan's own choice first and last, then pinned
 # (producers, warps_m, warps_n) of launch A, of launch B, the gather
-# pre-pass forced on and off, and the previous route. A setting that does
-# not fit a width is skipped there.
+# pre-pass forced on and off. A setting that does not fit a width is skipped
+# there.
 SETTINGS = [{}] + [_pinned(launch, *k) for launch in ("a", "b") for k in (
     (0, 16, 1), (0, 8, 1), (0, 4, 1), (0, 2, 1), (0, 1, 1), (8, 4, 1),
     (12, 2, 1), (4, 2, 1), (12, 1, 1), (4, 1, 1), (0, 8, 2), (0, 4, 2),
     (0, 2, 2), (8, 4, 2), (12, 2, 2), (12, 1, 2), (0, 4, 4), (0, 2, 4),
-    (8, 2, 4), (12, 1, 4))] + [{"stage": True}, {"stage": False},
-                               {"route": "simt"}, {}]
+    (8, 2, 4), (12, 1, 4))] + [{"stage": True}, {"stage": False}, {}]
 
 
 def sweep(dev, batch, se=False, aq=False) -> bool:
@@ -298,18 +289,15 @@ def sweep(dev, batch, se=False, aq=False) -> bool:
                       f"plain, device {dev_ms:.4f} ms, events "
                       f"{cuda_time_ms(module, iters=20):.4f} ms")
         for i, setting in enumerate(SETTINGS):
-            knobs = dict(setting)
-            route = knobs.pop("route", None)
             try:
                 plan = fe.fused_entry_plan(shape, cm, bf,
                                            sms=_sm_count(dev.index),
-                                           route=route, **knobs)
+                                           **setting)
             except ValueError:
                 continue  # the setting does not fit this width
-            over = {} if route == "simt" else {"overlap": False}
             fn = lambda: fe.fused_entry_kernel(x, params, sep, max_shift=1,
-                                               aq=aq, route=route, **over,
-                                               **knobs)
+                                               aq=aq, overlap=False,
+                                               **setting)
             try:
                 got = fn()
             except ValueError:
@@ -327,7 +315,7 @@ def sweep(dev, batch, se=False, aq=False) -> bool:
             times = cuda_kernel_times(fn, iters=5)
             by = {part: sum(ms for nm, (_, ms) in times.items()
                             if launch_of(nm) == part) / 5
-                  for part in ("A", "B", "G", "gate", "simt")}
+                  for part in ("A", "B", "G", "gate")}
             dev_ms = sum(ms for _, ms in times.values()) / 5
             evt = cuda_time_ms(fn, iters=20)
             t = totals.setdefault(i, [0.0, 0.0, 0.0, 0.0, 0])
@@ -337,8 +325,8 @@ def sweep(dev, batch, se=False, aq=False) -> bool:
             t[3] += evt
             t[4] += 1
             print(f"  {label}: rel_l2 {rel_l2:.1e} ok, device A {by['A']:.4f}"
-                  f" gate {by['gate']:.4f} G {by['G']:.4f} B {by['B']:.4f} "
-                  f"SIMT {by['simt']:.4f}, all {dev_ms:.4f} ms, events "
+                  f" gate {by['gate']:.4f} G {by['G']:.4f} B {by['B']:.4f}, "
+                  f"all {dev_ms:.4f} ms, events "
                   f"{evt:.4f} ms")
     print("[sweep] summed over the entry shapes the setting fits (of 4): "
           "device ms A, B, all; events ms")

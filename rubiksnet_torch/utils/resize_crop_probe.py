@@ -5,29 +5,26 @@ launch plan's knobs.
     python3 -m rubiksnet_torch.utils.resize_crop_probe --ptxas --check \
         --time --sweep --phases
 
-``--ptxas`` compiles the source once more with ``-Xptxas -v`` and prints
-each kernel's registers, spills and shared memory. ``--check`` holds both
-routes (``staged``, the default, and ``previous``) to
-``plain_resize_crop`` bit for bit: frames of six sizes in one batch (no
-resize, upscales, a portrait frame, downscales of ksize 5 and 7), 1 and 3
-crops, groups of 1 and 4, a buffer whose rows start off 16 bytes and an
-output that does not, and the three shapes of ``SHAPES``; each twice,
-bit-identically. ``--time`` times, at each of ``SHAPES``, the staged
-kernel, the previous route and the library's version (``F.interpolate``
-with ``antialias=True`` and the crop, or the sliced copy): device ms of
-the launch alone (``resize_crop_launch``) by ``torch.profiler``, ms by
-CUDA events around the wrapper's calls (its host work included), the
-host's ms a call, and the bound
-(``utils/roofline.py``). ``--sweep`` times the staged kernel under several
-settings of ``BAND_ROWS``, ``RUN_BANDS``, ``THREADS``, ``COPY_ROWS``,
-``COPY_THREADS`` and ``SMEM_BUDGET`` of
-``data/device_loader.py::resize_crop_plan``, each first held against
-plain. ``--phases`` says where the staged kernel's time goes: it builds
-copies of the source with a phase's work taken out (the horizontal taps,
-the vertical taps, both, everything after the taps are staged) and times
-each beside the whole kernel at the resized shapes (a copy's output is
-wrong by design; it is timed, not checked). Needs a CUDA card (raises
-elsewhere); prints its name and power limit.
+``--ptxas`` compiles the source once more with ``-Xptxas -v`` and prints each
+kernel's registers, spills and shared memory. ``--check`` holds the staged
+kernel to ``plain_resize_crop`` bit for bit: frames of six sizes in one batch
+(no resize, upscales, a portrait frame, downscales of ksize 5 and 7), 1 and 3
+crops, groups of 1 and 4, a buffer whose rows start off 16 bytes and an output
+that does not, and the three shapes of ``SHAPES``; each twice, bit-identically.
+``--time`` times, at each of ``SHAPES``, the staged kernel and the library's
+version (``F.interpolate`` with ``antialias=True`` and the crop, or the sliced
+copy): device ms of the launch alone (``resize_crop_launch``) by
+``torch.profiler``, ms by CUDA events around the wrapper's calls (its host work
+included), the host's ms a call, and the bound (``utils/roofline.py``).
+``--sweep`` times the staged kernel under several settings of ``BAND_ROWS``,
+``RUN_BANDS``, ``THREADS``, ``COPY_ROWS``, ``COPY_THREADS`` and ``SMEM_BUDGET``
+of ``data/device_loader.py::resize_crop_plan``, each first held against plain.
+``--phases`` says where the staged kernel's time goes: it builds copies of the
+source with a phase's work taken out (the horizontal taps, the vertical taps,
+both, everything after the taps are staged) and times each beside the whole
+kernel at the resized shapes (a copy's output is wrong by design; it is timed,
+not checked). Needs a CUDA card (raises elsewhere); prints its name and power
+limit.
 """
 
 from __future__ import annotations
@@ -137,7 +134,7 @@ def host_ms(fn, calls=50):
 def ptxas_report() -> None:
     from ..ops._build import NVCC_FLAGS, _find_nvcc
 
-    inc = [f for f in dl._link_flags() if f.startswith("-I")]
+    inc, _ = dl._nvjpeg_flags()
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
             [_find_nvcc(), *NVCC_FLAGS, *dl.LOADER_FLAGS, *inc, "-Xptxas",
@@ -155,27 +152,24 @@ def ptxas_report() -> None:
 
 
 def same_twice(label, rgb, sizes, origins, group, out_lead=0) -> bool:
-    """Both routes against plain, each twice; prints one line a route."""
+    """The kernel against plain, twice; prints one line."""
     n, k = len(sizes), len(origins[0])
     ref = dl.plain_resize_crop(rgb, sizes, SCALE, CROP, origins, group)
-    ok = True
-    for route in dl.ROUTES:
-        outs = []
-        for _ in range(2):
-            out = None
-            if out_lead:
-                out = torch.empty(n * k * CROP * CROP * 3 + out_lead,
-                                  dtype=torch.uint8, device=rgb.device)[
-                    out_lead:].view(n * k, CROP, CROP, 3)
-            outs.append(dl.resize_crop(rgb, sizes, SCALE, CROP, origins,
-                                       group, out=out, route=route).clone())
-        torch.cuda.synchronize()
-        good = torch.equal(outs[0], ref) and torch.equal(outs[1], outs[0])
-        worst = int((outs[0].int() - ref.int()).abs().max())
-        print(f"  {label}, route {route}: max |diff| {worst}, "
-              f"{'bit-identical, twice' if good else 'DIFFER'}")
-        ok &= good
-    return ok
+    outs = []
+    for _ in range(2):
+        out = None
+        if out_lead:
+            out = torch.empty(n * k * CROP * CROP * 3 + out_lead,
+                              dtype=torch.uint8, device=rgb.device)[
+                out_lead:].view(n * k, CROP, CROP, 3)
+        outs.append(dl.resize_crop(rgb, sizes, SCALE, CROP, origins, group,
+                                   out=out).clone())
+    torch.cuda.synchronize()
+    good = torch.equal(outs[0], ref) and torch.equal(outs[1], outs[0])
+    worst = int((outs[0].int() - ref.int()).abs().max())
+    print(f"  {label}: max |diff| {worst}, "
+          f"{'bit-identical, twice' if good else 'DIFFER'}")
+    return good
 
 
 def check(dev) -> bool:
@@ -214,18 +208,14 @@ def time_shapes(dev) -> None:
                                                        origins))
         bound = max(tb, to)
         lib = library_version(rgb, sizes, origins)
-        row = []
-        for route in dl.ROUTES:
-            fn = (lambda r=route: dl.resize_crop(rgb, sizes, SCALE, CROP,
-                                                 origins, group, route=r))
-            launch, _ = dl.resize_crop_launch(rgb, sizes, SCALE, CROP,
-                                              origins, group, route=route)
-            dev_ms, records = device_ms(launch)
-            row.append(f"{route}: device {dev_ms:.4f} ms ({records:g} "
-                       f"records a launch; {bound / dev_ms:.1%} of the "
-                       f"bound), the wrapper by events "
-                       f"{cuda_time_ms(fn, iters=20):.4f} ms, its host "
-                       f"{host_ms(fn):.4f} ms")
+        fn = lambda: dl.resize_crop(rgb, sizes, SCALE, CROP, origins, group)
+        launch, _ = dl.resize_crop_launch(rgb, sizes, SCALE, CROP, origins,
+                                          group)
+        dev_ms, records = device_ms(launch)
+        row = [f"staged: device {dev_ms:.4f} ms ({records:g} records a "
+               f"launch; {bound / dev_ms:.1%} of the bound), the wrapper by "
+               f"events {cuda_time_ms(fn, iters=20):.4f} ms, its host "
+               f"{host_ms(fn):.4f} ms"]
         lib_dev, lib_n = device_ms(lib, needle="")
         row.append(f"library: device {lib_dev:.4f} ms ({lib_n:g} records), "
                    f"events {cuda_time_ms(lib, iters=20):.4f} ms")
@@ -294,6 +284,7 @@ def phases(dev) -> None:
     from ..ops._build import NVCC_FLAGS, _find_nvcc, stream_of
 
     source = dl.SOURCE.read_text()
+    include, link = dl._nvjpeg_flags()
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for j, (_, subs) in enumerate(PHASES):
@@ -306,8 +297,8 @@ def phases(dev) -> None:
             with open(cu, "w") as f:
                 f.write(text)
             procs.append(subprocess.Popen(
-                [_find_nvcc(), *NVCC_FLAGS, *dl.LOADER_FLAGS, "-shared",
-                 "-o", f"{tmp}/v{j}.so", cu, *dl._link_flags()],
+                [_find_nvcc(), *NVCC_FLAGS, *dl.LOADER_FLAGS, *include,
+                 "-shared", "-o", f"{tmp}/v{j}.so", cu, *link],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         libs = []
         for proc in procs:

@@ -8,28 +8,26 @@ of the plan's knobs.
     python3 -m rubiksnet_torch.utils.shift3d_bwd_probe --ptxas \\
         --parent OTHER_CHECKOUT
 
-``--ptxas`` compiles shift3d_bwd.cu and the previous route's sources
-(shift3d.cu, shift_grad.cu) once more with ``-Xptxas -v`` and prints each
-kernel's registers, spills and shared memory; with ``--parent`` also those
-of the shift3d_bwd.cu of another checkout of the repository (its root), so
-that two versions of the body compare in one run. ``--check`` holds the
-three kernels against their plain versions at the nine shift shapes of
-Large (2 clips of 8 frames; float32 and bfloat16; the forward and the input
-gradient fractional and quantized; every fourth channel an exact integer)
-and at CASES (C = 54 and 108, odd extents, stride (2, 2, 2) with padding
-(1, 1, 1), stride (1, 2, 2) with padding (0, 1, 0), one clip, shifts of +-9
-that take the direct-read route), each run twice and bit-identical.
-``--sweep`` times the three, bfloat16 at 8 clips (or ``--batch``), at the
-nine shapes under several settings of the plan's knobs (``ops/shift3d.py``:
-BWD_SMEM_BUDGET, BWD_MAX_GROUP, BWD_MAX_RING, BWD_TARGET_BLOCKS,
-BWD_MIN_BAND_ROWS, BWD_BLOCK_THREADS), device time per call by
-``torch.profiler`` beside the previous route's, summed over the calls of
-one Large forward (K1) or train step. ``--host`` times the enqueue alone
-(host clock, no synchronisation) of the three wrappers on either route at
-the smallest shape. ``--trace``, alone (its build's marks change registers
-and times), builds the kernels with BWD3D_TRACE and prints when the blocks
-of one launch reach the stages of their lives. Needs a CUDA card; prints
-its name and power limit.
+``--ptxas`` compiles shift3d_bwd.cu once more with ``-Xptxas -v`` and prints
+each kernel's registers, spills and shared memory; with ``--parent`` also those
+of the shift3d_bwd.cu of another checkout of the repository (its root), so that
+two versions of the body compare in one run. ``--check`` holds the three
+kernels against their plain versions at the nine shift shapes of Large (2 clips
+of 8 frames; float32 and bfloat16; the forward and the input gradient
+fractional and quantized; every fourth channel an exact integer) and at CASES
+(C = 54 and 108, odd extents, stride (2, 2, 2) with padding (1, 1, 1), stride
+(1, 2, 2) with padding (0, 1, 0), one clip, shifts of +-9 that take the
+direct-read route), each run twice and bit-identical. ``--sweep`` times the
+three, bfloat16 at 8 clips (or ``--batch``), at the nine shapes under several
+settings of the plan's knobs (``ops/shift3d.py``: BWD_SMEM_BUDGET,
+BWD_MAX_GROUP, BWD_MAX_RING, BWD_TARGET_BLOCKS, BWD_MIN_BAND_ROWS,
+BWD_BLOCK_THREADS), device time per call by ``torch.profiler``, summed over the
+calls of one Large forward (K1) or train step. ``--host`` times the enqueue
+alone (host clock, no synchronisation) of the three wrappers at the smallest
+shape. ``--trace``, alone (its build's marks change registers and times),
+builds the kernels with BWD3D_TRACE and prints when the blocks of one launch
+reach the stages of their lives. Needs a CUDA card; prints its name and power
+limit.
 """
 
 from __future__ import annotations
@@ -122,14 +120,12 @@ def sass_counts(obj):
 
 
 def ptxas_report(sass_out="", parent="") -> None:
-    """Registers, spills and shared memory of every kernel of the new
-    source and of the previous route's (and with ``parent`` of that
-    checkout's shift3d_bwd.cu, built against its own headers); for the new
-    source also the count of its shared, generic and global loads and
-    stores and barriers, and with ``sass_out`` its whole SASS listing in
-    that file."""
-    sources = [(name, _build.CSRC / name)
-               for name in ("shift3d_bwd.cu", "shift3d.cu", "shift_grad.cu")]
+    """Registers, spills and shared memory of every kernel of the source (and
+    with ``parent`` of that checkout's shift3d_bwd.cu, built against its own
+    headers); for this checkout's source also the count of its shared, generic
+    and global loads and stores and barriers, and with ``sass_out`` its whole
+    SASS listing in that file."""
+    sources = [("shift3d_bwd.cu", _build.CSRC / "shift3d_bwd.cu")]
     if parent:
         sources.append(("parent's shift3d_bwd.cu", Path(parent)
                         / "rubiksnet_torch/ops/csrc/shift3d_bwd.cu"))
@@ -339,25 +335,21 @@ def host(dev) -> None:
     x = torch.randn((8, FRAMES, 7, 7, 576), generator=gen, device=dev).to(bf)
     og = torch.randn(x.shape, generator=gen, device=dev).to(bf)
     shift = torch.rand((3, 576), generator=gen, device=dev) * 2 - 1
-    for route in ("staged", "previous"):
-        for label, fn in (
-                ("shift3d_kernel",
-                 lambda: s3.shift3d_kernel(x, shift, route=route)),
-                ("shift3d_input_grad_kernel",
-                 lambda: s3.shift3d_input_grad_kernel(og, shift, x.shape,
-                                                      route=route)),
-                ("shift3d_shift_grad_kernel",
-                 lambda: s3.shift3d_shift_grad_kernel(og, x, shift,
-                                                      route=route))):
-            print(f"  host {label} route={route}: {host_us(fn):.2f} us per "
-                  f"call at 8x8x7x7x576")
+    for label, fn in (
+            ("shift3d_kernel", lambda: s3.shift3d_kernel(x, shift)),
+            ("shift3d_input_grad_kernel",
+             lambda: s3.shift3d_input_grad_kernel(og, shift, x.shape)),
+            ("shift3d_shift_grad_kernel",
+             lambda: s3.shift3d_shift_grad_kernel(og, x, shift))):
+        print(f"  host {label}: {host_us(fn):.2f} us per call at "
+              f"8x8x7x7x576")
 
 
 def sweep(dev, batch, picked) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     defaults = {k: getattr(s3, k) for k in KNOBS}
-    totals, previous = {}, [0.0, 0.0, 0.0]
+    totals = {}
     for h, c, s, count in SHAPES:
         stride = (1, s, s)
         x = torch.randn((batch, FRAMES, h, h, c), generator=gen,
@@ -366,19 +358,6 @@ def sweep(dev, batch, picked) -> None:
                                                     (0, 0, 0)),
                          generator=gen, device=dev).to(bf)
         shift = torch.rand((3, c), generator=gen, device=dev) * 2 - 1
-        inv_prev = device_ms(lambda: s3.shift3d_input_grad_kernel(
-            og, shift, x.shape, stride, route="previous"))
-        sg_prev = device_ms(lambda: s3.shift3d_shift_grad_kernel(
-            og, x, shift, stride, route="previous"))
-        fwd_prev = device_ms(lambda: s3.shift3d_kernel(
-            x, shift, stride, route="previous"))
-        previous[0] += count * inv_prev[0]
-        previous[1] += count * sg_prev[0]
-        previous[2] += count * fwd_prev[0]
-        print(f"  {h}x{h}x{c} stride {s} previous route: fwd device "
-              f"{fwd_prev[0]:.4f} ms ({fwd_prev[1]:.0f} kernels/call); inv "
-              f"{inv_prev[0]:.4f} ms ({inv_prev[1]:.0f}); sg "
-              f"{sg_prev[0]:.4f} ms ({sg_prev[1]:.0f})")
         for i in picked:
             setting = SETTINGS[i]
             for k in KNOBS:
@@ -415,8 +394,7 @@ def sweep(dev, batch, picked) -> None:
         setattr(s3, k, defaults[k])
     s3._bwd_prepare.cache_clear()
     print(f"[sweep] summed over one Large forward (K1) or train step (51 "
-          f"calls each), batch {batch}, device ms: previous route fwd "
-          f"{previous[2]:.3f}, inv {previous[0]:.3f}, sg {previous[1]:.3f}")
+          f"calls each), batch {batch}, device ms")
     for i, t in totals.items():
         print(f"  {SETTINGS[i] or 'defaults'}: fwd {t[2]:.3f}, inv "
               f"{t[0]:.3f}, sg {t[1]:.3f}")

@@ -144,7 +144,7 @@ def test_microbench_line(capsys, tmp_path):
             "shift_grad": {"kernel", "plain"}}
     for mode, routes in want.items():
         cell = case[mode]
-        assert set(cell["routes"]) == routes  # no previous route on the CPU
+        assert set(cell["routes"]) == routes
         assert cell["winner"] in routes
         assert cell["bound_ms"] > 0 and cell["bound_by"] in ("bytes",
                                                              "operations")

@@ -31,6 +31,7 @@ import rubiksnet_torch.data as port
 from rubiksnet_torch.data import device_loader as dl
 from rubiksnet_torch.data import native_loader
 from rubiksnet_torch.data.native_eval import center_offset, full_res_offsets
+from rubiksnet_torch.ops import _build
 from rubiksnet_torch.scripts import test_models
 
 torch.set_num_threads(1)
@@ -170,70 +171,6 @@ def test_coefficients_equal_triangle_coeffs(in_size, out_size):
     assert co.lo.tolist() == [r[0] for r in rows]
     assert co.counts.tolist() == [r[1] for r in rows]
     assert co.weights.tolist() == [r[2] for r in rows]  # exact doubles
-
-
-def emulate_kernel(rgb, sizes, scale, crop, origins, group):
-    """``resize_crop_u8``'s work in float64 numpy from the tables the
-    wrapper uploads (``kernel_tables``): each output byte found as the
-    kernel finds it (block: output crop o and row y; thread: e along the
-    row, channel e % 3, column e // 3; o: group, crop of the group, frame),
-    its taps read from the (first, count) rows and the weights, the sums
-    in the kernel's order."""
-    sizes, resized, origins, k, group = dl.frame_geometry(
-        sizes, scale, crop, origins, group)
-    buf, (o_desc, o_orig, o_taps, o_wts) = dl.kernel_tables(
-        sizes, resized, origins, scale)
-    n = len(sizes)
-    desc = buf[o_desc:o_desc + n * dl.FRAME_DESC.itemsize].view(dl.FRAME_DESC)
-    orig = buf[o_orig:o_orig + n * k * 8].view(np.int32).reshape(n, k, 2)
-    taps = buf[o_taps:o_wts].view(np.int32).reshape(-1, 2)
-    wts = buf[o_wts:].view(np.float64)
-    src = rgb.numpy()
-    idx = np.arange(n * k * crop * crop * 3)
-    o, rest = idx // (crop * crop * 3), idx % (crop * crop * 3)
-    y, e = rest // (crop * 3), rest % (crop * 3)
-    ch, x = e % 3, e // 3
-    r = o % (k * group)
-    kc, i = r // group, (o // (k * group)) * group + r % group
-    d = desc[i]
-    fx = orig[i, kc, 0] + x
-    fy = orig[i, kc, 1] + y
-    out = np.empty(idx.shape, np.int64)
-    copy = d["cx"] < 0
-    at = d["src_off"] + (fy * d["w"] + fx) * 3 + ch
-    out[copy] = src[at[copy]]
-    rs = ~copy
-    if rs.any():
-        d, fx, fy, ch = d[rs], fx[rs], fy[rs], ch[rs]
-        xlo, xn = taps[d["cx"] + fx].T
-        ylo, yn = taps[d["cy"] + fy].T
-        acc = np.zeros(rs.sum())
-        for a in range(int(yn.max())):
-            hsum = np.zeros(rs.sum())
-            for b in range(int(xn.max())):
-                wx = np.where(b < xn, wts[np.minimum(
-                    d["wx"] + fx * d["kx"] + b, len(wts) - 1)], 0.0)
-                col = np.minimum(xlo + b, d["w"] - 1)
-                row = np.minimum(ylo + a, d["h"] - 1)
-                px = src[d["src_off"] + (row * d["w"] + col) * 3 + ch]
-                hsum = hsum + wx * px
-            t = hsum.astype(np.float32).astype(np.float64)
-            wy = np.where(a < yn, wts[np.minimum(
-                d["wy"] + fy * d["ky"] + a, len(wts) - 1)], 0.0)
-            acc = acc + wy * t
-        out[rs] = np.clip(np.trunc(acc + 0.5), 0, 255)
-    return out.astype(np.uint8).reshape(n * k, crop, crop, 3)
-
-
-@pytest.mark.parametrize("crops,group", [(1, 7), (3, 1), (3, 7)])
-def test_the_kernels_decomposition_equals_plain(jpegs, crops, group):
-    frames = [dl.plain_decode(open(p, "rb").read()) for p in jpegs]
-    rgb, sizes = dl.pack_frames(frames)
-    origins = [origins_of(*SIZES[i], crops, "protocol")
-               for i in range(len(SIZES))]
-    want = dl.plain_resize_crop(rgb, sizes, SCALE, CROP, origins, group)
-    got = emulate_kernel(rgb, sizes, SCALE, CROP, origins, group)
-    np.testing.assert_array_equal(got, want.numpy())
 
 
 def test_decode_batch_on_the_cpu_is_pillow(jpegs):
@@ -419,12 +356,12 @@ def test_no_nvcc_here_and_no_fallback(monkeypatch, tmp_path):
     header raises too."""
     assert dl.toolchain_present() is False
     dl.load_library.cache_clear()
-    monkeypatch.setattr(dl, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     try:
         for _ in range(2):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 dl.load_library()
-        monkeypatch.setattr(dl, "_find_nvcc", lambda: "/bin/true")
+        monkeypatch.setattr(_build, "_find_nvcc", lambda: "/bin/true")
         monkeypatch.setattr(dl, "nvjpeg_files",
                             lambda: {"headers": [], "libraries": []})
         dl.load_library.cache_clear()

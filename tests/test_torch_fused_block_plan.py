@@ -124,9 +124,11 @@ def test_plan_knobs_and_refusals():
                             warps_n=4)
     assert (q.producers, q.rows, q.chunk_cols) == (8, 32, 288)
     assert q.smem_bytes == 2 * 32 * 296 * 2 + 288 * 296 * 2 + 8 * 288 * 4
-    assert fb.fused_block_plan(shape, torch.bfloat16,
-                               route="simt").route == "simt"
-    with pytest.raises(ValueError, match="bfloat16 only"):
+    # The route is the dtype's: bfloat16 always runs the tensor cores, and
+    # no ``route`` is taken.
+    assert fb.fused_block_plan(shape, torch.bfloat16).route == "mma"
+    assert fb.fused_block_plan(shape, torch.float32).route == "simt"
+    with pytest.raises(ValueError, match="unknown plan knobs"):
         fb.fused_block_plan(shape, torch.float32, route="mma")
     with pytest.raises(ValueError, match="no tensor-core plan"):
         # 17 warps.
@@ -138,8 +140,8 @@ def test_plan_knobs_and_refusals():
                             warps_n=1)
     with pytest.raises(ValueError, match="unknown plan knobs"):
         fb.fused_block_plan(shape, torch.bfloat16, warps=4)
-    with pytest.raises(ValueError, match="unknown route"):
-        fb.fused_block_plan(shape, torch.bfloat16, route="wgmma")
+    with pytest.raises(ValueError, match="unknown plan knobs"):
+        fb.fused_block_plan(shape, torch.bfloat16, route="mma")
     with pytest.raises(ValueError, match="unknown plan knobs"):
         # The taps do not enter the plan.
         fb.fused_block_plan(shape, torch.bfloat16, taps_n=17, max_shift=8)
@@ -515,6 +517,5 @@ def test_cuda_wrapper_still_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fb.fused_block_kernel(x, vt, wm, max_shift=1)
     with pytest.raises(ValueError, match="CUDA"):
-        fb.fused_block_kernel(x.bfloat16(), vt, wm.bfloat16(), max_shift=1,
-                              route="simt")
+        fb.fused_block_kernel(x.bfloat16(), vt, wm.bfloat16(), max_shift=1)
     assert fb.LAUNCHES.count == 0

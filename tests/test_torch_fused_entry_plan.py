@@ -145,11 +145,14 @@ def test_plan_knobs_and_refusals():
     q = fe.fused_entry_plan(shape, cm, bf, b_producers=8, b_warps_m=2,
                             b_warps_n=2, stage=False)
     assert q.g is None and q.b.smem_bytes == p.b.smem_bytes + 8 * 288 * 4
-    assert fe.fused_entry_plan(shape, cm, bf, route="simt").route == "simt"
-    with pytest.raises(ValueError, match="bfloat16 only"):
+    # The route is the dtype's: bfloat16 always runs the tensor cores, and
+    # no ``route`` is taken.
+    assert fe.fused_entry_plan(shape, cm, bf).route == "mma"
+    assert fe.fused_entry_plan(shape, cm, torch.float32).route == "simt"
+    with pytest.raises(ValueError, match="unknown plan knobs"):
         fe.fused_entry_plan(shape, cm, torch.float32, route="mma")
-    with pytest.raises(ValueError, match="unknown route"):
-        fe.fused_entry_plan(shape, cm, bf, route="wgmma")
+    with pytest.raises(ValueError, match="unknown plan knobs"):
+        fe.fused_entry_plan(shape, cm, bf, route="mma")
     with pytest.raises(ValueError, match="unknown plan knobs"):
         fe.fused_entry_plan(shape, cm, bf, warps_m=4)
     with pytest.raises(ValueError, match="unknown plan knobs"):
@@ -172,7 +175,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fe.fused_entry_kernel(x.bfloat16(), tuple(
             a.bfloat16() if i >= 2 else a for i, a in enumerate(params)),
-            max_shift=1, route="simt")
+            max_shift=1)
     assert fe.LAUNCHES.count == 0
 
 

@@ -13,6 +13,7 @@ import torch
 from PIL import Image
 
 from rubiksnet_torch.data import native_loader
+from rubiksnet_torch.ops import _build
 
 torch.set_num_threads(1)
 
@@ -230,7 +231,7 @@ def no_compiler(monkeypatch, tmp_path):
     """A machine without g++: an empty build directory and no compiler."""
     native_loader.load_library.cache_clear()
     native_loader.available.cache_clear()
-    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native_loader, "_find_cxx", lambda: None)
     yield
     native_loader.load_library.cache_clear()
@@ -268,12 +269,13 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path,
     bad = tmp_path / "bad.cpp"
     bad.write_text("this is not C++\n")
     native_loader.load_library.cache_clear()
-    monkeypatch.setattr(native_loader, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(native_loader, "SOURCE", bad)
     try:
-        with pytest.raises(RuntimeError, match="building the native frame "
-                                               "loader failed"):
+        with pytest.raises(RuntimeError, match="building librubiks_loader_"
+                                               "[0-9a-f]+.so failed") as err:
             native_loader.load_library()
-        assert not list((tmp_path / "build").glob("*.so"))
+        assert "bad.cpp" in str(err.value) and "error" in str(err.value)
+        assert not list((tmp_path / "build").iterdir())
     finally:
         native_loader.load_library.cache_clear()

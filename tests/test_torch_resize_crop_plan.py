@@ -412,12 +412,3 @@ def test_a_frame_only_cropped_has_no_tables():
     desc = buf[:dl.STAGED_FRAME.itemsize].view(dl.STAGED_FRAME)
     assert axes == () and desc["xt"][0] == 0 and desc["kx"][0] == 0
     assert buf[at:].view(np.int32).tolist() == [58, 16]
-
-
-def test_unknown_route_raises():
-    rgb, sizes = dl.pack_frames(frames_of([(96, 68)]))
-    with pytest.raises(ValueError, match="route"):
-        dl.resize_crop(rgb, sizes, 72, 64, [[(-1, -1)]], route="simt")
-    got = dl.resize_crop(rgb, sizes, 72, 64, [[(-1, -1)]], route="previous")
-    assert torch.equal(got, dl.plain_resize_crop(rgb, sizes, 72, 64,
-                                                 [[(-1, -1)]]))

@@ -702,22 +702,20 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                    a, b, a.shape, **kw),
                lambda a, b, **kw: s3.shift3d_shift_grad_kernel(a, a, b,
                                                                **kw)):
-        with pytest.raises(ValueError, match="unknown route"):
-            fn(x, s, route="fast")
+        # One route: the staged kernels take no ``route``.
+        with pytest.raises(TypeError, match="route"):
+            fn(x, s, route="staged")
         with pytest.raises(ValueError, match="CUDA"):
             fn(x, s)
         with pytest.raises(ValueError, match=r"must be \(3, C\)"):
             fn(x, torch.zeros(2, 6))
     # The 2D rounding mode (``quantize_mode``) is gone from the 3D shift's
-    # kernels, on either route: the port's 2D shift has kernels of its own.
-    for route in s3.BWD_ROUTES:
-        with pytest.raises(TypeError, match="quantize_mode"):
-            s3.shift3d_kernel(x, s, quantize=True, quantize_mode="half_away",
-                              route=route)
-        with pytest.raises(TypeError, match="quantize_mode"):
-            s3.shift3d_input_grad_kernel(x, s, x.shape, quantize=True,
-                                         quantize_mode="half_away",
-                                         route=route)
+    # kernels: the port's 2D shift has kernels of its own.
+    with pytest.raises(TypeError, match="quantize_mode"):
+        s3.shift3d_kernel(x, s, quantize=True, quantize_mode="half_away")
+    with pytest.raises(TypeError, match="quantize_mode"):
+        s3.shift3d_input_grad_kernel(x, s, x.shape, quantize=True,
+                                     quantize_mode="half_away")
     assert not hasattr(s3, "quantize_code")
     # The shapes are held against each other once per configuration, where
     # the launch is prepared (after the device check).

@@ -246,13 +246,3 @@ def test_op_chooses_route_by_device():
         shift3d.shift3d_shift_grad_kernel(og, x.detach(), s.detach())
     assert shift3d.INVERSE_LAUNCHES.count == 0
     assert shift3d.SHIFT_GRAD_LAUNCHES.count == 0
-
-
-@pytest.mark.parametrize("rows,c,sms,want", [
-    (8 * 8 * 112 * 112, 72, 132, 352),  # 3 channel tiles
-    (8 * 8 * 14 * 14, 288, 132, 117),
-    (100, 576, 132, 2),  # at least 64 rows a slice
-    (0, 8, 132, 1),
-])
-def test_shift_grad_slices(rows, c, sms, want):
-    assert shift3d.shift_grad_slices(rows, c, sms) == want

@@ -228,8 +228,7 @@ def test_setup_spans_are_kept_with_everything_off(entered, monkeypatch,
     def no_nvcc():
         raise RuntimeError("no nvcc")
 
-    for module in (_build, device_loader):
-        monkeypatch.setattr(module, "_find_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "_find_nvcc", no_nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     for load in (_build.load_library, device_loader.load_library):
         with pytest.raises(RuntimeError, match="no nvcc"):
