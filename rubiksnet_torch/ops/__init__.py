@@ -62,9 +62,10 @@ __all__ = [
 
 def launch_counters():
     """The launch counters of K1 (shift3d), K1-inverse (shift3d_inverse),
-    K4 (shift_grad), K2 (fused_block), K3 (fused_entry), K3 with the
-    attention mix (fused_entry_aq), the SE gate of their tensor-core route
-    (se_gate) and the 2D shift's forward and
+    K4 (shift_grad), K2 (fused_block; fused_block_ring: those of its
+    launches that ran on two or more operand stages), K3 (fused_entry), K3
+    with the attention mix (fused_entry_aq), the SE gate of their
+    tensor-core route (se_gate) and the 2D shift's forward and
     input-gradient kernels (shift2d, shift2d_inverse), and the train-mode
     BN and ReLU pair's forward and backward (bn_relu_train,
     bn_relu_train_backward), by name: the registry's counters of these
@@ -73,7 +74,9 @@ def launch_counters():
 
     return {c.name: c for c in (shift3d.LAUNCHES, shift3d.INVERSE_LAUNCHES,
                                 shift3d.SHIFT_GRAD_LAUNCHES,
-                                fused_block.LAUNCHES, fused_entry.LAUNCHES,
+                                fused_block.LAUNCHES,
+                                fused_block.RING_LAUNCHES,
+                                fused_entry.LAUNCHES,
                                 fused_entry.AQ_LAUNCHES,
                                 fused_block.SE_GATE_LAUNCHES,
                                 shift2d.LAUNCHES, shift2d.INVERSE_LAUNCHES,

@@ -95,30 +95,30 @@ int fused_block(const void* xv, const float* vt, const void* w2v,
       ResidualStore<T>{x, out, C}, stream);
 }
 
-// One block on the tensor-core route (bfloat16 only). With se, launch A
-// also leaves the gate's per-frame sums in partial (tc_se.cuh), and one
-// launch turns them into the gate (se_gate_tc.cu).
-int fused_block_tc(const TcPlan& plan, const void* x, const float* vt,
-                   const void* w2, const void* w3, const float* se,
-                   float* partial, float* gate, void* mid, void* out, int N,
-                   int T_, int H, int W, int C, int taps_n, int K, int aq,
-                   int Cr, int slots, cudaStream_t stream) {
+// One block on the tensor-core route (bfloat16 only), launch A under plan
+// a and launch B under plan b. With se, launch A also leaves the gate's
+// per-frame sums in partial (tc_se.cuh), and one launch turns them into the
+// gate (se_gate_tc.cu).
+int fused_block_tc(const RingPlan& a, const RingPlan& b, const void* x,
+                   const float* vt, const void* w2, const void* w3,
+                   const float* se, float* partial, float* gate, void* mid,
+                   void* out, int N, int T_, int H, int W, int C, int taps_n,
+                   int K, int aq, int Cr, int slots, cudaStream_t stream) {
   if (N == 0) return 0;
   if (se != nullptr && (partial == nullptr || gate == nullptr))
     return (int)cudaErrorInvalidValue;
   const TcShape shape = {N, T_, H, W, C, taps_n, K};
   cudaError_t err =
-      tc_launch_mid(plan, shape, x, vt, w2, mid, aq,
+      tc_launch_mid(a, shape, x, vt, w2, mid, aq,
                     se != nullptr ? partial : nullptr, slots, stream);
   if (err != cudaSuccess) return (int)err;
   if (se != nullptr) {
     err = se_gate_tc_launch(partial, vt + 4 * C, se, gate, N * T_, T_, H * W,
-                            plan.wm * 16, slots, C, Cr, taps_n, K,
-                            1.f / ((float)H * (float)W), plan.overlap,
-                            stream);
+                            a.wm * 16, slots, C, Cr, taps_n, K,
+                            1.f / ((float)H * (float)W), a.overlap, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)tc_launch_out(plan, shape, x, mid, vt, w3,
+  return (int)tc_launch_out(b, shape, x, mid, vt, w3,
                             se != nullptr ? gate : nullptr, out, stream);
 }
 
@@ -135,23 +135,29 @@ extern "C" {
 // (in, out). se: null, or (B, 2, C, Cr) float32 (fc1, fc2 transposed) with
 // scratch partial and gate (N*T, C) float32; partial is (N*T, slices, C),
 // slices = ceil(H / 8), in float32 (se_gate.cuh's pass over mid) and (row
-// tiles, slices, C), slices = tc_se_slots(wm_ * 16, H * W), in bfloat16
-// (launch A's sums, tc_se.cuh). float32 runs the common.cuh GEMM, bfloat16
-// the tensor-core kernels under the plan pw, wm_, wn_, n_split, grid_x,
-// smem_bytes, overlap of ops/fused_block.py::fused_block_plan.
+// tiles of launch A, slices, C), slices = tc_se_slots(A's wm * 16, H * W),
+// in bfloat16 (launch A's sums, tc_se.cuh). float32 runs the common.cuh GEMM
+// (plan unused), bfloat16 the tensor-core kernels under plan, 17 ints of
+// ops/fused_block.py::fused_block_plan: launch A's (lw, stages, wm, wn,
+// n_split, grid_x, smem_bytes, prefetch), launch B's, and overlap.
 int rubiks_fused_block_run(const void* x, const float* vt, const void* wm,
                            const float* se, float* partial, float* gate,
                            void* mid, void* out, int dtype, int B, int N,
                            int T, int H, int W, int C, int taps_n, int K,
-                           int aq, int Cr, int slices, int pw, int wm_,
-                           int wn_, int n_split, int grid_x, int smem_bytes,
-                           int overlap, void* stream) {
+                           int aq, int Cr, int slices, const int* plan,
+                           void* stream) {
   using namespace rubiks;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   if (B < 0 || N < 0) return (int)cudaErrorInvalidValue;
-  const TcPlan plan = {pw,      wm_,    wn_,        n_split,
-                       grid_x,  smem_bytes, overlap};
+  if (dtype == kBF16 && plan == nullptr) return (int)cudaErrorInvalidValue;
+  RingPlan pa = {}, pb = {};
+  if (dtype == kBF16) {
+    const int* p = plan;
+    const int* q = plan + 8;
+    pa = {p[0], p[1], p[2], p[3], p[4], p[5], p[6], plan[16], p[7]};
+    pb = {q[0], q[1], q[2], q[3], q[4], q[5], q[6], plan[16], q[7]};
+  }
   const size_t esz = dtype == kBF16 ? 2 : 4;
   const int rows = 4 + 3 * taps_n + (aq ? 3 : 0);
   for (int b = 0; b < B; ++b) {
@@ -162,8 +168,8 @@ int rubiks_fused_block_run(const void* x, const float* vt, const void* wm,
     const float* seb = se != nullptr ? se + (size_t)b * 2 * C * Cr : nullptr;
     int rc;
     if (dtype == kBF16)
-      rc = fused_block_tc(plan, src, vtb, w2, w3, seb, partial, gate, mid, out,
-                          N, T, H, W, C, taps_n, K, aq, Cr, slices, s);
+      rc = fused_block_tc(pa, pb, src, vtb, w2, w3, seb, partial, gate, mid,
+                          out, N, T, H, W, C, taps_n, K, aq, Cr, slices, s);
     else
       rc = fused_block<float>(src, vtb, w2, w3, seb, partial, gate, mid, out,
                               N, T, H, W, C, taps_n, K, aq, Cr, slices, s);

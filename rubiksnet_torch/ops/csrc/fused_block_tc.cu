@@ -28,13 +28,30 @@
 //   left for later: the loaders and the arrival of W bound the kernel, not
 //   the products.)
 // * Weights resident: a block copies its columns of W (all of them where they
-//   fit beside the A tile, C <= 288; a chunk of wn * 72 columns otherwise,
-//   grid.y chunks) into shared memory once, by 16-byte cp.async, and then
-//   walks over row tiles (a persistent block): W is read once per block, not
-//   once per row tile, and never through registers. The copy lands while the
-//   first A tile is built, and it starts while the launch before this one
-//   still runs (programmatic dependent launch, see the kernel). Column chunks
-//   also give the small batches enough blocks; each chunk rebuilds the A tile.
+//   fit beside the operand stages, C <= 288; a chunk of wn * 72 columns
+//   otherwise, grid.y chunks) into shared memory once, by 16-byte cp.async,
+//   and then walks over row tiles (a persistent block): W is read once per
+//   block, not once per row tile, and never through registers. The copy
+//   lands while the first tiles are built, and it starts while the launch
+//   before this one still runs (programmatic dependent launch, see the
+//   kernel). Column chunks also give the small batches enough blocks; each
+//   chunk rebuilds the A tiles.
+// * Loading and multiplying overlap, on a ring of operand stages: of a
+//   block's 16 warps the first lw build row tiles into `stages` stages in
+//   shared memory and the last wm * wn multiply the stages in tile order and
+//   store; a warp counted in both does both, building stages - 1 tiles ahead
+//   of the one it multiplies. Each stage has a "full" and an "empty"
+//   mbarrier; no block-wide barrier runs inside the tile loop, so warps
+//   drift apart and one warp's loads run under another's products. A
+//   multiplying warp releases a stage as soon as it has read its last
+//   fragment of it (before its store). A loader's share of a tile moves
+//   from tile to tile, so that no warp takes the surplus of every tile, and
+//   with small stages (wide rows) the loaders ask L2 for the next tile's
+//   bytes (one bulk prefetch a range) before they build this one. Where W
+//   leaves room for large stages every warp loads and multiplies; where it
+//   leaves little (C >= 288) the warps split into loaders and multipliers
+//   once a block has enough tiles to keep both busy. Each launch (A, B)
+//   has its own plan (ops/fused_block.py::fused_block_plan).
 // * Launch A's loader reads x 16 bytes a thread along C, with the channel
 //   group's scale, bias and attention rows held in registers, several rows in
 //   flight, and stores the operand tile 16 bytes at a time. With aq the clip
@@ -59,14 +76,15 @@
 //   and writes the same elements, every read before the first write, and
 //   launch B reads nothing else of x.
 //
-// What bounds it now (H100, batch 8; PERF.md has the numbers): a block of the
-// grid has one or two row tiles at 14x14x288, so the phases of a tile (load,
-// barrier, multiply, store) and the arrival of its 166 KB of W are exposed
-// more than overlapped, and the gather is the longest of them: about 40
-// instructions a value, which also sets the time at 56x56 and 112x112.
+// What bounds it now (H100; PERF.md has the numbers): launch B's gather,
+// about 40 instructions a value and latency-bound: its time follows the
+// number of warps that gather, which the ring does not raise; launch A's
+// loads of x, which the ring now overlaps with its products.
 //
 // No float atomics and no split of K: the result is bit-identical from run to
-// run. The plan (rows per tile, warps, column chunks, grid, shared memory) is
+// run, and a row's result does not depend on the rows of a stage. The plan
+// (stages, rows per stage, loader and multiplying warps, column chunks,
+// grid, shared memory) is
 // made in ops/fused_block.py::fused_block_plan and only checked here. The
 // device code K3's launches share with these (fused_entry_tc.cu) is in
 // tc_core.cuh.
@@ -85,9 +103,10 @@ struct TcArgs {
   int T, H, W, C, taps_n, K;
   int Kp;          // C rounded up to 16
   int a_rs, w_rs;  // row strides of the A tile and the W chunk, in elements
-  int wn, bm, row_tiles;
-  int pw;          // producer warps (0: every warp loads, then multiplies)
-  int a_bytes;     // bytes of one A tile buffer (two of them when pw > 0)
+  int wn, bm, row_tiles;  // bm: the rows of a stage
+  int lw;        // loader warps: warps [0, lw) build; the last wm * wn multiply
+  int stages;    // operand stages of the ring
+  int prefetch;  // the loaders ask L2 for the next tile's bytes
   int w_off, t_off;  // byte offsets of the W chunk and the table
   int vec;           // 16-byte global accesses are aligned
   // What tc_core.cuh reads through accessors: x, mid and out are C wide, and
@@ -132,13 +151,18 @@ __device__ __forceinline__ TcRow tc_row(const TcArgs& p, int m) {
 // a value, not by the latency of L2.)
 __device__ __forceinline__ void build_shift_tile(const TcArgs& p, bf16* As,
                                                  int64_t m0, const int* table,
-                                                 int tid, int nthreads) {
+                                                 int tid, int nthreads,
+                                                 int turn) {
   const int lane = tid & 31, warp = tid >> 5;
   const int nwarps = nthreads >> 5;
   const float* wts = reinterpret_cast<const float*>(table + 2 * p.Kp);
   const int slabs = (p.Kp + 31) >> 5;
   const int units = (p.bm / kTcRun) * slabs;
-  for (int u = warp; u < units; u += nwarps) {
+  // In turn: unit u of the block's tile `turn` is the warp's where turn *
+  // units + u is, modulo the warps, so that no warp takes the surplus of
+  // every tile.
+  const int first = ((warp - turn * units) % nwarps + nwarps) % nwarps;
+  for (int u = first; u < units; u += nwarps) {
     const int run = u / slabs, c = ((u - run * slabs) << 5) + lane;
     if (c >= p.Kp) continue;
     bf16* dst = As + run * kTcRun * p.a_rs + c;
@@ -240,41 +264,137 @@ __device__ __forceinline__ void build_shift_tile(const TcArgs& p, bf16* As,
 
 // ------------------------------------------------------------- the kernel
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// An arrival that also waits for the thread's cp.async copies so far: it
+// completes when they have landed.
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // One A tile by the `nthreads` loading threads.
+// One A tile by the `nthreads` loading threads: the block's tile `turn`.
+// Launch A's threads take their rows in a turn that moves by a row a tile.
 template <int MODE>
 __device__ __forceinline__ void build_tile(const TcArgs& p, bf16* As,
                                            int64_t m0, const int* table,
-                                           int tid, int nthreads) {
+                                           int tid, int nthreads,
+                                           int turn) {
   if (MODE == kTcOut) {
-    build_shift_tile(p, As, m0, table, tid, nthreads);
+    build_shift_tile(p, As, m0, table, tid, nthreads, turn);
   } else if (p.vec) {
-    build_act_tile_vec<MODE == kTcMidAq || MODE == kTcMidAqSe>(p, As, m0, tid,
-                                                             nthreads);
+    const int tcs = min(p.Kp >> 3, nthreads);
+    build_act_tile_vec<MODE == kTcMidAq || MODE == kTcMidAqSe>(
+        p, As, m0, (int)((tid + (int64_t)turn * tcs) % nthreads), nthreads);
   } else {
     build_act_tile_scalar<MODE == kTcMidAq || MODE == kTcMidAqSe>(
         p, As, m0, tid, nthreads);
   }
 }
 
-// grid (persistent blocks over the row tiles, column chunks), block pw + wm *
-// wn warps. Shared memory: the A tile (bm x Kp; two of them when pw > 0), the
-// W chunk (Kp x wn * 72) and the table. With pw > 0 the first pw warps only
-// load: they build tile i + 1 in one buffer while the other warps multiply
-// tile i from the other, one barrier per tile. With pw = 0 every warp builds
-// the tile, then every warp multiplies it. The SE forms of launch A also
-// build the gate's weight tables in the prologue and, once a tile's row
-// warps have left their sums in shared memory (after the barrier that ends
-// the tile, or with producers one among the multiplying warps), write the
-// tile's partials (tc_se.cuh).
+// Rows [r0, r1) of a (M, C) matrix into L2 (clipped to [0, M)), by one bulk
+// prefetch.
+__device__ __forceinline__ void prefetch_rows(const bf16* a, int64_t r0,
+                                              int64_t r1, int C, int64_t M) {
+  r0 = max(r0, (int64_t)0);
+  r1 = min(r1, M);
+  if (r0 >= r1) return;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(a + r0 * C) & ~uintptr_t(15);
+  const uintptr_t hi =
+      (reinterpret_cast<uintptr_t>(a + r1 * C) + 15) & ~uintptr_t(15);
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo),
+               "r"((unsigned)(hi - lo))
+               : "memory");
+}
+
+// What the tile at m0 will read, into L2, a range a lane: launch A the rows
+// of x (with aq, also a frame before and after), launch B the rows of mid
+// that its taps reach (frames -K..K, lines and columns -K..K + 1 around the
+// tile's) and its rows of x.
+template <int MODE>
+__device__ __forceinline__ void prefetch_tile(const TcArgs& p, int64_t m0,
+                                              int lane) {
+  const int64_t hw = (int64_t)p.H * p.W;
+  if (MODE == kTcOut) {
+    const int a = lane - p.K;
+    if (a <= p.K) {
+      const int64_t first = m0 + a * hw - (int64_t)p.K * (p.W + 1);
+      prefetch_rows(p.mid, first,
+                    m0 + p.bm + a * hw + (int64_t)(p.K + 1) * (p.W + 1),
+                    p.C, p.M);
+    } else if (a == p.K + 1) {
+      prefetch_rows(p.x, m0, m0 + p.bm, p.C, p.M);
+    }
+  } else {
+    const bool aq = MODE == kTcMidAq || MODE == kTcMidAqSe;
+    if (lane < (aq ? 3 : 1)) {
+      const int64_t off = aq ? (lane - 1) * hw : 0;
+      prefetch_rows(p.x, m0 + off, m0 + off + p.bm, p.kin(), p.M);
+    }
+  }
+}
+
+// grid (persistent blocks over the row tiles, column chunks), block of
+// kRingWarps warps: warps [0, lw) load, the last wm * wn multiply, and a
+// warp in both does both. Shared memory: the ring's barriers, `stages`
+// operand stages of bm x Kp, the W chunk (Kp x wn * 72) and the table. A
+// block's i-th tile goes to stage i mod stages. A loader warp
+// waits until the stage's previous tile has been released (its empty
+// barrier), builds its share of the tile and arrives on the full barrier,
+// one arrival a warp; a multiplying warp waits for W once, then for each
+// tile's full barrier, multiplies, and arrives on its empty barrier right
+// after its last fragment read. A warp in both roles builds up to stages - 1
+// tiles ahead of the one it multiplies. The SE forms of launch A also build
+// the gate's weight tables in the prologue and, once a tile's row warps have
+// left their sums in shared memory (a barrier among the multiplying warps
+// only), write the tile's partials (tc_se.cuh) before the next tile's sums
+// may overwrite them (a second one).
 template <int MODE>
 __global__ void __launch_bounds__(kTcMaxThreads, 1)
     rubiks_tc_kernel(const TcArgs p) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* As = reinterpret_cast<bf16*>(tc_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tc_smem);
+  uint64_t* empty = full + kRingMaxStages;
+  uint64_t* w_ready = empty + kRingMaxStages;
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem + kRingBarBytes);
   bf16* Ws = reinterpret_cast<bf16*>(tc_smem + p.w_off);
   int* table = reinterpret_cast<int*>(tc_smem + p.t_off);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.y * p.wn * kTcWarpCols;  // the chunk's first column
+  const int nwarps = blockDim.x >> 5, nmw = (p.bm >> 4) * p.wn;
+  const int first_mul = nwarps - nmw;
+  const bool loads = warp < p.lw, mults = warp >= first_mul;
+  const int nload = p.lw * 32;
+  const int stage_elems = p.bm * p.a_rs;
 
   // The launches of a run depend on each other through x, mid and out, but
   // not through W and the taps: the next launch of the stream may begin as
@@ -284,61 +404,74 @@ __global__ void __launch_bounds__(kTcMaxThreads, 1)
   // visible. Without the launch attribute both instructions do nothing.
   asm volatile("griddepcontrol.launch_dependents;");
   load_w_rows(p, Ws, n0, p.w, 0, p.C, p.Kp);
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, p.lw);
+      mbar_init(empty + s, nmw);
+    }
+    mbar_init(w_ready, blockDim.x);
+  }
+  __syncthreads();              // the barriers exist
+  mbar_arrive_copies(w_ready);  // completes when this thread's copies land
+  mbar_arrive(w_ready);         // and after its plain stores of zero rows
   if (MODE == kTcOut) build_tap_table(p, table);
   if constexpr (tc_se_mode(MODE)) tc_se_build_tables<1>(p, n0);
   asm volatile("griddepcontrol.wait;" ::: "memory");
   __syncthreads();
 
-  if (p.pw == 0) {
-    const int wm_i = warp / p.wn, wn_i = warp - wm_i * p.wn;
-    for (int tile = blockIdx.x; tile < p.row_tiles; tile += gridDim.x) {
-      const int64_t m0 = (int64_t)tile * p.bm;
-      build_tile<MODE>(p, As, m0, table, tid, blockDim.x);
-      tc_cp_wait_all();  // the W chunk, before the first tile's products
-      __syncthreads();
-      multiply_tile<MODE>(p, As, Ws, m0, n0, wm_i, wn_i, lane);
-      __syncthreads();  // the A tile is free again
-      if constexpr (tc_se_mode(MODE))
-        tc_se_store_partials<1>(p, m0, n0, tid, blockDim.x);
-    }
-  } else {
-    const bool loads = warp < p.pw;
-    const int cw = loads ? 0 : warp - p.pw;
-    const int wm_i = cw / p.wn, wn_i = cw - wm_i * p.wn;
-    const int nload = p.pw * 32;
-    bf16* bufs[2] = {As, reinterpret_cast<bf16*>(tc_smem + p.a_bytes)};
-    int tile = blockIdx.x;
-    if (loads && tile < p.row_tiles)
-      build_tile<MODE>(p, bufs[0], (int64_t)tile * p.bm, table, tid, nload);
-    tc_cp_wait_all();
-    __syncthreads();
-    for (int it = 0; tile < p.row_tiles; tile += gridDim.x, ++it) {
-      const int next = tile + gridDim.x;
-      if (loads) {
-        if (next < p.row_tiles)
-          build_tile<MODE>(p, bufs[(it + 1) & 1], (int64_t)next * p.bm, table,
-                           tid, nload);
-      } else {
-        multiply_tile<MODE>(p, bufs[it & 1], Ws, (int64_t)tile * p.bm, n0,
-                                wm_i, wn_i, lane);
-        if constexpr (tc_se_mode(MODE)) {
-          const int nmul = blockDim.x - nload;
-          asm volatile("bar.sync 1, %0;" ::"r"(nmul) : "memory");
-          tc_se_store_partials<1>(p, (int64_t)tile * p.bm, n0, tid - nload,
-                                  nmul);
-        }
+  const int ntiles =
+      ((int)p.row_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+      (int)gridDim.x;
+  // A warp that also multiplies builds stages - 1 tiles ahead of the one it
+  // multiplies; one that only loads, as far as the stages let it.
+  const int ahead = mults ? p.stages - 1 : ntiles;
+  const int cw = warp - first_mul;
+  const int wm_i = cw / p.wn, wn_i = cw - wm_i * p.wn;
+  int ls = 0, ms = 0, lt = 0;  // the stages of tiles lt and mt
+  unsigned lph = 0, mph = 0;   // the parities of those stages' uses
+  for (int mt = 0;; ++mt) {
+    if (loads) {
+      for (; lt < ntiles && lt <= mt + ahead; ++lt) {
+        if (p.prefetch && warp == 0 && lt + 1 < ntiles)
+          prefetch_tile<MODE>(
+              p, ((int64_t)blockIdx.x + (int64_t)(lt + 1) * gridDim.x) * p.bm,
+              lane);
+        if (lt >= p.stages) mbar_wait(empty + ls, lph ^ 1);
+        build_tile<MODE>(p, ring + ls * stage_elems,
+                         ((int64_t)blockIdx.x + (int64_t)lt * gridDim.x) *
+                             p.bm,
+                         table, tid, nload, lt);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + ls);
+        if (++ls == p.stages) ls = 0, lph ^= 1;
       }
-      __syncthreads();
     }
+    if (!mults || mt >= ntiles) break;
+    if (mt == 0) mbar_wait(w_ready, 0);
+    const int64_t m0 = ((int64_t)blockIdx.x + (int64_t)mt * gridDim.x) * p.bm;
+    mbar_wait(full + ms, mph);
+    uint64_t* done = empty + ms;
+    multiply_tile<MODE>(p, ring + ms * stage_elems, Ws, m0, n0, wm_i, wn_i,
+                        lane, [done, lane] {
+                          __syncwarp();
+                          if (lane == 0) mbar_arrive(done);
+                        });
+    if constexpr (tc_se_mode(MODE)) {
+      asm volatile("bar.sync 1, %0;" ::"r"(nmw * 32) : "memory");
+      tc_se_store_partials<1>(p, m0, n0, tid - first_mul * 32, nmw * 32);
+      asm volatile("bar.sync 1, %0;" ::"r"(nmw * 32) : "memory");
+    }
+    if (++ms == p.stages) ms = 0, mph ^= 1;
   }
   tc_cp_wait_all();
 }
 
 // ---------------------------------------------------------------- the host
 
-bool tc_plan_ok(const TcPlan& p, const TcShape& s) {
-  if (p.wm < 1 || p.wn < 1 || p.pw < 0 ||
-      (p.pw + p.wm * p.wn) * 32 > kTcMaxThreads)
+bool tc_plan_ok(const RingPlan& p, const TcShape& s) {
+  if (p.wm < 1 || p.wn < 1 || p.lw < 1 || p.stages < 1 ||
+      p.stages > kRingMaxStages || p.lw > kRingWarps ||
+      p.wm * p.wn > kRingWarps || p.lw + p.wm * p.wn < kRingWarps)
     return false;
   if (p.n_split < 1 || p.n_split > 65535 || p.grid_x < 1) return false;
   if (s.N < 0 || s.T < 1 || s.H < 1 || s.W < 1 || s.C < 1) return false;
@@ -346,7 +479,7 @@ bool tc_plan_ok(const TcPlan& p, const TcShape& s) {
   const int64_t chunk = (int64_t)p.wn * kTcNT;
   if (p.n_split * chunk < tiles_n || (p.n_split - 1) * chunk >= tiles_n)
     return false;  // the chunks cover the columns, and none is empty
-  if (p.smem_bytes != tc_smem_bytes(p, s.C) || p.smem_bytes > kTcMaxSmem)
+  if (p.smem_bytes != ring_smem_bytes(p, s.C) || p.smem_bytes > kTcMaxSmem)
     return false;
   if (s.taps_n < 1 || s.taps_n > kMaxTaps || s.K < 0 || s.K >= kTcBias)
     return false;
@@ -357,7 +490,7 @@ bool tc_plan_ok(const TcPlan& p, const TcShape& s) {
 }
 
 template <int MODE>
-cudaError_t tc_launch_kernel(const TcPlan& pl, const TcArgs& a,
+cudaError_t tc_launch_kernel(const RingPlan& pl, const TcArgs& a,
                              cudaStream_t stream) {
   auto kernel = rubiks_tc_kernel<MODE>;
   // Raise the kernel's shared-memory limit once per device.
@@ -374,7 +507,7 @@ cudaError_t tc_launch_kernel(const TcPlan& pl, const TcArgs& a,
                                                           : a.row_tiles);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(gx, (unsigned)pl.n_split);
-  cfg.blockDim = dim3((unsigned)(pl.pw + pl.wm * pl.wn) * 32);
+  cfg.blockDim = dim3(kRingWarps * 32);
   cfg.dynamicSmemBytes = (size_t)pl.smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute early = {};
@@ -386,7 +519,7 @@ cudaError_t tc_launch_kernel(const TcPlan& pl, const TcArgs& a,
 }
 
 template <int MODE>
-cudaError_t tc_launch(TcPlan pl, const TcShape& s, TcArgs a,
+cudaError_t tc_launch(RingPlan pl, const TcShape& s, TcArgs a,
                       cudaStream_t stream, int se_slots = 0) {
   if (!tc_plan_ok(pl, s)) return cudaErrorInvalidValue;
   a.M = (int64_t)s.N * s.T * s.H * s.W;
@@ -399,9 +532,10 @@ cudaError_t tc_launch(TcPlan pl, const TcShape& s, TcArgs a,
   a.wn = pl.wn;
   a.bm = pl.wm * 16;
   a.row_tiles = (int)((a.M + a.bm - 1) / a.bm);
-  a.pw = pl.pw;
-  a.a_bytes = a.bm * a.a_rs * 2;
-  a.w_off = a.a_bytes * (pl.pw > 0 ? 2 : 1);
+  a.lw = pl.lw;
+  a.stages = pl.stages;
+  a.prefetch = pl.prefetch;
+  a.w_off = kRingBarBytes + pl.stages * a.bm * a.a_rs * 2;
   a.t_off = a.w_off + a.Kp * a.w_rs * 2;
   const uintptr_t bits =
       reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.mid) |
@@ -421,7 +555,7 @@ cudaError_t tc_launch(TcPlan pl, const TcShape& s, TcArgs a,
   return tc_launch_kernel<MODE>(pl, a, stream);
 }
 
-cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
+cudaError_t tc_launch_mid(const RingPlan& p, const TcShape& s, const void* x,
                           const float* vt, const void* w2, void* mid, int aq,
                           float* partial, int slots, cudaStream_t stream) {
   TcArgs a = {};
@@ -440,7 +574,7 @@ cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
             : tc_launch<kTcMid>(p, s, a, stream);
 }
 
-cudaError_t tc_launch_out(const TcPlan& p, const TcShape& s, const void* x,
+cudaError_t tc_launch_out(const RingPlan& p, const TcShape& s, const void* x,
                           const void* mid, const float* vt, const void* w3,
                           const float* gate, void* out, cudaStream_t stream) {
   TcArgs a = {};

@@ -7,8 +7,24 @@
 
 namespace rubiks {
 
-// The launch plan, computed by ops/fused_block.py::fused_block_plan and
+// K2's launch plan, computed by ops/fused_block.py::fused_block_plan and
 // checked again here (tc_plan_ok): nothing is chosen on this side.
+struct RingPlan {
+  int lw;          // loader warps, the block's first: they build the stages
+  int stages;      // operand stages of the ring, 1 to kRingMaxStages
+  int wm, wn;      // multiplying warps, the block's last, along the rows and
+                   // along the columns: a stage holds wm * 16 rows, a block
+                   // owns wn * 72 columns; a warp may load and multiply
+  int n_split;     // column chunks (grid.y) of wn * 72 columns each
+  int grid_x;      // persistent blocks along the row tiles
+  int smem_bytes;  // dynamic shared memory of a block
+  int overlap;     // a launch may begin (fetch its W) before the one before
+                   // it in the stream has ended
+  int prefetch;    // the loaders ask L2 for the next tile's bytes
+};
+
+// The plan of a launch of K3 (fused_entry_tc.cuh), made by
+// ops/fused_entry.py::fused_entry_plan.
 struct TcPlan {
   int pw;          // warps that only load (0: every warp loads and multiplies)
   int wm, wn;      // multiplying warps along the rows and along the columns:
@@ -37,27 +53,35 @@ __host__ __device__ inline int tc_row_stride(int cols) {
 constexpr int kTcWarpCols = 72;  // columns of one warp: 9 tiles of 8
 constexpr int kTcMaxSmem = 232448;  // bytes a block can use on the H100
 
-// Bytes of dynamic shared memory the plan needs: the A tile (two with loading
-// warps), the W chunk and the loader's per-channel table (8 words a channel).
-inline int tc_smem_bytes(const TcPlan& p, int C) {
+constexpr int kRingMaxStages = 8;
+constexpr int kRingWarps = 16;  // warps of a block of K2
+// The ring's mbarriers, at the start of shared memory: a full and an empty
+// one per stage and one for W, 8 bytes each, rounded up to 16.
+constexpr int kRingBarBytes = (8 * (2 * kRingMaxStages + 1) + 15) & ~15;
+
+// Bytes of dynamic shared memory K2's plan needs: the barriers, the stages
+// (wm * 16 rows each), the W chunk and the loader's per-channel table (8
+// words a channel).
+inline int ring_smem_bytes(const RingPlan& p, int C) {
   const int kp = (C + 15) & ~15;
-  return (p.pw > 0 ? 2 : 1) * p.wm * 16 * tc_row_stride(kp) * 2 +
+  return kRingBarBytes + p.stages * p.wm * 16 * tc_row_stride(kp) * 2 +
          kp * tc_row_stride(p.wn * kTcWarpCols) * 2 + 8 * kp * 4;
 }
 
-bool tc_plan_ok(const TcPlan& p, const TcShape& s);
+bool tc_plan_ok(const RingPlan& p, const TcShape& s);
 
 // Launch A: mid = relu(s2 . (A @ W2) + b2), A = relu(s1 . x + b1), with aq
 // mixed along T by the three attention rows that follow the taps in vt.
 // partial: nullptr, or the SE gate's per-frame weighted sums of mid, (row
-// tiles, slots, C) float32 with slots = tc_se_slots(wm * 16, H * W)
+// tiles of wm * 16 rows, slots, C) float32 with slots = tc_se_slots(wm * 16,
+// H * W)
 // (tc_se.cuh).
-cudaError_t tc_launch_mid(const TcPlan& p, const TcShape& s, const void* x,
+cudaError_t tc_launch_mid(const RingPlan& p, const TcShape& s, const void* x,
                           const float* vt, const void* w2, void* mid, int aq,
                           float* partial, int slots, cudaStream_t stream);
 
 // Launch B: out = x + ([gate .] shift3d(mid)) @ W3; out may alias x.
-cudaError_t tc_launch_out(const TcPlan& p, const TcShape& s, const void* x,
+cudaError_t tc_launch_out(const RingPlan& p, const TcShape& s, const void* x,
                           const void* mid, const float* vt, const void* w3,
                           const float* gate, void* out, cudaStream_t stream);
 

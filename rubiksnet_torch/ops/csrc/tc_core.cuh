@@ -616,19 +616,30 @@ __device__ __forceinline__ void store_tile_se(const P& p,
   }
 }
 
+// What multiply_tile calls once the warp has read the last of its A tile:
+// nothing, or (K2's ring) the release of the tile's stage.
+struct TcNoRelease {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // The products of one tile against the resident W chunk, and the store:
 // warp (wm_i, wn_i) of the multiplying warps owns 16 rows x 72 columns.
 // (Two 16-row tiles a warp, which halve the fetches of W per product, measured
 // slower at every shape: the accumulators then leave room for 8 warps only.)
-template <int MODE, class P>
+// `release()` runs, warp-uniformly, right after the warp's last read of As.
+template <int MODE, class P, class Release = TcNoRelease>
 __device__ __forceinline__ void multiply_tile(const P& p, const bf16* As,
                                               const bf16* Ws, int64_t m0,
                                               int n0, int wm_i, int wn_i,
-                                              int lane) {
+                                              int lane,
+                                              const Release& release = {}) {
   const int col0 = wn_i * kTcWarpCols;  // the warp's first column, in the chunk
   const int tiles_left = ((p.C + 7) >> 3) - ((n0 + col0) >> 3);
   const int nt_valid = max(0, min(kTcNT, tiles_left));
-  if (nt_valid == 0) return;
+  if (nt_valid == 0) {
+    release();
+    return;
+  }
   const int a_row0 = wm_i * 16;
   const int g = lane >> 2, t4 = lane & 3;
   // ldmatrix addresses of this lane: A rows (lane & 15), k halves by
@@ -683,6 +694,7 @@ __device__ __forceinline__ void multiply_tile(const P& p, const bf16* As,
     multiply_steps<true>(p, a_ptr, b_ptr, b_half, nt_valid, acc);
   else
     multiply_steps<false>(p, a_ptr, b_ptr, b_half, nt_valid, acc);
+  release();
 
   if constexpr (tc_se_mode(MODE)) {
     // The SE forms: a warp whose rows lie in one or two frames stores and

@@ -36,6 +36,10 @@ BN_EPS = 1e-5
 KERNEL_MAX_TAPS = 16  # taps per axis the CUDA kernels stage (max_shift <= 7)
 
 LAUNCHES = LaunchCounter("fused_block")
+# K2's launches (counted as LAUNCHES counts them, a block's A and B as one)
+# that ran on a ring of two or more operand stages: where the loads overlap
+# the products.
+RING_LAUNCHES = LaunchCounter("fused_block_ring")
 # The SE gate launch of the tensor-core route (csrc/se_gate_tc.cu), one per
 # SE block of K2 and K3.
 SE_GATE_LAUNCHES = LaunchCounter("se_gate")
@@ -249,8 +253,9 @@ def se_slices(h: int) -> int:
 
 def se_partial_shape(plan, shape):
     """(row tiles, frame slots, C) of the SE gate's partials on the
-    tensor-core route: launch A (under ``plan``, a :class:`BlockPlan`: K2's,
-    or K3's ``plan.a``) leaves, per row tile of ``plan.rows`` rows of the
+    tensor-core route: launch A (under ``plan``: K2's :class:`RingPlan` of
+    launch A or K3's :class:`BlockPlan`, each a plan's ``.a``) leaves, per
+    row tile of ``plan.rows`` rows of the
     (N*T*H*W, C) ``mid`` of ``shape`` (N, T, H, W, C), one weighted sum per
     frame the tile can touch and channel (csrc/tc_se.cuh::tc_se_slots). The
     C side sizes and checks the shared memory of the sums."""
@@ -289,9 +294,10 @@ def tile_row_stride(cols: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
-    """How one block of a run is launched (both GEMM launches share it): the
-    numbers ``rubiks_fused_block_run`` takes. On the "simt" route the C side
-    tiles by itself (csrc/common.cuh::launch_gemm) and the numbers are 0."""
+    """How one launch of K3 is launched on the tensor cores (every warp loads
+    a tile, then multiplies it, or ``producers`` warps load the next tile
+    while the others multiply): the numbers ``rubiks_fused_entry`` takes per
+    launch (csrc/fused_entry_tc.cu; ops/fused_entry.py)."""
 
     route: str        # "mma": tensor cores, bf16; "simt": the common.cuh GEMM
     producers: int = 0   # warps that only load the next tile (0: none)
@@ -312,6 +318,10 @@ class BlockPlan:
         """Columns of W a block holds: all of them when ``n_tiles`` is 1."""
         return self.warps_n * WARP_COLS
 
+    @property
+    def warps(self) -> int:
+        return self.producers + self.warps_m * self.warps_n
+
     def describe(self) -> str:
         if self.route == "simt":
             return "simt"
@@ -323,10 +333,10 @@ class BlockPlan:
 
 def _mma_smem(producers: int, warps_m: int, warps_n: int, c: int,
               k: int | None = None, table: int | None = None) -> int:
-    """Shared memory of a block: the operand tile (two with producers), its
-    columns of W, the gather's table of 8 words a channel. The depth ``k``
-    and the table's channels ``table`` are ``c`` unless given (K3's launches:
-    csrc/fused_entry_tc.cuh::entry_smem_bytes)."""
+    """Shared memory of a block of K3's launches: the operand tile (two with
+    producers), its columns of W, the gather's table of 8 words a channel.
+    The depth ``k`` and the table's channels ``table`` are ``c`` unless
+    given (csrc/fused_entry_tc.cuh::entry_smem_bytes)."""
     kp = _ceil_div(c if k is None else k, 16) * 16
     kt = kp if table is None else _ceil_div(table, 16) * 16
     return ((2 if producers else 1) * warps_m * WARP_ROWS
@@ -336,8 +346,8 @@ def _mma_smem(producers: int, warps_m: int, warps_n: int, c: int,
 
 def _mma_defaults(m: int, c: int, sms: int, k: int | None = None,
                   table: int | None = None) -> dict:
-    """The block shape the sweeps of utils/fused_block_probe.py found best
-    (PERF.md has the tables), as a rule:
+    """The block shape of K3's launches (ops/fused_entry.py adjusts it per
+    launch), as a rule read off sweeps (PERF.md has the tables):
 
     * ``warps_n``, a power of two, covers the width's 72-column groups
       where W then fits beside two 16-row tiles, else as many as fit: every
@@ -398,12 +408,12 @@ def _mma_defaults(m: int, c: int, sms: int, k: int | None = None,
 
 def _mma_plan(m: int, c: int, sms: int, knobs, k: int | None = None,
               table: int | None = None) -> BlockPlan:
-    """The tensor-core plan: :func:`_mma_defaults`, with any of ``producers``,
-    ``warps_m``, ``warps_n`` pinned by ``knobs`` (a pinned plan has no
-    producers unless it pins them too) and ``overlap`` (programmatic
-    dependent launch: a launch fetches its weights while the one before it
-    still runs) on unless ``knobs`` switch it off; raises for a setting the
-    kernel cannot run (:class:`NoPlan`). ``k``, ``table``: as
+    """K3's tensor-core plan of a launch: :func:`_mma_defaults`, with any
+    of ``producers``, ``warps_m``, ``warps_n`` pinned by ``knobs`` (a
+    pinned plan has no producers unless it pins them too) and ``overlap``
+    (programmatic dependent launch: a launch fetches its weights while the
+    one before it still runs) on unless ``knobs`` switch it off; raises for
+    a setting the kernel cannot run (:class:`NoPlan`). ``k``, ``table``: as
     :func:`_mma_smem`."""
     knobs = dict(knobs)
     overlap = bool(knobs.pop("overlap", True))
@@ -440,51 +450,285 @@ def blocks_per_sm(smem: int, warps: int) -> int:
                       65536 // (warps * 32 * 128)))
 
 
+MAX_STAGES = 8  # operand stages K2's kernel takes (csrc: kRingMaxStages)
+RING_BARRIER_BYTES = 144  # the ring's mbarriers (csrc: kRingBarBytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """How one GEMM launch of a K2 block runs on the tensor cores: a block
+    has 16 warps; the first ``loaders`` build row tiles into a ring of
+    ``stages`` operand stages, the last ``warps_m`` x ``warps_n`` multiply
+    them, and a warp counted in both does both (csrc/fused_block_tc.cu)."""
+
+    loaders: int      # warps that build the stages, the block's first
+    stages: int       # operand stages of the ring
+    warps_m: int      # multiplying warps, the block's last, along the rows
+    warps_n: int      # and along the columns
+    n_tiles: int      # column chunks (grid.y)
+    grid_x: int       # persistent blocks along the row tiles
+    smem_bytes: int
+    prefetch: bool    # the loaders ask L2 for the next tile's bytes
+
+    @property
+    def rows(self) -> int:
+        """Rows of the (N*T*H*W, C) matrix per stage (a row tile)."""
+        return self.warps_m * WARP_ROWS
+
+    @property
+    def chunk_cols(self) -> int:
+        """Columns of W a block holds: all of them when ``n_tiles`` is 1."""
+        return self.warps_n * WARP_COLS
+
+    @property
+    def warps(self) -> int:
+        return MAX_WARPS
+
+    def as_ints(self) -> list:
+        return [self.loaders, self.stages, self.warps_m, self.warps_n,
+                self.n_tiles, self.grid_x, self.smem_bytes,
+                int(self.prefetch)]
+
+    def describe(self) -> str:
+        return (f"{'resident' if self.n_tiles == 1 else 'resident-chunks'}"
+                f" ring {self.stages}x{self.rows} rows, {self.loaders} warps "
+                f"load, {self.warps_m}x{self.warps_n} multiply"
+                f"{', prefetch' if self.prefetch else ''}, chunks "
+                f"{self.n_tiles}x{self.chunk_cols} grid {self.grid_x} smem "
+                f"{self.smem_bytes}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunPlan:
+    """How the blocks of a K2 run are launched: the route and, on the tensor
+    cores, the :class:`RingPlan` of launch A (``mid``) and of launch B
+    (``out``), the numbers ``rubiks_fused_block_run`` takes. On the "simt"
+    route the C side tiles by itself (csrc/common.cuh::launch_gemm)."""
+
+    route: str  # "mma": tensor cores, bf16; "simt": the common.cuh GEMM
+    a: RingPlan | None = None
+    b: RingPlan | None = None
+    overlap: bool = False  # a launch may begin before the one before it ended
+
+    def describe(self) -> str:
+        if self.route == "simt":
+            return "simt"
+        return f"mma A [{self.a.describe()}] B [{self.b.describe()}]"
+
+    def as_ints(self) -> list:
+        """The 17 numbers of ``rubiks_fused_block_run``'s plan argument."""
+        return [*self.a.as_ints(), *self.b.as_ints(), int(self.overlap)]
+
+
+def _ring_smem(stages: int, warps_m: int, warps_n: int, c: int,
+               table: bool = True) -> int:
+    """Shared memory of a block of K2 (csrc/fused_block_tc.cuh::
+    ring_smem_bytes): the ring's barriers, ``stages`` operand stages of
+    ``warps_m`` x 16 rows, the block's columns of W and, with ``table``,
+    the gather's table of 8 words a channel (where launch A with the gate
+    puts its SE region instead)."""
+    kp = _ceil_div(c, 16) * 16
+    return (RING_BARRIER_BYTES
+            + stages * warps_m * WARP_ROWS * tile_row_stride(kp) * 2
+            + kp * tile_row_stride(warps_n * WARP_COLS) * 2
+            + (8 * kp * 4 if table else 0))
+
+
+# The rule's numbers, read off utils/fused_block_probe.py's sweeps (PERF.md).
+RING_STAGES = 2        # stages where two fit beside W
+RING_FEW_TILES = 4     # row tiles a block below which every warp loads
+RING_PREFETCH_ROWS = 32  # rows a stage at most where the loaders prefetch
+LAUNCHES_AB = ("a", "b")
+
+
+def _se_region(gate, warps_m: int, warps_n: int, hw: int,
+               stride: int = 1) -> int:
+    """Bytes of launch A's SE region (csrc/tc_se.cuh::tc_se_bytes) for the
+    gate's tap window ``gate`` (taps per axis, max_shift): two per-axis
+    weight tables and the row warps' sums of a tile of ``warps_m`` x 16
+    rows, frames of ``hw`` rows."""
+    taps_n, max_shift = gate
+    slots = (warps_m * WARP_ROWS + hw - 2) // hw + 1
+    lo, hi = max(taps_n - 1 - max_shift, 0), max_shift + stride - 1
+    return ((2 * (lo + hi + stride) + warps_m * slots) * warps_n * WARP_COLS
+            * 4)
+
+
+def _ring_fits(stages, warps_m, warps_n, c, hw, gate) -> bool:
+    """Whether both launches of a block fit its shared memory: the stages,
+    W and launch B's table; with the gate (``gate``: its tap window) also
+    launch A's SE region where the table would be."""
+    if _ring_smem(stages, warps_m, warps_n, c) > SMEM_LIMIT:
+        return False
+    return gate is None or (
+        _ring_smem(stages, warps_m, warps_n, c, table=False)
+        + _se_region(gate, warps_m, warps_n, hw) <= SMEM_LIMIT)
+
+
+def _ring_defaults(m: int, c: int, sms: int, hw: int, gate) -> dict:
+    """The ring the sweeps of utils/fused_block_probe.py found best (PERF.md
+    has the tables), as a rule of what the kernel can observe: the rows M,
+    the width C and the shared memory left beside W.
+
+    * ``warps_n``, a power of two, covers the width's 72-column groups
+      where W then fits beside two stages of 16 rows, else as many as fit:
+      every further column chunk redoes the operand tiles, gather included;
+    * every warp multiplies (``warps_m`` = 16 / ``warps_n``), fewer rows a
+      stage while two stages do not fit beside W (with the gate, ``gate``,
+      beside its SE region too), and while fewer than half the SMs would
+      have a work item (row tiles x column chunks), fewer rows, then
+      narrower chunks;
+    * ``RING_STAGES`` stages (one where two do not fit);
+    * loaders: every warp where every warp multiplies or a block has fewer
+      than ``RING_FEW_TILES`` row tiles; else the warps that do not
+      multiply (a warp then loads or multiplies, not both);
+    * the loaders prefetch the next tile into L2 where a stage holds at most
+      ``RING_PREFETCH_ROWS`` rows.
+    """
+    fits = functools.partial(_ring_fits, c=c, hw=hw, gate=gate)
+    groups = _ceil_div(_ceil_div(c, 8), WARP_COLS // 8)
+    warps_n = 1
+    while warps_n < groups and fits(2, 1, 2 * warps_n):
+        warps_n *= 2
+    warps_m = MAX_WARPS // warps_n
+    while warps_m > 1 and not fits(2, warps_m, warps_n):
+        warps_m //= 2
+
+    def items():
+        return (_ceil_div(m, warps_m * WARP_ROWS)
+                * _ceil_div(groups, warps_n))
+
+    while 2 * items() < sms and warps_m * warps_n > 1:
+        if warps_m > 2 or warps_n == 1:
+            warps_m //= 2
+        else:
+            warps_n //= 2
+    stages = RING_STAGES if fits(RING_STAGES, warps_m, warps_n) else 1
+    mults = warps_m * warps_n
+    n_split = _ceil_div(groups, warps_n)
+    tiles = _ceil_div(_ceil_div(m, warps_m * WARP_ROWS),
+                      max(1, sms // n_split))
+    loaders = (MAX_WARPS if mults == MAX_WARPS or tiles < RING_FEW_TILES
+               else MAX_WARPS - mults)
+    return dict(loaders=loaders, stages=stages, warps_m=warps_m,
+                warps_n=warps_n,
+                prefetch=warps_m * WARP_ROWS <= RING_PREFETCH_ROWS)
+
+
+RING_KNOBS = ("loaders", "stages", "warps_m", "warps_n", "prefetch")
+
+
+def _ring_plan(m: int, c: int, sms: int, hw: int, gate,
+               knobs) -> RingPlan:
+    """K2's tensor-core plan: :func:`_ring_defaults`, with any of
+    ``loaders``, ``stages``, ``warps_m``, ``warps_n``, ``prefetch`` pinned
+    by ``knobs`` (where the rows or columns are pinned and the stages or
+    loaders are not: ``RING_STAGES`` stages, or one where they do not fit,
+    and the warps that do not multiply, or all 16 where all multiply) and
+    ``overlap`` (programmatic dependent launch: a launch fetches its
+    weights while the one before it still runs) on unless ``knobs`` switch
+    it off; raises for a setting the kernel cannot run, with the gate
+    (``gate``: its tap window) also for one whose SE region does not fit
+    (:class:`NoPlan`)."""
+    shape = {**_ring_defaults(m, c, sms, hw, gate), **knobs}
+    warps_m, warps_n = shape["warps_m"], shape["warps_n"]
+    if {"warps_m", "warps_n"} & set(knobs):
+        if "stages" not in knobs:
+            shape["stages"] = RING_STAGES if _ring_fits(
+                RING_STAGES, warps_m, warps_n, c, hw, gate) else 1
+        if "loaders" not in knobs:
+            shape["loaders"] = MAX_WARPS - warps_m * warps_n or MAX_WARPS
+    loaders, stages = shape["loaders"], shape["stages"]
+    groups = _ceil_div(_ceil_div(c, 8), WARP_COLS // 8)
+    smem = _ring_smem(stages, warps_m, warps_n, c)
+    if (min(warps_m, warps_n, loaders, stages) < 1 or stages > MAX_STAGES
+            or loaders > MAX_WARPS or warps_m * warps_n > MAX_WARPS
+            or loaders + warps_m * warps_n < MAX_WARPS
+            or not _ring_fits(stages, warps_m, warps_n, c, hw, gate)
+            or (warps_n > 1 and warps_n >= 2 * groups)):
+        raise NoPlan(f"no tensor-core plan for C={c} under {shape}: "
+                     f"{loaders} loading and {warps_m * warps_n} "
+                     f"multiplying warps (at most {MAX_WARPS}, none idle), "
+                     f"{stages} stages (at most {MAX_STAGES}), {smem} bytes "
+                     f"of shared memory (at most {SMEM_LIMIT})")
+    n_split = _ceil_div(groups, warps_n)
+    row_tiles = max(1, _ceil_div(m, warps_m * WARP_ROWS))
+    return RingPlan(
+        loaders=loaders, stages=stages, warps_m=warps_m, warps_n=warps_n,
+        n_tiles=n_split,
+        grid_x=min(row_tiles,
+                   _ceil_div(sms * blocks_per_sm(smem, MAX_WARPS), n_split)),
+        smem_bytes=smem, prefetch=bool(shape["prefetch"]))
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(shape, dtype, sms, knobs):
+def _plan(shape, dtype, sms, gate, knobs):
     n, t, h, w, c = shape
     if dtype != torch.bfloat16:
         if knobs:
             raise ValueError(f"unknown plan knobs {[k for k, _ in knobs]}: "
                              f"the SIMT route has none")
-        return BlockPlan("simt")
-    return _mma_plan(n * t * h * w, c, sms, dict(knobs))
+        return RunPlan("simt")
+    knobs = dict(knobs)
+    overlap = bool(knobs.pop("overlap", True))
+    per = {launch: {k: v for k, v in knobs.items() if k in RING_KNOBS}
+           for launch in LAUNCHES_AB}
+    for key, value in knobs.items():
+        launch, _, name = key.partition("_")
+        if launch in per and name in RING_KNOBS:
+            per[launch][name] = value  # over the knob of both launches
+        elif key not in RING_KNOBS:
+            raise ValueError(f"unknown plan knobs {[key]}")
+    m = n * t * h * w
+    # The gate's SE region is launch A's alone.
+    return RunPlan(
+        route="mma",
+        a=_ring_plan(m, c, sms, h * w, gate, per["a"]),
+        b=_ring_plan(m, c, sms, h * w, None, per["b"]),
+        overlap=overlap)
 
 
-def fused_block_plan(shape, dtype, *, sms=SM_COUNT, **knobs) -> BlockPlan:
-    """The launch plan of one block of a run on x of ``shape`` (N, T, H, W,
+def fused_block_plan(shape, dtype, *, sms=SM_COUNT, gate=None,
+                     **knobs) -> RunPlan:
+    """The launch plan of the blocks of a run on x of ``shape`` (N, T, H, W,
     C): the route, a function of the dtype (tensor-core products for
-    bfloat16, SIMT for float32), and, for the tensor cores, whether a block
-    holds all of W or a chunk of its columns, the rows per tile, the warps,
-    the grid and the shared memory. It depends on the shape and the dtype
-    alone: the gather reads directly whatever the taps, and the attention
-    mix and the gate ride on the loaders. ``knobs`` pin ``producers``,
-    ``warps_m`` or ``warps_n``, or switch ``overlap`` off (the probe's
-    sweep); the SIMT route takes none."""
+    bfloat16, SIMT for float32), and, for the tensor cores, per launch (A,
+    B) whether a block holds all of W or a chunk of its columns, the ring's
+    stages and rows per stage, the loader and multiplying warps, the grid
+    and the shared memory. It depends on the shape and the dtype, and with
+    the SE gate on its tap window ``gate`` = (taps per axis, max_shift),
+    whose SE region launch A holds beside W: the gather reads directly
+    whatever the taps, and the attention mix and the gate ride on the
+    loaders. ``knobs`` pin ``loaders``, ``stages``, ``warps_m``,
+    ``warps_n`` or ``prefetch`` of both launches, or with an ``a_`` or
+    ``b_`` in front of one, or switch ``overlap`` off (the probe's sweep);
+    the SIMT route takes none."""
     if len(shape) != 5 or min(shape[1:]) < 1 or shape[0] < 0:
         raise ValueError(f"shape must be (N, T, H, W, C), got {shape}")
     return _plan(tuple(int(d) for d in shape), dtype, int(sms),
+                 None if gate is None else tuple(int(g) for g in gate),
                  tuple(sorted(knobs.items())))
 
 
 def se_smem_fits(plan, shape, k: int, taps_n: int, max_shift: int,
                  stride: int) -> bool:
-    """Whether launch A under ``plan`` (a tensor-core :class:`BlockPlan`
-    of depth ``k``) holds the SE region beside its tile and W: two per-axis
-    weight tables and the row warps' sums of ``shape``'s (N, T, H, W, C)
-    ``mid`` (csrc/tc_se.cuh::tc_se_bytes, placed after W as
-    csrc/fused_block_tc.cu::tc_launch places it). The port's one statement
-    of that rule: the C side checks its own need and refuses a launch past
-    a block's shared memory, and chip_smoke.py holds the two together at
-    the rule's edge."""
+    """Whether launch A under ``plan`` (K2's tensor-core :class:`RingPlan`
+    of launch A, or K3's :class:`BlockPlan` of depth ``k``) holds the SE region
+    beside its operand tiles and W: two per-axis weight tables and the row
+    warps' sums of ``shape``'s (N, T, H, W, C) ``mid``
+    (csrc/tc_se.cuh::tc_se_bytes, placed after W as the kernels' launch
+    functions place it). The port's one statement of that rule: the C side
+    checks its own need and refuses a launch past a block's shared memory,
+    and chip_smoke.py holds the two together at the rule's edge."""
     _, _, h, w, c = shape
-    hw = h * w
-    slots = (plan.rows + hw - 2) // hw + 1
-    lo, hi = max(taps_n - 1 - max_shift, 0), max_shift + stride - 1
-    region = ((2 * (lo + hi + stride) + plan.warps_m * slots)
-              * plan.warps_n * WARP_COLS * 4)
-    t_off = _mma_smem(plan.producers, plan.warps_m, plan.warps_n, c, k=k,
-                      table=0)
+    region = _se_region((taps_n, max_shift), plan.warps_m, plan.warps_n,
+                        h * w, stride)
+    if isinstance(plan, RingPlan):
+        t_off = _ring_smem(plan.stages, plan.warps_m, plan.warps_n, c,
+                           table=False)
+    else:
+        t_off = _mma_smem(plan.producers, plan.warps_m, plan.warps_n, c,
+                          k=k, table=0)
     return t_off + region <= SMEM_LIMIT
 
 
@@ -505,11 +749,12 @@ def fused_block_supported(shape, max_shift, dtype, aq=False, se=False, *,
     if taps_n > KERNEL_MAX_TAPS:
         return False
     try:
-        plan = fused_block_plan(shape, dtype, sms=sms)
+        plan = fused_block_plan(shape, dtype, sms=sms,
+                                gate=(taps_n, max_shift) if se else None)
     except NoPlan:
         return False
     if se and plan.route == "mma":
-        return se_smem_fits(plan, shape, shape[4], taps_n, max_shift, 1)
+        return se_smem_fits(plan.a, shape, shape[4], taps_n, max_shift, 1)
     return True
 
 
@@ -537,10 +782,11 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
         raise ValueError("fused_block_kernel needs contiguous x, vt, wm, se")
     code = _build.dtype_code(x.dtype)
     plan = fused_block_plan(x.shape, x.dtype, sms=_sm_count(x.device.index),
+                            gate=None if se is None else (taps_n, max_shift),
                             **knobs)
     P, I = _build.PTR, _build.INT
-    fn = _build.kernel_function("rubiks_fused_block_run", *[P] * 8, *[I] * 19,
-                                P)
+    fn = _build.kernel_function("rubiks_fused_block_run", *[P] * 8, *[I] * 12,
+                                P, P)
     n, t, h, w, c = x.shape
     out = torch.empty_like(x)
     mid = torch.empty_like(x)
@@ -549,7 +795,7 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
     if se is not None:
         cr = se.shape[3]
         if plan.route == "mma":
-            partial = torch.empty(se_partial_shape(plan, x.shape),
+            partial = torch.empty(se_partial_shape(plan.a, x.shape),
                                   dtype=torch.float32, device=x.device)
             slices = partial.shape[1]
         else:
@@ -564,11 +810,13 @@ def fused_block_kernel(x, vt, wm, se=None, *, aq=False, max_shift,
                 partial.data_ptr() if se is not None else None,
                 gate.data_ptr() if se is not None else None,
                 mid.data_ptr(), out.data_ptr(), code, nb, n, t, h, w, c,
-                taps_n, max_shift, int(bool(aq)), cr, slices, plan.producers,
-                plan.warps_m, plan.warps_n, plan.n_tiles, plan.grid_x,
-                plan.smem_bytes, int(plan.overlap), _build.stream_of(x))
+                taps_n, max_shift, int(bool(aq)), cr, slices,
+                (I * 17)(*plan.as_ints()) if plan.route == "mma" else None,
+                _build.stream_of(x))
     _build.check(rc, "rubiks_fused_block_run")
     LAUNCHES.count += nb
+    if plan.route == "mma" and min(plan.a.stages, plan.b.stages) >= 2:
+        RING_LAUNCHES.count += nb
     if se is not None and plan.route == "mma":
         SE_GATE_LAUNCHES.count += nb
     if scratch is not None:

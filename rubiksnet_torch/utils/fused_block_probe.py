@@ -1,45 +1,69 @@
 """K2, the fused stride-1 block (ops/csrc/fused_block.cu, fused_block_tc.cu),
-alone on the card: what was compiled, a check, the host's share and a sweep
-of the plan's knobs.
+alone on the card: what was compiled, a check, the host's share, a sweep of
+the plan's knobs and a comparison with another checkout's K2.
 
     python3 -m rubiksnet_torch.utils.fused_block_probe --ptxas --check
-    python3 -m rubiksnet_torch.utils.fused_block_probe --host --sweep
+    python3 -m rubiksnet_torch.utils.fused_block_probe --host --sweep \
+        --batch 1 8 32 64
     python3 -m rubiksnet_torch.utils.fused_block_probe --se --ptxas --check \
         --sweep
+    python3 -m rubiksnet_torch.utils.fused_block_probe --ptxas \
+        --parent scratch_build/parent
 
 ``--ptxas`` compiles both sources once more with ``-Xptxas -v`` and prints
 each kernel's registers, spills and shared memory, and the tensor-core
-(HMMA) instructions ``cuobjdump -sass`` finds in the object. ``--check``
-holds the kernel against the plain version (float32 and bfloat16, each run
-repeated bit-identically) at the five Large shapes for rubiks3d, aq, se and
-aq+se, in bfloat16 also at the served batch sizes 1, 8 and 32 (the plan
-depends on the batch), and at CASES: widths 54, 108, 216 and 432, one clip, odd extents,
-``max_shift`` 3 with shifts near +-3, quantized, integer and zero shifts,
-taps with three non-zero weights per axis, a run of three blocks.
+(HMMA) instructions ``cuobjdump -sass`` finds in the object; with
+``--parent DIR`` also DIR's ``fused_block_tc.cu`` and ``fused_entry_tc.cu``
+and this checkout's ``fused_entry_tc.cu``, and a table of each launch's
+registers and spill bytes, here and there. ``--check`` holds the kernel
+against the plain version (float32 and bfloat16, each run repeated
+bit-identically) at the five Large shapes for rubiks3d, aq, se and aq+se,
+in bfloat16 also at the served batch sizes 1, 8 and 32 (the plan depends on
+the batch), and at CASES: widths 54, 108, 216 and 432, one clip, odd
+extents, ``max_shift`` 3 with shifts near +-3, quantized, integer and zero
+shifts, taps with three non-zero weights per axis, a run of three blocks.
 ``--host`` times the enqueue of a 35-block run at 14x14x288 (host clock, no
 synchronisation): one call per run against one call per block; and the run
 itself by events, with and without the overlap of consecutive launches.
-``--sweep`` times one block, bfloat16 at batch 8 (or ``--batch``), at the five
-shapes under several settings of the plan's knobs (``producers``, ``warps_m``,
-``warps_n``): device time by ``torch.profiler`` and time per call by CUDA
-events, for rubiks3d and aq, with the launches not overlapped so that a
-kernel's duration holds no wait for the one before it; every setting is held
-against the plain version before it is timed. ``--se`` turns the three to the
-SE forms: ``--ptxas`` also compiles the gate launch (``se_gate_tc.cu``) and
-names each kernel's launch (K2's A with the gate's sums,
-``rubiks_tc_kernel<5>`` and ``<6>`` with aq, beside the unchanged ``<0>``,
-``<1>``, ``<2>``), ``--check`` runs the se and aq+se variants only, ``--sweep``
-times K2-SE and K2-AQ-SE (launch A with the sums, the gate, launch B). Needs a
-CUDA card; prints its name and power limit.
+``--sweep`` times the ring's settings of each launch (``a_`` or ``b_``
+``loaders``, ``stages``, ``warps_m``, ``warps_n``, ``prefetch`` of
+``ops/fused_block.py::fused_block_plan``, the other launch on the plan's
+own; ``--launch`` picks one) at the five shapes, bfloat16, at each
+``--batch``: launch A for rubiks3d and aq, launch B (the same kernel for
+both) for rubiks3d; CUDA events around a run of RUN_BLOCKS blocks in one
+call, launches overlapped as they are served; every setting's output
+equals the plan's own bit for bit (a row's result does not depend on the
+plan), and the plan's own is held against the plain version first.
+``--parent DIR`` (a checkout of another commit, e.g. the parent unpacked
+by ``git archive``) builds DIR's kernel library and, at every
+MODEL_SHAPES entry and every ``--batch`` (default 1, 8, 32 and 64), holds
+this checkout's K2 (launch modes 0, 1 and 2: rubiks3d and aq) to DIR's
+bit for bit, and times both in turns (DIR, here, here, DIR) under each
+one's own plan: device ms a block by ``torch.profiler`` (launches not
+overlapped; also per launch) and ms a block by events around a run
+(overlapped). DIR's plan is ``ops/fused_block.py::_mma_plan``, the
+lockstep rule K2 took before its ring and K3 still takes, and DIR's entry
+point the one of that route.
+``--se`` turns ``--ptxas``, ``--check`` and ``--sweep`` to the SE forms:
+``--ptxas`` also compiles the gate launch (``se_gate_tc.cu``) and names
+each kernel's launch (K2's A with the gate's sums, ``rubiks_tc_kernel<5>``
+and ``<6>`` with aq, beside ``<0>``, ``<1>``, ``<2>``), ``--check`` runs
+the se and aq+se variants only, ``--sweep`` times K2-SE and K2-AQ-SE
+(launch A with the sums, the gate, launch B; a setting's output held
+against the plain version, since the gate's sums follow the rows of a
+stage). Needs a CUDA card; prints its name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -50,6 +74,7 @@ from .benchmark import cuda_kernel_times, cuda_time_ms, nvidia_smi_line
 
 FRAMES = 8
 SERVE_BATCHES = (1, 8, 32)  # clips per call of the served and timed points
+PARENT_BATCHES = (1, 8, 32, 64)  # --parent's and --sweep's default batches
 # Large at 224 px: (H, C, blocks per forward).
 MODEL_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 7), (14, 288, 35),
                 (7, 576, 2)]
@@ -179,13 +204,14 @@ def check_case(label, shape, max_shift, kind, blocks, aq, se, dtype, gen,
     else:
         ok, what = rel_l2 <= TOL_BF16_REL_L2, f"rel_l2<={TOL_BF16_REL_L2}"
     ok = ok and same and finite and got.shape == ref.shape
-    plan = fb.fused_block_plan(shape, dtype, sms=fb._sm_count(dev.index))
+    tn = fb.taps_from_rows(vt.shape[1], 4, aq)
+    plan = fb.fused_block_plan(shape, dtype, sms=fb._sm_count(dev.index),
+                               gate=(tn, max_shift) if se else None)
     tag = f"K2{'-AQ' if aq else ''}{'-SE' if se else ''}"
     text = (f"{tag} {label} {tuple(shape)} {str(dtype)[6:]}: max_abs="
             f"{max_abs:.3e} rel_max={rel_max:.3e} rel_l2={rel_l2:.3e} "
             f"[{what}] rerun {'bit-identical' if same else 'DIFFERS'}")
     if se:
-        tn = fb.taps_from_rows(vt.shape[1], 4, aq)
         err, same_gate = gate_error(scratch, vt[-1, 4:4 + 3 * tn], sep[-1],
                                     max_shift, 1, first_gate)
         ok = ok and err <= TOL_GATE and same_gate
@@ -251,27 +277,37 @@ def launch_name(mangled: str) -> str:
     return next((v for k, v in LAUNCH_NAMES.items() if k in mangled), "")
 
 
-def ptxas_report(sources=("fused_block_tc.cu", "fused_block.cu")) -> None:
-    """Registers, spills and shared memory of every kernel of the sources,
-    each tensor-core launch named, and the tensor-core instructions in each
-    object."""
+def ptxas_report(sources=("fused_block_tc.cu", "fused_block.cu"),
+                 csrc=_build.CSRC, tag="") -> dict:
+    """Registers, spills and shared memory of every kernel of the sources in
+    ``csrc``, each tensor-core launch named, and the tensor-core
+    instructions in each object. -> {launch name: (registers, spill store
+    bytes, spill load bytes)} of the named launches."""
     nvcc = _build._find_nvcc()
+    usage = {}
     for name in sources:
         with tempfile.TemporaryDirectory() as tmp:
             obj = f"{tmp}/{name}.o"
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
-                 str(_build.CSRC / name)], capture_output=True, text=True)
-            print(f"[ptxas] {name}: nvcc exit {proc.returncode} in "
+                 str(Path(csrc) / name)], capture_output=True, text=True)
+            print(f"[ptxas{tag}] {name}: nvcc exit {proc.returncode} in "
                   f"{time.perf_counter() - t0:.1f} s")
             lines = (proc.stdout + proc.stderr).splitlines()
             for i, line in enumerate(lines):
                 if "Compiling entry function" in line:
                     mangled = line.split("'")[1]
+                    info = " ".join(lines[i + 1: i + 4])
                     print("  " + mangled[:70], f"[{launch_name(mangled)}]",
-                          "|", " ".join(lines[i + 1: i + 4]).replace(
-                              "ptxas info    :", ""))
+                          "|", info.replace("ptxas info    :", ""))
+                    regs = re.search(r"Used (\d+) registers", info)
+                    spill = re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", info)
+                    if launch_name(mangled) and regs and spill:
+                        usage[launch_name(mangled)] = (
+                            int(regs.group(1)), int(spill.group(1)),
+                            int(spill.group(2)))
             if proc.returncode != 0:
                 print(proc.stderr)
                 raise RuntimeError("nvcc failed")
@@ -287,6 +323,21 @@ def ptxas_report(sources=("fused_block_tc.cu", "fused_block.cu")) -> None:
                       f"{sass.stdout.count('LDGSTS')} LDGSTS (cp.async)")
             else:
                 print(f"  cuobjdump failed: {sass.stderr[:200]}")
+    return usage
+
+
+def ptxas_beside(parent) -> None:
+    """K2's and K3's tensor-core launches, their registers and spill bytes
+    here and in the checkout ``parent``."""
+    sources = ("fused_block_tc.cu", "fused_entry_tc.cu")
+    here = ptxas_report(sources)
+    there = ptxas_report(sources, Path(parent) / "rubiksnet_torch" / "ops"
+                         / "csrc", tag=" parent")
+    print("[ptxas] launch: registers, spill stores, spill loads (bytes); "
+          "here | parent")
+    for name in sorted(set(here) | set(there)):
+        print(f"  {name}: {here.get(name)} | {there.get(name)}"
+              f"{'' if here.get(name) == there.get(name) else ' (differs)'}")
 
 
 def host_us(fn, calls=8, rounds=5):
@@ -354,77 +405,211 @@ def device_ms(fn, needles, iters=5):
 # the SE gate's).
 NEEDLES = ("rubiks_tc_kernel", "se_gate_tc_kernel")
 
-def _pinned(producers, warps_m, warps_n):
-    return {"producers": producers, "warps_m": warps_m, "warps_n": warps_n}
+RUN_BLOCKS = 6  # blocks of one timed call: the host's enqueue stays hidden
 
 
-# The sweep's settings: the plan's own choice first and last, then pinned
-# (producers, warps_m, warps_n).
-# A setting that does not fit a width is skipped there.
-SETTINGS = [{}] + [_pinned(*k) for k in (
-    (0, 16, 1), (0, 12, 1), (0, 8, 1), (8, 8, 1), (12, 4, 1), (12, 2, 1),
-    (0, 4, 1), (0, 2, 1),
-    (0, 8, 2), (0, 6, 2), (0, 4, 2), (8, 4, 2), (12, 2, 2), (12, 1, 2),
-    (8, 1, 2), (0, 2, 2), (0, 1, 2),
-    (0, 4, 4), (0, 3, 4), (0, 2, 4), (8, 2, 4), (12, 1, 4), (8, 1, 4))] + [
-        {}]
+def ring_settings(shape, sms, launch):
+    """The sweep's settings of ``launch`` ("a" or "b") at ``shape``: the
+    plan's own first, then every (loaders, stages, warps_m, warps_n,
+    prefetch) that fits, with warps_n the plan's: the multiplying warps 2
+    to 16, the loaders all 16 warps or those that do not multiply, one to
+    three stages, the L2 prefetch where a stage holds at most 64 rows. The
+    other launch keeps the plan's own."""
+    bf = torch.bfloat16
+    own = fb.fused_block_plan(shape, bf, sms=sms)
+    out, seen = [{}], {own}
+    wn = getattr(own, launch).warps_n
+    for mults in (2, 4, 8, 16):
+        if mults % wn:
+            continue
+        for loaders in sorted({fb.MAX_WARPS, fb.MAX_WARPS - mults} - {0}):
+            for stages in (1, 2, 3):
+                for prefetch in (False, True):
+                    if prefetch and mults // wn * fb.WARP_ROWS > 64:
+                        continue
+                    knobs = {f"{launch}_{k}": v for k, v in dict(
+                        loaders=loaders, stages=stages, warps_m=mults // wn,
+                        warps_n=wn, prefetch=prefetch).items()}
+                    try:
+                        plan = fb.fused_block_plan(shape, bf, sms=sms,
+                                                   **knobs)
+                    except ValueError:
+                        continue  # more shared memory than a block has
+                    if plan not in seen:
+                        seen.add(plan)
+                        out.append(knobs)
+    return out
 
 
-def sweep(dev, batch, se=False) -> bool:
-    """Times every setting, each held against the plain version first;
-    with ``se`` the SE forms."""
+def events_ms_per_block(fn, blocks, iters=10):
+    """ms a block of ``fn()``, a run of ``blocks`` blocks, by events."""
+    return cuda_time_ms(fn, iters=iters) / blocks
+
+
+def sweep(dev, batches, se=False, launches=("a", "b")) -> bool:
+    """Times every setting of each launch at each batch, the other launch
+    on the plan's own (launch B is the same kernel with and without aq, so
+    only rubiks3d sweeps it); a setting's output equals the plan's own bit
+    for bit (SE: held against the plain version), the plan's own held
+    against the plain version first."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cpu_gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
-    totals = {}
+    sms = fb._sm_count(dev.index)
     ok = True
-    for h, c, count in MODEL_SHAPES:
-        count = SMALL_COUNTS[h] if se else count
-        shape = (batch, FRAMES, h, h, c)
-        x = torch.randn(shape, generator=gen, device=dev).to(bf)
-        for aq in (False, True):
-            vt, wm, sep = make_run(c, 1, aq, se, bf, 1, "frac", cpu_gen, dev)
-            ref = fb.fused_block_plain(x, vt, wm, sep, aq=aq, max_shift=1)
-            for i, setting in enumerate(SETTINGS):
-                try:
-                    plan = fb.fused_block_plan(shape, bf, sms=fb._sm_count(
-                        dev.index), **setting)
-                except ValueError:
-                    continue  # the setting does not fit this width
-                fn = lambda: fb.fused_block_kernel(
-                    x, vt, wm, sep, aq=aq, max_shift=1, overlap=False,
-                    **setting)
-                try:
-                    got = fn()
-                except ValueError:
-                    continue  # the gate's sums do not fit beside it
-                rel_l2 = rel_errors(got, ref)[2]
-                tag = f"K2{'-AQ' if aq else ''}{'-SE' if se else ''}"
-                if not rel_l2 <= TOL_BF16_REL_L2:
-                    print(f"  {tag} {h}x{h}x{c} batch "
-                          f"{batch} {setting} [{plan.describe()}]: rel_l2="
-                          f"{rel_l2:.3e} against the plain version FAIL")
+    for batch in batches:
+        best = []
+        for h, c, count in MODEL_SHAPES:
+            count = SMALL_COUNTS[h] if se else count
+            shape = (batch, FRAMES, h, h, c)
+            x = torch.randn(shape, generator=gen, device=dev).to(bf)
+            for aq, launch in ((False, "a"), (True, "a"), (False, "b")):
+                if launch not in launches:
+                    continue
+                tag = (f"K2{'-AQ' if aq else ''}{'-SE' if se else ''} "
+                       f"launch {launch.upper()}")
+                vt, wm, sep = make_run(c, RUN_BLOCKS, aq, se, bf, 1, "frac",
+                                       cpu_gen, dev)
+                kw = dict(aq=aq, max_shift=1)
+                one = (vt[:1], wm[:1], sep[:1] if se else None)
+                own = fb.fused_block_kernel(x, *one, **kw)
+                plain = fb.fused_block_plain(x, *one, **kw)
+                rel = rel_errors(own, plain)[2]
+                if not rel <= TOL_BF16_REL_L2:
+                    print(f"  {tag} {h}x{h}x{c} batch {batch}: the plan's "
+                          f"own output rel_l2={rel:.3e} against plain FAIL")
                     ok = False
                     continue
-                dev_ms, n, by_name = device_ms(fn, NEEDLES)
-                evt = cuda_time_ms(fn, iters=20)
-                t = totals.setdefault((aq, i), [0.0, 0.0, 0])
-                t[0] += count * dev_ms
-                t[1] += count * evt
-                t[2] += count
-                print(f"  {tag} {h}x{h}x{c} batch {batch} "
-                      f"{setting or 'defaults'} [{plan.describe()}]: rel_l2 "
-                      f"{rel_l2:.1e} ok, device "
-                      f"{dev_ms:.4f} ms ({n:.0f} kernels/call: "
-                      + ", ".join(f"{v:.4f}" for v in by_name.values())
-                      + f") events {evt:.4f} ms")
-    print(f"[sweep] summed over the launches of one "
-          f"{'Small' if se else 'Large'} forward the setting fits (of "
-          f"{13 if se else 47}): device ms, events ms")
-    for (aq, i), (d, e, n) in sorted(totals.items()):
-        print(f"  K2{'-AQ' if aq else ''}{'-SE' if se else ''} "
-              f"{SETTINGS[i] or 'defaults'}: {d:.3f}, {e:.3f} over {n} "
-              f"launches")
+                rows = []
+                for setting in ring_settings(shape, sms, launch):
+                    plan = fb.fused_block_plan(shape, bf, sms=sms, **setting)
+                    try:
+                        got = fb.fused_block_kernel(x, *one, **kw, **setting)
+                    except ValueError:
+                        continue  # the gate's sums do not fit beside it
+                    same = (rel_errors(got, plain)[2] <= TOL_BF16_REL_L2
+                            if se else torch.equal(got, own))
+                    if not same:
+                        print(f"  {tag} {h}x{h}x{c} batch {batch} {setting} "
+                              f"[{plan.describe()}]: output differs FAIL")
+                        ok = False
+                        continue
+                    ms = events_ms_per_block(
+                        lambda: fb.fused_block_kernel(
+                            x, vt, wm, sep, **kw, **setting), RUN_BLOCKS)
+                    rows.append((ms, setting, plan))
+                    print(f"  {tag} {h}x{h}x{c} batch {batch} "
+                          f"{setting or 'defaults'} "
+                          f"[{getattr(plan, launch).describe()}]: {ms:.4f} "
+                          f"ms a block")
+                if rows:
+                    fastest = min(rows, key=lambda r: r[0])
+                    best.append((tag, h, c, count, rows[0][0], fastest,
+                                 launch))
+        print(f"[sweep] batch {batch}: the plan's own against the fastest "
+              f"setting of each launch, ms a block of both (blocks of a "
+              f"{'Small' if se else 'Large'} forward)")
+        for tag, h, c, count, own_ms, (ms, setting, plan), launch in best:
+            print(f"  {tag} {h}x{h}x{c} x{count}: own {own_ms:.4f}, fastest "
+                  f"{ms:.4f} ({100 * (own_ms / ms - 1):+.1f}%) "
+                  f"{setting or 'defaults'} "
+                  f"[{getattr(plan, launch).describe()}]")
+    return ok
+
+
+# ------------------------------------------------------------ --parent
+
+
+def parent_library(parent):
+    """DIR's kernel library, built as ops/_build.py builds this checkout's,
+    and its K2 entry point typed as that route took it: eight pointers,
+    then dtype, B, N, T, H, W, C, taps_n, K, aq, Cr, slices and the plan's
+    producers, warps_m, warps_n, n_tiles, grid_x, smem_bytes, overlap, then
+    the stream."""
+    csrc = Path(parent) / "rubiksnet_torch" / "ops" / "csrc"
+    lib, _ = _build.build_library(
+        "rubiks_parent", _build._find_nvcc(), sorted(csrc.glob("*.cu")),
+        sorted(csrc.glob("*.cuh")), _build.NVCC_FLAGS)
+    fn = lib.rubiks_fused_block_run
+    fn.argtypes = [_build.PTR] * 8 + [_build.INT] * 19 + [_build.PTR]
+    fn.restype = _build.INT
+    return fn
+
+
+def parent_run(fn, x, vt, wm, aq, overlap=True):
+    """A run of blocks through DIR's K2 (bfloat16, no gate) under the plan
+    DIR's rule makes."""
+    n, t, h, w, c = x.shape
+    plan = fb._mma_plan(n * t * h * w, c, fb._sm_count(x.device.index),
+                        {"overlap": overlap})
+    out, mid = torch.empty_like(x), torch.empty_like(x)
+    taps_n = fb.taps_from_rows(vt.shape[1], 4, aq)
+    rc = fn(x.data_ptr(), vt.data_ptr(), wm.data_ptr(), None, None, None,
+            mid.data_ptr(), out.data_ptr(), 1, vt.shape[0], n, t, h, w, c,
+            taps_n, 1, int(aq), 0, 0, plan.producers, plan.warps_m,
+            plan.warps_n, plan.n_tiles, plan.grid_x, plan.smem_bytes,
+            int(plan.overlap), _build.stream_of(x))
+    if rc != 0:
+        raise RuntimeError(f"the parent's rubiks_fused_block_run: {rc}")
+    return out
+
+
+def parent_compare(dev, parent, batches) -> bool:
+    """K2 here against K2 of the checkout ``parent``: launch modes 0, 1
+    and 2 (rubiks3d: A then B; aq: A-AQ then B) bit for bit at every model
+    shape and batch, and both timed in turns."""
+    fn = parent_library(parent)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cpu_gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    ok = True
+    totals = {}
+    for batch in batches:
+        for h, c, count in MODEL_SHAPES:
+            shape = (batch, FRAMES, h, h, c)
+            x = torch.randn(shape, generator=gen, device=dev).to(bf)
+            for aq in (False, True):
+                vt, wm, _ = make_run(c, RUN_BLOCKS, aq, False, bf, 1, "frac",
+                                     cpu_gen, dev)
+                plan = fb.fused_block_plan(shape, bf,
+                                           sms=fb._sm_count(dev.index))
+                here = lambda o=True: fb.fused_block_kernel(
+                    x, vt, wm, aq=aq, max_shift=1, overlap=o)
+                there = lambda o=True: parent_run(fn, x, vt, wm, aq, o)
+                a, b = here(), there()
+                same = torch.equal(a, b) and torch.equal(here(), a)
+                ok &= same
+                dev_ms, evt_ms, split = {}, {}, {}
+                for side, run in (("parent", there), ("here", here),
+                                  ("here", here), ("parent", there)):
+                    d, _, by_name = device_ms(lambda: run(False), NEEDLES,
+                                              iters=3)
+                    e = events_ms_per_block(run, RUN_BLOCKS)
+                    dev_ms.setdefault(side, []).append(d / RUN_BLOCKS)
+                    evt_ms.setdefault(side, []).append(e)
+                    for k, v in by_name.items():
+                        split.setdefault((side, k), []).append(v / RUN_BLOCKS)
+                d_p, d_h = (sum(dev_ms[k]) / 2 for k in ("parent", "here"))
+                e_p, e_h = (sum(evt_ms[k]) / 2 for k in ("parent", "here"))
+                launches = ", ".join(
+                    f"{side} {k.replace('rubiks_tc_kernel', '')} "
+                    f"{sum(v) / len(v):.4f}"
+                    for (side, k), v in sorted(split.items()))
+                t = totals.setdefault((batch, aq), [0.0, 0.0, 0.0, 0.0])
+                for i, v in enumerate((d_p, d_h, e_p, e_h)):
+                    t[i] += count * v
+                print(f"  K2{'-AQ' if aq else ''} {h}x{h}x{c} batch {batch}:"
+                      f" {'bit-identical' if same else 'DIFFERS'}; device ms"
+                      f" a block parent {d_p:.4f} here {d_h:.4f} "
+                      f"({100 * (d_h / d_p - 1):+.1f}%), events {e_p:.4f} "
+                      f"{e_h:.4f} ({100 * (e_h / e_p - 1):+.1f}%); by launch"
+                      f" {launches} [here {plan.describe()}]")
+    print("[parent] summed over the 47 blocks of a Large forward: device "
+          "ms parent, here; events ms parent, here")
+    for (batch, aq), (d_p, d_h, e_p, e_h) in sorted(totals.items()):
+        print(f"  K2{'-AQ' if aq else ''} batch {batch}: {d_p:.3f}, {d_h:.3f}"
+              f" ({100 * (d_h / d_p - 1):+.1f}%); {e_p:.3f}, {e_h:.3f} "
+              f"({100 * (e_h / e_p - 1):+.1f}%)")
     return ok
 
 
@@ -434,15 +619,21 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, nargs="+", default=None)
     ap.add_argument("--se", action="store_true")
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--launch", nargs="+", choices=("a", "b"),
+                    default=("a", "b"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fused_block_probe: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    batches = args.batch or PARENT_BATCHES
     print(f"[device] {nvidia_smi_line()}; torch {torch.__version__}")
-    if args.ptxas:
+    if args.ptxas and args.parent:
+        ptxas_beside(args.parent)
+    elif args.ptxas:
         ptxas_report(("fused_block_tc.cu", "fused_block.cu")
                      + (("se_gate_tc.cu",) if args.se else ()))
     if args.check:
@@ -451,10 +642,15 @@ def main(argv=None) -> int:
             return 1
     if args.host:
         host(dev)
+    if args.parent:
+        if not parent_compare(dev, args.parent, batches):
+            print("fused_block_probe: K2 differs from the parent's",
+                  file=sys.stderr)
+            return 1
     if args.sweep:
-        if not sweep(dev, args.batch, args.se):
-            print("fused_block_probe: a swept setting disagrees with the "
-                  "plain version", file=sys.stderr)
+        if not sweep(dev, batches, args.se, args.launch):
+            print("fused_block_probe: a swept setting disagrees",
+                  file=sys.stderr)
             return 1
     return 0
 

@@ -23,6 +23,8 @@ order and the emulation must equal ``fused_block_plain`` bit for bit, for
 rubiks3d and aq. With the SE gate the gated operand is no longer dyadic and
 the two sides multiply by W3 in another order: rtol/atol 1e-5."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -51,97 +53,134 @@ def work_items(plan, m):
 
 @pytest.mark.parametrize("sms", [SMS, 114])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", [1, 8, 32])
+@pytest.mark.parametrize("batch", [1, 8, 32, 64, 80])
 @pytest.mark.parametrize("width", [54, 72])
 def test_plan_of_every_stride1_shape(width, batch, dtype, sms):
     """Tiers tiny (54) and small/medium/large (72), 8 frames at 224 px, on
     the 132 SMs of the H100 SXM and the 114 of the PCIe card. The plan is the
-    same for rubiks3d and aq, any max_shift, with and without the SE gate:
-    none of them is an argument."""
+    same for rubiks3d and aq, any max_shift, and with the SE gate wherever
+    its SE region fits beside launch A's stages."""
     for h, f in STAGES:
         c = width * f
         shape = (batch, 8, h, h, c)
         m = batch * 8 * h * h
-        p = fb.fused_block_plan(shape, dtype, sms=sms)
+        run = fb.fused_block_plan(shape, dtype, sms=sms)
         if dtype == torch.float32:
             # Full-float32 products: the SIMT route, always; the C side
             # tiles it by itself.
-            assert p == fb.BlockPlan("simt") and p.describe() == "simt"
+            assert run == fb.RunPlan("simt") and run.describe() == "simt"
             continue
-        assert p.route == "mma" and p.overlap and p.grid_x >= 1
-        assert p.smem_bytes <= fb.SMEM_LIMIT
-        warps = p.producers + p.warps_m * p.warps_n
-        assert 32 * warps <= 512
-        assert p.rows == p.warps_m * 16 and p.chunk_cols == p.warps_n * 72
-        assert p.smem_bytes == fb._mma_smem(p.producers, p.warps_m,
-                                            p.warps_n, c)
-        # K and N are covered, with less than one tile of zero fill.
-        k_pad, n_pad = kernel_padding(c)
-        assert 0 <= k_pad - c < 16 and 0 <= n_pad - c < 8
-        assert p.n_tiles * p.chunk_cols >= n_pad
-        assert (p.n_tiles - 1) * p.chunk_cols < n_pad
-        if width == 72:
-            # 72 * 2^j: warps of 72 columns divide the width exactly.
-            assert (k_pad - c, n_pad) in ((0, c), (8, c))
-            assert p.n_tiles * p.chunk_cols == c
-        # All of W beside the A tile where it fits, else chunks.
-        fits = fb._mma_smem(0, 1, -(-c // 72), c) <= fb.SMEM_LIMIT
-        assert ("resident-chunks" in p.describe()) == (p.n_tiles > 1)
-        assert fits or p.n_tiles > 1
-        # At least half the SMs have work where M allows it, and the grid
-        # never exceeds what the SMs hold at once.
-        items = work_items(p, m)
-        assert 2 * items >= min(sms, -(-m // 16))
-        assert p.grid_x * p.n_tiles <= max(
-            sms * fb.blocks_per_sm(p.smem_bytes, warps) + p.n_tiles, items)
+        assert run.route == "mma" and run.overlap
+        assert len(run.as_ints()) == 17 and run.as_ints()[-1] == 1
+        for p in (run.a, run.b):
+            check_launch_plan(p, c, m, width, sms)
         # The taps, the attention mix and the gate do not enter the plan: the
-        # wrapper asks with the shape and the dtype alone.
-        assert fb.fused_block_plan(shape, dtype, sms=sms) is p
+        # wrapper asks with the shape and the dtype alone (the gate's tap
+        # window only where its SE region would not fit beside launch A's).
+        assert fb.fused_block_plan(shape, dtype, sms=sms) is run
+        assert fb.fused_block_plan(shape, dtype, sms=sms,
+                                   gate=(3, 1)).b == run.b
+
+
+def check_launch_plan(p, c, m, width, sms):
+    """One launch's ring at a shape of width ``c``, ``m`` rows."""
+    assert p.grid_x >= 1
+    # The ring fits a block: 232,448 bytes of shared memory (the C
+    # side's csrc/fused_block_tc.cuh::ring_smem_bytes) and 512 threads.
+    assert p.smem_bytes <= fb.SMEM_LIMIT == 232448
+    assert p.smem_bytes == fb._ring_smem(p.stages, p.warps_m, p.warps_n,
+                                         c)
+    # 16 warps, none idle: the first ``loaders`` load, the last
+    # warps_m x warps_n multiply, a warp may do both.
+    assert 32 * p.warps == 512
+    assert 1 <= p.loaders <= 16 and 1 <= p.warps_m * p.warps_n <= 16
+    assert p.loaders + p.warps_m * p.warps_n >= 16
+    assert 1 <= p.stages <= fb.MAX_STAGES
+    # Two or more stages wherever two of 16 rows fit beside W.
+    if fb._ring_smem(2, 1, p.warps_n, c) <= fb.SMEM_LIMIT:
+        assert p.stages >= 2
+    assert p.rows == p.warps_m * 16 and p.chunk_cols == p.warps_n * 72
+    # K and N are covered, with less than one tile of zero fill.
+    k_pad, n_pad = kernel_padding(c)
+    assert 0 <= k_pad - c < 16 and 0 <= n_pad - c < 8
+    assert p.n_tiles * p.chunk_cols >= n_pad
+    assert (p.n_tiles - 1) * p.chunk_cols < n_pad
+    if width == 72:
+        # 72 * 2^j: warps of 72 columns divide the width exactly.
+        assert (k_pad - c, n_pad) in ((0, c), (8, c))
+        assert p.n_tiles * p.chunk_cols == c
+    # All of W beside two stages where it fits, else chunks.
+    fits = fb._ring_smem(2, 1, -(-c // 72), c) <= fb.SMEM_LIMIT
+    assert ("resident-chunks" in p.describe()) == (p.n_tiles > 1)
+    assert fits or p.n_tiles > 1
+    # At least half the SMs have work where M allows it, and the grid
+    # never exceeds what the SMs hold at once.
+    items = work_items(p, m)
+    assert 2 * items >= min(sms, -(-m // 16))
+    assert p.grid_x * p.n_tiles <= max(
+        sms * fb.blocks_per_sm(p.smem_bytes, p.warps) + p.n_tiles, items)
 
 
 def test_plan_splits_columns_for_one_clip_at_7x7x576():
     """M = 392 rows: 7 tiles of 64 would leave 125 SMs idle; W (663 KB in
     bf16) cannot be resident either."""
-    p = fb.fused_block_plan((1, 8, 7, 7, 576), torch.bfloat16, sms=SMS)
-    assert p.n_tiles >= 4 and "resident-chunks" in p.describe()
-    assert work_items(p, 392) >= 4 * -(-392 // 64)
-    assert work_items(p, 392) >= 100
+    run = fb.fused_block_plan((1, 8, 7, 7, 576), torch.bfloat16, sms=SMS)
+    for p in (run.a, run.b):
+        assert p.n_tiles >= 4 and "resident-chunks" in p.describe()
+        assert work_items(p, 392) >= 4 * -(-392 // 64)
+        assert work_items(p, 392) >= 100
 
 
 def test_plan_holds_all_of_w_up_to_288():
     for c in (72, 144, 288, 54, 108, 216):
-        p = fb.fused_block_plan((8, 8, 14, 14, c), torch.bfloat16, sms=SMS)
-        assert p.n_tiles == 1 and p.describe().startswith("mma resident ")
+        run = fb.fused_block_plan((8, 8, 14, 14, c), torch.bfloat16, sms=SMS)
+        assert run.describe().startswith("mma A [resident ")
+        assert run.a.n_tiles == run.b.n_tiles == 1
 
 
 def test_plan_knobs_and_refusals():
     shape = (8, 8, 14, 14, 288)
-    p = fb.fused_block_plan(shape, torch.bfloat16, producers=0, warps_m=4,
-                            warps_n=4)
-    assert (p.producers, p.warps_m, p.warps_n, p.rows) == (0, 4, 4, 64)
-    assert p.smem_bytes == 64 * 296 * 2 + 288 * 296 * 2 + 8 * 288 * 4
-    q = fb.fused_block_plan(shape, torch.bfloat16, producers=8, warps_m=2,
-                            warps_n=4)
-    assert (q.producers, q.rows, q.chunk_cols) == (8, 32, 288)
-    assert q.smem_bytes == 2 * 32 * 296 * 2 + 288 * 296 * 2 + 8 * 288 * 4
+    run = fb.fused_block_plan(shape, torch.bfloat16, loaders=8, stages=2,
+                              warps_m=2, warps_n=4, prefetch=True,
+                              b_loaders=16, overlap=False)
+    p = run.a
+    assert (p.loaders, p.stages, p.warps_m, p.warps_n, p.rows) == (
+        8, 2, 2, 4, 32)
+    assert run.b == dataclasses.replace(p, loaders=16)
+    assert p.prefetch and "prefetch" in p.describe() and not run.overlap
+    assert run.as_ints() == [*p.as_ints(), *run.b.as_ints(), 0]
+    # The barriers, two stages of 32 rows, W, the table.
+    assert p.smem_bytes == (144 + 2 * 32 * 296 * 2 + 288 * 296 * 2
+                            + 8 * 288 * 4) == 217744
+    # Rows pinned, stages and loaders not: two stages where they fit, else
+    # one, and the warps that do not multiply, all 16 where all multiply.
+    q = fb.fused_block_plan(shape, torch.bfloat16, warps_m=2, warps_n=4).a
+    assert (q.stages, q.rows, q.loaders) == (2, 32, 8)
+    assert q.smem_bytes == p.smem_bytes
+    r = fb.fused_block_plan(shape, torch.bfloat16, b_warps_m=4,
+                            b_warps_n=4).b
+    assert (r.stages, r.rows, r.loaders) == (1, 64, 16)
     # The route is the dtype's: bfloat16 always runs the tensor cores, and
     # no ``route`` is taken.
     assert fb.fused_block_plan(shape, torch.bfloat16).route == "mma"
     assert fb.fused_block_plan(shape, torch.float32).route == "simt"
     with pytest.raises(ValueError, match="unknown plan knobs"):
         fb.fused_block_plan(shape, torch.float32, route="mma")
+    for bad in (dict(loaders=7, warps_m=2, warps_n=4),   # a warp idle
+                dict(loaders=17, warps_m=2, warps_n=4),  # 17 warps load
+                dict(stages=3, warps_m=2, warps_n=4),    # 236,688 bytes
+                dict(stages=9, warps_m=1, warps_n=1),    # past kRingMaxStages
+                dict(loaders=0, warps_m=2, warps_n=4)):  # nobody loads
+        with pytest.raises(ValueError, match="no tensor-core plan"):
+            fb.fused_block_plan(shape, torch.bfloat16, **bad)
     with pytest.raises(ValueError, match="no tensor-core plan"):
-        # 17 warps.
-        fb.fused_block_plan(shape, torch.bfloat16, producers=1, warps_m=4,
-                            warps_n=4)
-    with pytest.raises(ValueError, match="no tensor-core plan"):
-        # A 256-row tile of 576 channels beside 72 columns of W: 400 KB.
-        fb.fused_block_plan((8, 8, 7, 7, 576), torch.bfloat16, warps_m=16,
-                            warps_n=1)
-    with pytest.raises(ValueError, match="unknown plan knobs"):
-        fb.fused_block_plan(shape, torch.bfloat16, warps=4)
-    with pytest.raises(ValueError, match="unknown plan knobs"):
-        fb.fused_block_plan(shape, torch.bfloat16, route="mma")
+        # A 128-row stage of 576 channels beside 72 columns of W: 260 KB.
+        fb.fused_block_plan((8, 8, 7, 7, 576), torch.bfloat16, warps_m=8,
+                            warps_n=1, stages=1)
+    for knob in ("producers", "warps", "route", "c_loaders", "a_overlap"):
+        # The lockstep route's knob is gone with it.
+        with pytest.raises(ValueError, match="unknown plan knobs"):
+            fb.fused_block_plan(shape, torch.bfloat16, **{knob: 4})
     with pytest.raises(ValueError, match="unknown plan knobs"):
         # The taps do not enter the plan.
         fb.fused_block_plan(shape, torch.bfloat16, taps_n=17, max_shift=8)
@@ -150,27 +189,47 @@ def test_plan_knobs_and_refusals():
 
 
 def test_plan_follows_the_measured_rule():
-    """The shapes of Large at batch 8 and 1, as PERF.md records them."""
+    """The shapes of Large at batch 1, 8, 32 and 64, as PERF.md records
+    them: per launch (A, B) (loaders, stages, warps_m, warps_n, n_tiles,
+    prefetch)."""
     bf = torch.bfloat16
 
     def shape_of(n, h, c):
-        p = fb.fused_block_plan((n, 8, h, h, c), bf, sms=SMS)
-        return p.producers, p.warps_m, p.warps_n, p.n_tiles
+        run = fb.fused_block_plan((n, 8, h, h, c), bf, sms=SMS)
+        return tuple((p.loaders, p.stages, p.warps_m, p.warps_n, p.n_tiles,
+                      p.prefetch) for p in (run.a, run.b))
 
-    assert shape_of(8, 112, 72) == (0, 16, 1, 1)
-    assert shape_of(8, 56, 72) == (0, 16, 1, 1)
-    assert shape_of(8, 28, 144) == (0, 8, 2, 1)
-    # 12,544 rows on 132 SMs: two tiles of 48 rows a block, not two of 64.
-    assert shape_of(8, 14, 288) == (0, 3, 4, 1)
-    assert shape_of(32, 14, 288) == (0, 4, 4, 1)
-    assert shape_of(32, 112, 72) == (0, 16, 1, 1)
-    assert shape_of(8, 7, 576) == (12, 1, 2, 4)
-    # One clip: fewer rows a tile, then column chunks, so that at least half
-    # the SMs have work; producers where fewer than 8 warps multiply.
-    assert shape_of(1, 56, 72) == (0, 16, 1, 1)
-    assert shape_of(1, 28, 144) == (0, 4, 2, 1)
-    assert shape_of(1, 14, 288) == (12, 2, 2, 2)
-    assert shape_of(1, 7, 576) == (12, 2, 1, 8)
+    got = {(n, h): shape_of(n, h, c) for n in (1, 8, 32, 64)
+           for h, c in ((112, 72), (56, 72), (28, 144), (14, 288),
+                        (7, 576))}
+    assert got == {k: (v, v) for k, v in MEASURED_RULE.items()}
+
+
+# fused_block_plan at Large's shapes, the sweeps' best ring (PERF.md):
+# (batch, H) -> (loaders, stages, warps_m, warps_n, n_tiles, prefetch), the
+# same for launch A and launch B.
+MEASURED_RULE = {
+    (1, 112): (16, 2, 16, 1, 1, False),
+    (1, 56): (16, 2, 16, 1, 1, False),
+    (1, 28): (16, 2, 4, 2, 1, False),
+    (1, 14): (16, 2, 2, 2, 2, True),
+    (1, 7): (16, 2, 1, 2, 4, True),
+    (8, 112): (16, 2, 16, 1, 1, False),
+    (8, 56): (16, 2, 16, 1, 1, False),
+    (8, 28): (16, 2, 8, 2, 1, False),
+    (8, 14): (16, 2, 2, 4, 1, True),
+    (8, 7): (14, 2, 1, 2, 4, True),
+    (32, 112): (16, 2, 16, 1, 1, False),
+    (32, 56): (16, 2, 16, 1, 1, False),
+    (32, 28): (16, 2, 8, 2, 1, False),
+    (32, 14): (8, 2, 2, 4, 1, True),
+    (32, 7): (14, 2, 1, 2, 4, True),
+    (64, 112): (16, 2, 16, 1, 1, False),
+    (64, 56): (16, 2, 16, 1, 1, False),
+    (64, 28): (16, 2, 8, 2, 1, False),
+    (64, 14): (8, 2, 2, 4, 1, True),
+    (64, 7): (14, 2, 1, 2, 4, True),
+}
 
 
 def test_tile_row_stride_is_an_odd_number_of_16_byte_units():
@@ -179,6 +238,129 @@ def test_tile_row_stride_is_an_odd_number_of_16_byte_units():
         rs = fb.tile_row_stride(cols)
         assert rs >= cols + 8 and rs % 8 == 0 and (rs // 8) % 2 == 1
         assert len({(r * rs * 2 // 16) % 8 for r in range(8)}) == 8
+
+
+# ---------------------------------------------- the ring's hand-off
+
+
+class MBarrier:
+    """An mbarrier as the kernel uses it: ``count`` arrivals complete a
+    phase; ``done(parity)`` is try_wait.parity, true once the phase of that
+    parity has completed (on a fresh barrier, for parity 1)."""
+
+    def __init__(self, count):
+        self.count = self.pending = count
+        self.phase = 0
+
+    def arrive(self):
+        assert self.pending > 0
+        self.pending -= 1
+        if self.pending == 0:
+            self.phase += 1
+            self.pending = self.count
+
+    def done(self, parity):
+        return (self.phase & 1) != parity
+
+
+def emulate_ring(tiles, stages, warps, loaders, mults, seed, parts=3,
+                 reads=2, loaders_wait=True):
+    """csrc/fused_block_tc.cu::rubiks_tc_kernel's tile loop, warp by warp,
+    under a random interleaving: of ``warps`` warps the first ``loaders``
+    load and the last ``mults`` multiply (a warp may do both). Tile i of the
+    block goes to slot i mod stages; a loading warp waits for the slot's
+    empty barrier (from the slot's second use on), writes its ``parts`` of
+    the tile, arrives on the full barrier; a multiplying warp waits for the
+    full barrier, reads the slot ``reads`` times, arrives on the empty one;
+    a warp that does both builds up to stages - 1 tiles ahead of the one it
+    multiplies. Raises AssertionError where a slot is rewritten before every
+    multiplying warp released it, a read sees another tile, or the warps
+    stop (a deadlock). -> each multiplying warp's tiles in the order it took
+    them, and the builds of each tile."""
+    rng = np.random.default_rng(seed)
+    full = [MBarrier(loaders) for _ in range(stages)]
+    empty = [MBarrier(mults) for _ in range(stages)]
+    slot = [[None] * loaders for _ in range(stages)]
+    released = [0] * tiles
+    built = [0] * tiles
+    taken = {}
+
+    def warp(w):
+        loads, mult = w < loaders, w >= warps - mults
+        ahead = stages - 1 if mult else tiles
+        ls = ms = lt = 0
+        lph = mph = 0
+        mt = 0
+        while True:
+            while loads and lt < tiles and lt <= mt + ahead:
+                if lt >= stages and loaders_wait:
+                    while not empty[ls].done(lph ^ 1):
+                        yield
+                for _ in range(parts):
+                    # The slot's last tile is out of every multiplying warp.
+                    assert lt < stages or released[lt - stages] == mults
+                    slot[ls][w] = lt
+                    yield
+                built[lt] += 1
+                full[ls].arrive()
+                ls, lph = (0, lph ^ 1) if ls + 1 == stages else (ls + 1, lph)
+                lt += 1
+            if not mult or mt >= tiles:
+                return
+            while not full[ms].done(mph):
+                yield
+            for _ in range(reads):
+                assert slot[ms] == [mt] * loaders
+                yield
+            taken.setdefault(w, []).append(mt)
+            released[mt] += 1
+            empty[ms].arrive()
+            ms, mph = (0, mph ^ 1) if ms + 1 == stages else (ms + 1, mph)
+            mt += 1
+
+    live = [warp(w) for w in range(warps)]
+    for _ in range(200 * (tiles + 1) * warps * (parts + reads)):
+        if not live:
+            takers = range(warps - mults, warps)
+            return [taken.get(w, []) for w in takers], built
+        w = live[rng.integers(len(live))]
+        try:
+            next(w)
+        except StopIteration:
+            live.remove(w)
+    raise AssertionError("the warps stopped: a deadlock")
+
+
+# (warps, loaders, multiplying warps): apart, overlapping, all in both.
+RING_ROLES = [(2, 1, 1), (6, 4, 2), (16, 8, 8), (16, 12, 4), (16, 16, 4),
+              (16, 16, 16), (20, 16, 4), (8, 6, 4)]
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("warps,loaders,mults", RING_ROLES)
+def test_ring_builds_and_consumes_every_tile_once_in_order(stages, warps,
+                                                           loaders, mults):
+    """Any interleaving of the warps' progress: every tile built once by
+    each loading warp and taken once by each multiplying warp, in tile
+    order, and no slot rewritten before its tile was released."""
+    for seed in range(3):
+        for tiles in (0, 1, stages, 3 * stages + 1):
+            taken, built = emulate_ring(tiles, stages, warps, loaders, mults,
+                                        seed)
+            assert taken == [list(range(tiles))] * mults
+            assert built == [loaders] * tiles
+
+
+def test_ring_emulation_catches_a_loader_that_does_not_wait():
+    """The emulation has teeth: loaders that skip the empty barrier
+    overwrite a slot that a multiplying warp still reads."""
+    caught = 0
+    for seed in range(8):
+        try:
+            emulate_ring(9, 2, 4, 2, 2, seed, loaders_wait=False)
+        except AssertionError:
+            caught += 1
+    assert caught > 0
 
 
 # ------------------------------------------------- (b) the decomposition
@@ -370,12 +552,12 @@ def emulate_run(x, vt, wm, se, aq, k, plan):
     mid = torch.empty_like(out)
     src = x.reshape(-1, c)
     for b in range(vt.shape[0]):
-        emulate_launch_a(src, mid, vt[b], wm[b, 0], dims, plan, aq, tn)
+        emulate_launch_a(src, mid, vt[b], wm[b, 0], dims, plan.a, aq, tn)
         gate = None
         if se is not None:
             v = fb.tap_shift(mid.reshape(x.shape), vt[b, 4:4 + 3 * tn], k)
             gate = fb.se_gate(v, se[b]).reshape(n * t, c)
-        emulate_launch_b(src, mid, out, vt[b], wm[b, 1], gate, dims, plan, k,
+        emulate_launch_b(src, mid, out, vt[b], wm[b, 1], gate, dims, plan.b, k,
                          tn)
         src = out
     return out.reshape(x.shape)
@@ -442,7 +624,8 @@ def test_decomposition_equals_plain_exactly(case, aq):
     vt, wm = dyadic_run(rng, shape[-1], blocks, k, aq, kind, quantize)
     x = torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float32))
     plan = fb.fused_block_plan(shape, torch.bfloat16, sms=SMS, **knobs)
-    assert -(-x[..., 0].numel() // plan.rows) * plan.rows >= x[..., 0].numel()
+    for p in (plan.a, plan.b):
+        assert -(-x[..., 0].numel() // p.rows) * p.rows >= x[..., 0].numel()
     got = emulate_run(x, vt, wm, None, aq, k, plan)
     ref = fb.fused_block_plain(x, vt, wm, aq=aq, max_shift=k)
     assert torch.equal(got, ref)
@@ -498,13 +681,13 @@ def test_launch_b_in_place_equals_out_of_place():
     dims, c = shape[:4], 80
     flat = x.reshape(-1, c)
     mid = torch.empty_like(flat)
-    emulate_launch_a(flat, mid, vt[0], wm[0, 0], dims, plan, False, 3)
+    emulate_launch_a(flat, mid, vt[0], wm[0, 0], dims, plan.a, False, 3)
     apart = torch.empty_like(flat)
-    emulate_launch_b(flat, mid, apart, vt[0], wm[0, 1], None, dims, plan, k,
-                     3)
+    emulate_launch_b(flat, mid, apart, vt[0], wm[0, 1], None, dims, plan.b,
+                     k, 3)
     aliased = flat.clone()
     emulate_launch_b(aliased, mid, aliased, vt[0], wm[0, 1], None, dims,
-                     plan, k, 3)
+                     plan.b, k, 3)
     assert torch.equal(aliased, apart)
     assert torch.equal(apart.reshape(shape),
                        fb.fused_block_plain(x, vt, wm, max_shift=k))

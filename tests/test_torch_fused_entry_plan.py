@@ -105,6 +105,73 @@ def test_plan_of_every_entry_shape(tier, batch, dtype, sms):
         assert fe.fused_entry_plan(shape, cm, dtype, sms=sms) is p
 
 
+# K3's plans at 224 px, 8 frames, 132 SMs, as the port has made them since
+# before K2 ran on a ring of stages (K3 shares the rule of
+# fused_block._mma_defaults, which K2 no longer takes): per entry block
+# (input H, Cin, Cm) of entry_shapes, the 16 numbers of
+# fused_entry_plan(...).as_ints() (launch A's producers, warps_m, warps_n,
+# n_tiles, grid_x, smem_bytes, launch B's, the gather pre-pass's rows,
+# grid_x, smem_bytes, overlap).
+K3_PLANS = {
+    (54, 1): [
+        (0, 4, 1, 1, 528, 20480, 0, 4, 1, 1, 392, 37120, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 28672, 0, 4, 2, 1, 98, 80640, 0, 0, 0, 1),
+        (0, 4, 4, 1, 98, 81664, 12, 2, 2, 2, 49, 146176, 32, 49, 7168, 1),
+        (0, 2, 4, 2, 49, 147456, 12, 2, 1, 6, 13, 200448, 32, 13, 13824, 1)],
+    (54, 8): [
+        (0, 4, 1, 1, 528, 20480, 0, 4, 1, 1, 528, 37120, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 28672, 0, 8, 2, 1, 132, 104192, 0, 0, 0, 1),
+        (0, 4, 4, 1, 132, 81664, 0, 2, 4, 1, 132, 228096, 0, 0, 0, 1),
+        (0, 4, 4, 2, 66, 162304, 12, 2, 1, 6, 22, 200448, 32, 98, 13824, 1)],
+    (54, 32): [
+        (0, 4, 1, 1, 528, 20480, 0, 4, 1, 1, 528, 37120, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 28672, 0, 8, 2, 1, 132, 104192, 0, 0, 0, 1),
+        (0, 4, 4, 1, 132, 81664, 0, 2, 4, 1, 132, 228096, 0, 0, 0, 1),
+        (0, 4, 4, 2, 66, 162304, 12, 2, 1, 6, 22, 200448, 32, 132, 13824,
+         1)],
+    (54, 64): [
+        (0, 4, 1, 1, 528, 20480, 0, 4, 1, 1, 528, 37120, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 28672, 0, 8, 2, 1, 132, 104192, 0, 0, 0, 1),
+        (0, 4, 4, 1, 132, 81664, 0, 2, 4, 1, 132, 228096, 0, 0, 0, 1),
+        (0, 4, 4, 2, 66, 162304, 12, 2, 1, 6, 22, 200448, 32, 132, 13824,
+         1)],
+    (72, 1): [
+        (0, 4, 1, 1, 528, 25344, 0, 4, 1, 1, 392, 47360, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 35584, 0, 4, 2, 1, 98, 102400, 0, 0, 0, 1),
+        (0, 4, 4, 1, 98, 104704, 12, 2, 2, 2, 49, 187648, 32, 49, 9216, 1),
+        (0, 2, 4, 2, 49, 189440, 12, 1, 1, 8, 16, 207872, 32, 13, 18432, 1)],
+    (72, 8): [
+        (0, 4, 1, 1, 528, 25344, 0, 4, 1, 1, 528, 47360, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 35584, 0, 8, 2, 1, 132, 132096, 0, 0, 0, 1),
+        (0, 4, 4, 1, 132, 104704, 12, 2, 2, 2, 66, 187648, 32, 132, 9216, 1),
+        (0, 4, 4, 2, 66, 208384, 12, 1, 1, 8, 16, 207872, 32, 98, 18432, 1)],
+    (72, 32): [
+        (0, 4, 1, 1, 528, 25344, 0, 4, 1, 1, 528, 47360, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 35584, 0, 8, 2, 1, 132, 132096, 0, 0, 0, 1),
+        (0, 4, 4, 1, 132, 104704, 12, 2, 2, 2, 66, 187648, 32, 132, 9216, 1),
+        (0, 4, 4, 2, 66, 208384, 12, 1, 1, 8, 16, 207872, 32, 132, 18432,
+         1)],
+    (72, 64): [
+        (0, 4, 1, 1, 528, 25344, 0, 4, 1, 1, 528, 47360, 0, 0, 0, 1),
+        (0, 4, 2, 1, 264, 35584, 0, 8, 2, 1, 132, 132096, 0, 0, 0, 1),
+        (0, 4, 4, 1, 132, 104704, 12, 2, 2, 2, 66, 187648, 32, 132, 9216, 1),
+        (0, 4, 4, 2, 66, 208384, 12, 1, 1, 8, 16, 207872, 32, 132, 18432,
+         1)],
+}
+
+
+@pytest.mark.parametrize("width,batch", sorted(K3_PLANS))
+def test_k3_plans_are_unchanged(width, batch):
+    """Every entry shape of every tier (tiny: 54; small, medium, large: 72)
+    at batch 1, 8, 32 and 64: launch A, launch B and the gather pre-pass
+    exactly as the table has them, whatever K2's rule does."""
+    got = [tuple(fe.fused_entry_plan((batch, FRAMES, h, h, cin), cm,
+                                     torch.bfloat16, sms=SMS).as_ints())
+           for h, cin, cm in entry_shapes(width)]
+    assert {TIERS[t][0] for t in TIERS} == {54, 72}
+    assert got == K3_PLANS[width, batch]
+
+
 def test_plan_of_large_at_batch_8():
     """The plans the serving path runs, as PERF.md records them."""
     bf = torch.bfloat16
@@ -114,11 +181,12 @@ def test_plan_of_large_at_batch_8():
         return [(lp.producers, lp.warps_m, lp.warps_n, lp.n_tiles)
                 for lp in (p.a, p.b)]
 
-    # At most 4 row warps where every warp multiplies (K2's rule takes 16 at
-    # 112 x 112 x 72).
+    # At most 4 row warps where every warp multiplies (the rule they adjust
+    # takes 16 at 112 x 112 x 72).
     assert launches(112, 72, 72) == [(0, 4, 1, 1), (0, 4, 1, 1)]
-    k2 = fb.fused_block_plan((8, 8, 112, 112, 72), bf, sms=SMS)
-    assert (k2.producers, k2.warps_m, k2.warps_n) == (0, 16, 1)
+    lockstep = fb._mma_plan(8 * 8 * 112 * 112, 72, SMS, {})
+    assert (lockstep.producers, lockstep.warps_m, lockstep.warps_n) == (
+        0, 16, 1)
     assert launches(56, 72, 144) == [(0, 4, 2, 1), (0, 8, 2, 1)]
     # 288 and 576 columns: [W3; Wsc] in chunks, the rows staged by the
     # pre-pass and copied by 12 producer warps; W2 (332 KB) in two chunks

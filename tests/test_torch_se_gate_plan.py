@@ -278,7 +278,7 @@ def channels(m_rows, c):
 @pytest.mark.parametrize("h,c", SMALL_BLOCKS)
 def test_k2_gate_under_the_served_plans(h, c, batch):
     shape = (batch, FRAMES, h, h, c)
-    plan = fb.fused_block_plan(shape, BF, sms=SMS)
+    plan = fb.fused_block_plan(shape, BF, sms=SMS, gate=(3, 1)).a
     check_gate(shape[:4], channels(batch * FRAMES * h * h, c), 1, "frac", 1,
                plan, seed=h + c + batch)
 
@@ -297,7 +297,8 @@ def test_se_scratch_fits_the_served_plans(batch):
     """The partials' shape, and the shared memory of launch A with the SE
     region: under the limit, and the same blocks per SM as without it (the
     plan's grid stays one wave)."""
-    runs = [(fb.fused_block_plan((batch, FRAMES, h, h, c), BF, sms=SMS),
+    runs = [(fb.fused_block_plan((batch, FRAMES, h, h, c), BF, sms=SMS,
+                                 gate=(3, 1)).a,
              (batch, FRAMES, h, h, c), 1, c) for h, c in SMALL_BLOCKS]
     runs += [(fe.fused_entry_plan((batch, FRAMES, h, h, cin), cm, BF,
                                   sms=SMS).a, (batch, FRAMES, h, h, cm), 2, 0)
@@ -309,9 +310,8 @@ def test_se_scratch_fits_the_served_plans(batch):
         assert slots == 2  # at 224 px a tile never spans three frames
         smem = se_smem_bytes(plan, 3, 1, stride, slots, table)
         assert plan.smem_bytes <= smem <= fb.SMEM_LIMIT
-        warps = plan.producers + plan.warps_m * plan.warps_n
-        assert (fb.blocks_per_sm(smem, warps)
-                == fb.blocks_per_sm(plan.smem_bytes, warps))
+        assert (fb.blocks_per_sm(smem, plan.warps)
+                == fb.blocks_per_sm(plan.smem_bytes, plan.warps))
 
 
 # ---------------------------------------------- (b) off the model's shapes
@@ -351,7 +351,9 @@ K3_CASES = [
 @pytest.mark.parametrize("case", K2_CASES, ids=[c[0] for c in K2_CASES])
 def test_k2_gate_off_the_model(case):
     _, dims, c, k, kind, knobs = case
-    plan = fb.fused_block_plan((*dims, c), BF, sms=SMS, **knobs)
+    plan = fb.fused_block_plan((*dims, c), BF, sms=SMS,
+                               gate=(fb.kernel_taps(k, kind == "quantize"),
+                                     k), **knobs).a
     check_gate(dims, c, k, kind, 1, plan, seed=sum(dims) + c + k)
 
 
@@ -394,12 +396,12 @@ def block_run_with_emulated_gate(x, vt, wm, se, aq, k, plan):
     mid = torch.empty_like(out)
     src = x.reshape(-1, c)
     for b in range(vt.shape[0]):
-        block_launch_a(src, mid, vt[b], wm[b, 0], dims, plan, aq, tn)
+        block_launch_a(src, mid, vt[b], wm[b, 0], dims, plan.a, aq, tn)
         taps = vt[b, 4:4 + 3 * tn]
-        partial = emulate_partials(mid, taps, k, 1, plan, dims)
-        gate, _ = emulate_gate(partial, taps[:tn], se[b], dims, plan.rows,
+        partial = emulate_partials(mid, taps, k, 1, plan.a, dims)
+        gate, _ = emulate_gate(partial, taps[:tn], se[b], dims, plan.a.rows,
                                k, 1.0 / (h * w))
-        block_launch_b(src, mid, out, vt[b], wm[b, 1], gate, dims, plan, k,
+        block_launch_b(src, mid, out, vt[b], wm[b, 1], gate, dims, plan.b, k,
                        tn)
         src = out
     return out.reshape(x.shape)

@@ -170,7 +170,8 @@ def test_se_gate_counter_counts_a_launch_per_gated_block():
     ex(video)
     torch.cuda.synchronize()
     want = dict.fromkeys(counters, 0)
-    want.update(fused_block=13, fused_entry=4, se_gate=17)
+    want.update(fused_block=13, fused_block_ring=13, fused_entry=4,
+                se_gate=17)
     assert {n: c.count for n, c in counters.items()} == want
     assert profiling.counters("se_gate") == {"se_gate": 17}
 
@@ -319,7 +320,7 @@ def test_launch_counters_are_the_registrys():
     counters = launch_counters()
     assert sorted(counters) == sorted([
         "shift3d", "shift3d_inverse", "shift_grad", "fused_block",
-        "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
+        "fused_block_ring", "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
         "shift2d_inverse", "bn_relu_train", "bn_relu_train_backward"])
     registry = profiling.counters()
     assert {n: c.count for n, c in counters.items()}.items() <= (
