@@ -910,10 +910,9 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
     and K3-AQ run is repeated and must agree bit for bit."""
     from rubiksnet_torch.ops import shift2d
     from rubiksnet_torch.ops.fused_block import (
+        fold_blocks,
         fused_block_kernel,
         fused_block_plain,
-        stack_block_params,
-        stack_block_params_aq,
         stack_se_params,
     )
     from rubiksnet_torch.ops.fused_entry import (
@@ -961,9 +960,8 @@ def check_new_kernels(errs, gen, cpu_gen, dev):
                 variant = "rubiks3d-aq" if aq else "rubiks3d"
                 blocks = [random_block(c, c, 1, False, cpu_gen, dev, variant,
                                        se) for _ in range(2)]
-                vt, wm = (stack_block_params_aq(blocks, dt, MAX_SHIFT) if aq
-                          else stack_block_params(blocks, dt, MAX_SHIFT))
-                sep = stack_se_params(blocks) if se else None
+                vt, wm, sep = fold_blocks(blocks, dt, MAX_SHIFT, aq=aq,
+                                          se=se)
                 x = randn((BATCH_CHECK, FRAMES, h, h, c), dt, gen, dev)
                 label = (f"K2{'-AQ' if aq else ''}{'-SE' if se else ''} "
                          f"{h}x{h}x{c} {str(dt)[6:]}")
@@ -1374,10 +1372,9 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
     plan)."""
     from rubiksnet_torch.ops import shift2d
     from rubiksnet_torch.ops.fused_block import (
+        fold_blocks,
         fused_block_kernel,
         fused_block_plain,
-        stack_block_params,
-        stack_block_params_aq,
         stack_se_params,
     )
     from rubiksnet_torch.ops.fused_entry import (
@@ -1415,9 +1412,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
         for aq, se in ((False, False), (True, False), (False, True)):
             blk = random_block(c, c, 1, False, cpu_gen, dev,
                                "rubiks3d-aq" if aq else "rubiks3d", se)
-            vt, wm = (stack_block_params_aq([blk], bf, k) if aq
-                      else stack_block_params([blk], bf, k))
-            blocks[aq, se] = (vt, wm, stack_se_params([blk]) if se else None)
+            blocks[aq, se] = fold_blocks([blk], bf, k, aq=aq, se=se)
 
         def run(fn, aq, se):
             vt, wm, sep = blocks[aq, se]
@@ -1626,6 +1621,8 @@ def time_gate(timer, gen, cpu_gen, dev):
                  - profiled_ms(lambda: call(se=None), a_bare,
                                f"{label} A")[0])
         call()
+        # K2's mid, taps and SE weights are all in the folded channel order
+        # (make_run's), so the plain gate is in the kernel's order too.
         mid = scratch["mid"]
         plain = cuda_time_ms(lambda: fb.se_gate(fb.tap_shift(
             mid.float(), taps, k)[:, :, ::stride, ::stride], se1))
@@ -2374,10 +2371,10 @@ def se_edge_check(dev, cpu_gen, gen):
     plan makes room for the gate at every max_shift it takes, so K2 runs at
     5 and at 7 (its widest tap window), on two plans."""
     from rubiksnet_torch.ops.fused_block import (
+        fold_blocks,
         fused_block_kernel,
         fused_block_plain,
         fused_block_supported,
-        stack_block_params,
         stack_se_params,
     )
     from rubiksnet_torch.ops.fused_entry import (
@@ -2394,8 +2391,7 @@ def se_edge_check(dev, cpu_gen, gen):
         shape = (8, FRAMES, 14, 14, 288)
         blocks = [random_block(288, 288, 1, False, cpu_gen, dev, use_se=True)
                   for _ in range(2)]
-        vt, wm = stack_block_params(blocks, bf, ms)
-        se = stack_se_params(blocks)
+        vt, wm, se = fold_blocks(blocks, bf, ms, se=True)
         x = randn(shape, bf, gen, dev)
         edge("K2-SE", shape, ms, fused_block_supported(shape, ms, bf,
                                                        se=True), runs,
@@ -3915,9 +3911,9 @@ def main() -> int:
     from rubiksnet_torch.data import device_loader
     from rubiksnet_torch.ops import _build
     from rubiksnet_torch.ops.fused_block import (
+        fold_blocks,
         fused_block_kernel,
         fused_block_plain,
-        stack_block_params,
     )
     from rubiksnet_torch.ops.fused_entry import (
         fused_entry_kernel,
@@ -3992,7 +3988,7 @@ def main() -> int:
             for q in (False, True):
                 blocks = [random_block(c, c, 1, q, cpu_gen, dev)
                           for _ in range(2)]
-                vt, wm = stack_block_params(blocks, dt, MAX_SHIFT, q)
+                vt, wm, _ = fold_blocks(blocks, dt, MAX_SHIFT, quantize=q)
                 x = randn((BATCH_CHECK, FRAMES, h, h, c), dt, gen, dev)
                 got = fused_block_kernel(x, vt, wm, max_shift=MAX_SHIFT)
                 ref = fused_block_plain(x, vt, wm, max_shift=MAX_SHIFT)

@@ -12,6 +12,9 @@ or declines it; a declined block runs on the module path. The structure:
 * each run of consecutive stride-1 equal-width blocks -> K2
   (``ops/fused_block.py``), at any H x W: on the card no VMEM limit splits
   them between whole-clip, per-frame and unfused schedules as on the TPU.
+  Each block's ``mid`` channels are folded by their taps' first offsets
+  (``fold_blocks``), so that the lanes of a warp of K2's gather read
+  the same pixels; the block's function is the same.
   An SE tier passes its gate weights (``se``), the rubiks3d-aq variant its
   attention taps (``aq=True``). K2 declines an SE run whose gate does not
   fit a block's shared memory beside its plan (a large ``max_shift``);
@@ -40,10 +43,9 @@ from ..nn.backbone import VARIANTS
 from ..ops.fused_block import (
     SM_COUNT,
     _sm_count,
+    fold_blocks,
     fused_block_run,
     fused_block_supported,
-    stack_block_params,
-    stack_block_params_aq,
     stack_se_params,
 )
 from ..ops.fused_entry import (
@@ -108,14 +110,10 @@ class FusedExecutor:
             if not run:
                 return
             blocks = [b for _, b in run]
-            if aq:
-                vt, wm = stack_block_params_aq(blocks, dtype, k)
-            else:
-                vt, wm = stack_block_params(blocks, dtype, k, q)
-            se = (stack_se_params(blocks) if blocks[0].se is not None
-                  else None)
             self.steps.append(("block", tuple(n for n, _ in run),
-                               (vt, wm, se)))
+                               fold_blocks(blocks, dtype, k, aq=aq,
+                                           quantize=q,
+                                           se=blocks[0].se is not None)))
             run.clear()
 
         # The block plan is the backbone's own block order.

@@ -62,13 +62,21 @@
 //   consecutive pixels and carries the interpolation along T and H from one
 //   source column to the next, so a pixel costs four loads, not eight; bounds
 //   and pointers are set once per image line, the loads of four columns start
-//   together, predicates give the zero fill. The reads go to the L1/L2 caches
-//   directly, at every width. At 288 and 576 the resident weights leave no
-//   room to stage a halo of three frames per row tile in shared memory; at 72
+//   together. A corner outside the clip or the frame reads the lane's own
+//   line under a zero weight, so only a column off the line is checked (a
+//   zero); the loads inside it take no predicate and no zero fill. The reads
+//   go to the L1/L2 caches directly, at every width. At 288 and 576 the
+//   resident weights leave no room to stage a halo of three frames per row
+//   tile in shared memory; at 72
 //   and 144 they do (a band of image lines per channel slab, as shift2d.cu
 //   stages its rows), and that variant has not been written or timed: it is
 //   queued in ROADMAP.md. Taps with more than two non-zero weights per axis
-//   take a general loop in the same kernel.
+//   take a general loop in the same kernel. The executor folds mid's
+//   channels in the order of their first offsets (ops/fused_block.py::
+//   order_mid_channels), so the lanes of a warp mostly read the same pixels.
+//   (Lanes of eight or four channels, one 16- or 8-byte load a corner for
+//   the group, in several forms, measured slower than a channel a lane at
+//   every shape: fewer instructions a value, no shorter a gather.)
 // * Stores: bn2/relu (A) or the residual add (B) on the accumulator fragment,
 //   four consecutive columns per thread (8-byte stores, after one exchange of
 //   two values between neighbouring threads). The residual is fetched before
@@ -77,9 +85,11 @@
 //   launch B reads nothing else of x.
 //
 // What bounds it now (H100; PERF.md has the numbers): launch B's gather,
-// about 40 instructions a value and latency-bound: its time follows the
-// number of warps that gather, which the ring does not raise; launch A's
-// loads of x, which the ring now overlaps with its products.
+// about 45 instructions a value: launch B without it takes a quarter of its
+// time, and of the rest the loads and the arithmetic each take about half,
+// overlapping little; its time follows the warps that gather, which the
+// ring does not raise, and not the instructions a value. Then launch A's
+// loads of x, which the ring overlaps with its products.
 //
 // No float atomics and no split of K: the result is bit-identical from run to
 // run, and a row's result does not depend on the rows of a stage. The plan
@@ -138,6 +148,38 @@ __device__ __forceinline__ TcRow tc_row(const TcArgs& p, int m) {
   return r;
 }
 
+// A line of one lane's walk: each corner's source line, or the lane's own
+// where the corner does not exist, and its weight (zero there).
+struct LaneLine {
+  const unsigned short* pc[2][2];
+  float a[2][2];
+  // S(col) as TcLine::sum sums it.
+  __device__ __forceinline__ float sum(const unsigned short (&u)[2][2]) const {
+    float s = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < 2; ++dt)
+#pragma unroll
+      for (int dh = 0; dh < 2; ++dh)
+        s = fmaf(a[dt][dh], bf16_bits_to_f32(u[dt][dh]), s);
+    return s;
+  }
+};
+
+// The corners of source column col. CHECK: zero where col lies off the
+// line; else col lies on it.
+template <bool CHECK>
+__device__ __forceinline__ void lane_load(const TcArgs& p, const LaneLine& ln,
+                                          int col,
+                                          unsigned short (&u)[2][2]) {
+  const bool in = !CHECK || (unsigned)col < (unsigned)p.W;
+  const int xo = col * p.C;
+#pragma unroll
+  for (int dt = 0; dt < 2; ++dt)
+#pragma unroll
+    for (int dh = 0; dh < 2; ++dh)
+      u[dt][dh] = in ? __ldg(ln.pc[dt][dh] + xo) : (unsigned short)0;
+}
+
 // The A tile of launch B. A unit of work is kTcRun consecutive rows of one
 // 32-channel slab; a warp takes units in turn, a lane one channel. Consecutive
 // rows are consecutive pixels of an image line, and the interpolation along W
@@ -145,10 +187,12 @@ __device__ __forceinline__ TcRow tc_row(const TcArgs& p, int m) {
 // the interpolation along T and H at a source column, from one pixel to the
 // next, so a pixel costs four loads, not eight, and its addresses are adds.
 // The line's taps, bounds and pointers are set once per line, the columns go in
-// batches of kTcBatch whose loads all start before the first multiply-add.
-// (Issuing every load of a run at once, with the predicates following each
-// pixel, measured slower: the gather is bound by its instructions, about 40
-// a value, not by the latency of L2.)
+// batches of kTcBatch whose loads all start before the first multiply-add;
+// a corner that does not exist keeps a pointer into the pixel's own line and
+// a zero weight, so the loads of the columns inside the line take no
+// predicate (3% off launch B). (Issuing every load of a run at once, with the
+// predicates following each pixel, measured slower; so did lanes of four or
+// eight channels, with a third of the instructions a value.)
 __device__ __forceinline__ void build_shift_tile(const TcArgs& p, bf16* As,
                                                  int64_t m0, const int* table,
                                                  int tid, int nthreads,
@@ -190,47 +234,63 @@ __device__ __forceinline__ void build_shift_tile(const TcArgs& p, bf16* As,
           wa[a][0] = wts[(2 * a) * p.Kp + c];
           wa[a][1] = wts[(2 * a + 1) * p.Kp + c];
         }
-        TcLine ln;
-        ln.W = p.W, ln.C = p.C;
+        float ab[2][2];
+        int off[2][2];
 #pragma unroll
         for (int dt = 0; dt < 2; ++dt)
 #pragma unroll
           for (int dh = 0; dh < 2; ++dh) {
-            ln.ab[dt][dh] = wa[0][dt] * wa[1][dh];
-            ln.off[dt][dh] = (dt * p.H + dh) * p.W * p.C;
+            ab[dt][dh] = wa[0][dt] * wa[1][dh];
+            off[dt][dh] = (dt * p.H + dh) * p.W * p.C;
           }
         while (r < nrows) {
           // A line: the pixels at.w .. at.w + seg - 1 of row (at.frame, at.h).
           const int seg = min(p.W - at.w, nrows - r);
-          bool okt[2], okh[2];
-#pragma unroll
-          for (int d = 0; d < 2; ++d) {
-            okt[d] = wa[0][d] != 0.f &&
-                     (unsigned)(at.t + ot + d) < (unsigned)p.T;
-            okh[d] = wa[1][d] != 0.f &&
-                     (unsigned)(at.h + oh + d) < (unsigned)p.H;
-          }
+          // A corner that does not exist (a clip or frame border, a zero
+          // weight) reads the pixel's own line under a zero weight, so that
+          // its loads need no predicate: fmaf(0, v, s) is s for the finite
+          // v of mid, as a zero fill gives. Only a column off the line is
+          // checked, and reads zero.
+          const unsigned short* own = reinterpret_cast<const unsigned short*>(
+              p.mid + ((int64_t)at.frame * p.H + at.h) * (int64_t)p.W * p.C +
+              c);
+          const unsigned short* q = reinterpret_cast<const unsigned short*>(
+              p.mid + ((int64_t)(at.frame + ot) * p.H + (at.h + oh)) *
+                          (int64_t)p.W * p.C + c);
+          LaneLine ln;
 #pragma unroll
           for (int dt = 0; dt < 2; ++dt)
 #pragma unroll
-            for (int dh = 0; dh < 2; ++dh) ln.ok[dt][dh] = okt[dt] && okh[dh];
-          ln.q = reinterpret_cast<const unsigned short*>(
-              p.mid + ((int64_t)(at.frame + ot) * p.H + (at.h + oh)) *
-                          (int64_t)p.W * p.C + c);
+            for (int dh = 0; dh < 2; ++dh) {
+              const bool ok = wa[0][dt] != 0.f && wa[1][dh] != 0.f &&
+                              (unsigned)(at.t + ot + dt) < (unsigned)p.T &&
+                              (unsigned)(at.h + oh + dh) < (unsigned)p.H;
+              ln.pc[dt][dh] = ok ? q + off[dt][dh] : own;
+              ln.a[dt][dh] = ok ? ab[dt][dh] : 0.f;
+            }
           const float gate =
               p.gate != nullptr
                   ? __ldg(p.gate + (int64_t)at.frame * p.C + c) : 1.f;
           const float w0 = wa[2][0] * gate, w1 = wa[2][1] * gate;
+          const int x = at.w + ow;  // the first pixel's left source column
           unsigned short u0[2][2];
-          int col = at.w + ow;
-          ln.load(col, u0);
+          lane_load<true>(p, ln, x, u0);
           float prev = ln.sum(u0);
-          ++col;
+          // Columns x + 1 + j, j in [jlo, jhi), lie inside the line.
+          const int jlo = min(seg, max(0, -(x + 1)));
+          const int jhi = max(jlo, min(seg, p.W - (x + 1)));
           int j = 0;
-          for (; j + kTcBatch <= seg; j += kTcBatch, col += kTcBatch) {
+          for (; j < jlo; ++j) {
+            lane_load<true>(p, ln, x + 1 + j, u0);
+            const float sk = ln.sum(u0);
+            dst[(r + j) * p.a_rs] = __float2bfloat16(fmaf(w1, sk, w0 * prev));
+            prev = sk;
+          }
+          for (; j + kTcBatch <= jhi; j += kTcBatch) {
             unsigned short ub[kTcBatch][2][2];
 #pragma unroll
-            for (int k = 0; k < kTcBatch; ++k) ln.load(col + k, ub[k]);
+            for (int k = 0; k < kTcBatch; ++k)
+              lane_load<false>(p, ln, x + 1 + j + k, ub[k]);
 #pragma unroll
             for (int k = 0; k < kTcBatch; ++k) {
               const float sk = ln.sum(ub[k]);
@@ -239,8 +299,10 @@ __device__ __forceinline__ void build_shift_tile(const TcArgs& p, bf16* As,
               prev = sk;
             }
           }
-          for (; j < seg; ++j, ++col) {
-            ln.load(col, u0);
+          // The columns from jhi on, checked (as a lambda shared with the
+          // first loop, these two measured 3-5% slower).
+          for (; j < seg; ++j) {
+            lane_load<true>(p, ln, x + 1 + j, u0);
             const float sk = ln.sum(u0);
             dst[(r + j) * p.a_rs] = __float2bfloat16(fmaf(w1, sk, w0 * prev));
             prev = sk;

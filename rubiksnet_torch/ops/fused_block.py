@@ -143,6 +143,61 @@ def stack_block_params_aq(blocks, dtype, max_shift):
     return torch.stack(vts).contiguous(), torch.stack(wms).contiguous()
 
 
+def mid_channel_order(taps: torch.Tensor, max_shift: int) -> torch.Tensor:
+    """The order of a block's ``mid`` channels that K2's launch B gathers
+    in: stably sorted by the whole offset (T, H, W) of each channel's first
+    non-zero tap per axis (0 on an axis with none), the key of
+    csrc/fused_block_tc.cu's tap table. taps: the (3 * taps_n, C) rows.
+    Channels with one key then lie together: the lanes of a warp of launch
+    B's gather, a channel a lane, read the same pixels, so a warp's load
+    touches fewer cache lines."""
+    tn = taps.shape[0] // 3
+    nz = (taps.reshape(3, tn, -1) != 0).to(torch.int32)
+    first = torch.where(nz.any(1), nz.argmax(1), max_shift)  # (3, C)
+    base = tn + 1  # first - max_shift lies in [-max_shift, tn - max_shift)
+    key = (first[0] * base + first[1]) * base + first[2]
+    return torch.sort(key, stable=True).indices
+
+
+@torch.no_grad()
+def order_mid_channels(vt, wm, se=None, *, aq=False, max_shift):
+    """A stacked run (``vt``, ``wm``, ``se``) with each block's ``mid``
+    channels in :func:`mid_channel_order`: the columns of W2 (``wm[:, 0]``),
+    the rows of W3 (``wm[:, 1]``), bn2's scale and bias and the tap rows of
+    ``vt`` (not the attention rows, which are on x's channels), both slots
+    of the SE weights. ``mid`` is internal to a block, so the blocks compute
+    the same function; only the order of launch B's sum over ``mid``
+    changes. -> (vt, wm, se), new tensors."""
+    taps_n = taps_from_rows(vt.shape[1], 4, aq)
+    rows = slice(2, 4 + 3 * taps_n)
+    vt, wm = vt.clone(), wm.clone()
+    se = None if se is None else se.clone()
+    for b in range(vt.shape[0]):
+        order = mid_channel_order(vt[b, 4:rows.stop], max_shift).to(
+            vt.device)
+        vt[b, rows] = vt[b, rows][:, order]
+        wm[b, 0] = wm[b, 0][:, order]
+        wm[b, 1] = wm[b, 1][order]
+        if se is not None:
+            se[b] = se[b][:, order]
+    return vt, wm, se
+
+
+def fold_blocks(blocks, dtype, max_shift, *, aq=False, quantize=False,
+                se=False):
+    """A run of stride-1 blocks folded for K2 as the executor serves it:
+    stacked (:func:`stack_block_params`, with ``aq``
+    :func:`stack_block_params_aq`; with ``se`` :func:`stack_se_params`),
+    then ``mid``'s channels in :func:`order_mid_channels`' order.
+    -> (vt, wm, se or None)."""
+    if aq:
+        vt, wm = stack_block_params_aq(blocks, dtype, max_shift)
+    else:
+        vt, wm = stack_block_params(blocks, dtype, max_shift, quantize)
+    return order_mid_channels(vt, wm, stack_se_params(blocks) if se else None,
+                              aq=aq, max_shift=max_shift)
+
+
 @torch.no_grad()
 def stack_se_params(blocks):
     """(B, 2, C, Cr) float32 SE weights of the blocks: slot 0 = fc1 as

@@ -38,12 +38,12 @@ plan), and the plan's own is held against the plain version first.
 by ``git archive``) builds DIR's kernel library and, at every
 MODEL_SHAPES entry and every ``--batch`` (default 1, 8, 32 and 64), holds
 this checkout's K2 (launch modes 0, 1 and 2: rubiks3d and aq) to DIR's
-bit for bit, and times both in turns (DIR, here, here, DIR) under each
-one's own plan: device ms a block by ``torch.profiler`` (launches not
-overlapped; also per launch) and ms a block by events around a run
-(overlapped). DIR's plan is ``ops/fused_block.py::_mma_plan``, the
-lockstep rule K2 took before its ring and K3 still takes, and DIR's entry
-point the one of that route.
+bit for bit, and times both in turns (DIR, here, here, DIR): device ms
+a block by ``torch.profiler`` (launches not
+overlapped; also per launch, and launch B summed apart) and ms a block by
+events around a run (overlapped). Both run the same fold (:func:`make_run`,
+``mid`` in the gather's channel order) under this checkout's ring plan;
+DIR's entry point is the ring's (17 plan ints).
 ``--se`` turns ``--ptxas``, ``--check`` and ``--sweep`` to the SE forms:
 ``--ptxas`` also compiles the gate launch (``se_gate_tc.cu``) and names
 each kernel's launch (K2's A with the gate's sums, ``rubiks_tc_kernel<5>``
@@ -145,7 +145,8 @@ def randomize_block(blk, shift, kind, k, cpu_gen):
 
 def make_run(c, blocks, aq, se, dtype, max_shift, kind, cpu_gen, dev):
     """(vt, wm, se) of ``blocks`` random stride-1 blocks on ``dev``
-    (:func:`randomize_block`)."""
+    (:func:`randomize_block`), folded as the executor folds them
+    (``fused_block.fold_blocks``)."""
     quantize = kind == "quantize"
     k = max_shift
     mods = []
@@ -156,16 +157,16 @@ def make_run(c, blocks, aq, se, dtype, max_shift, kind, cpu_gen, dev):
         randomize_block(blk, blk.as3.shift if aq else blk.as3.rubiks3d.shift,
                         kind, k, cpu_gen)
         mods.append(blk.to(dev).eval())
-    if aq:
-        vt, wm = fb.stack_block_params_aq(mods, dtype, k)
-    else:
-        vt, wm = fb.stack_block_params(mods, dtype, k, quantize)
+    vt, wm, sep = fb.fold_blocks(mods, dtype, k, aq=aq, quantize=quantize,
+                                 se=se)
     if kind == "wide":
+        # Every tap non-zero: all channels share one offset key, so any
+        # order of them is the gather's.
         tn = fb.taps_from_rows(vt.shape[1], 4, aq)
         first = 4 + (tn if aq else 0)  # the aq form keeps its identity T row
         taps = torch.rand(vt[:, first:4 + 3 * tn].shape, generator=cpu_gen)
         vt[:, first:4 + 3 * tn] = (taps / tn).to(dev)
-    return vt, wm, (fb.stack_se_params(mods) if se else None)
+    return vt, wm, sep
 
 
 def gate_error(scratch, taps, se, max_shift, stride, first_gate):
@@ -522,33 +523,41 @@ def sweep(dev, batches, se=False, launches=("a", "b")) -> bool:
 
 def parent_library(parent):
     """DIR's kernel library, built as ops/_build.py builds this checkout's,
-    and its K2 entry point typed as that route took it: eight pointers,
-    then dtype, B, N, T, H, W, C, taps_n, K, aq, Cr, slices and the plan's
-    producers, warps_m, warps_n, n_tiles, grid_x, smem_bytes, overlap, then
-    the stream."""
+    and its K2 entry point as the ring took it: eight pointers, then dtype,
+    B, N, T, H, W, C, taps_n, K, aq, Cr, slices, the plan's 17 ints (per
+    launch loaders, stages, warps_m, warps_n, n_tiles, grid_x, smem_bytes,
+    prefetch; then overlap) and the stream."""
     csrc = Path(parent) / "rubiksnet_torch" / "ops" / "csrc"
+    # The two libraries define the same C++ names. DIR's are bound to its
+    # own definitions (-Bsymbolic), and its function-local statics kept its
+    # own (-fno-gnu-unique): the loader otherwise makes one object of the
+    # "shared memory raised" flag of both libraries' launch templates, and
+    # DIR's kernels then launch without their shared-memory limit raised.
     lib, _ = _build.build_library(
         "rubiks_parent", _build._find_nvcc(), sorted(csrc.glob("*.cu")),
-        sorted(csrc.glob("*.cuh")), _build.NVCC_FLAGS)
+        sorted(csrc.glob("*.cuh")),
+        (*_build.NVCC_FLAGS, "-Xcompiler", "-fno-gnu-unique"),
+        ("-Xlinker", "-Bsymbolic"))
     fn = lib.rubiks_fused_block_run
-    fn.argtypes = [_build.PTR] * 8 + [_build.INT] * 19 + [_build.PTR]
+    fn.argtypes = [_build.PTR] * 8 + [_build.INT] * 12 + [_build.PTR] * 2
     fn.restype = _build.INT
     return fn
 
 
 def parent_run(fn, x, vt, wm, aq, overlap=True):
-    """A run of blocks through DIR's K2 (bfloat16, no gate) under the plan
-    DIR's rule makes."""
+    """A run of blocks through DIR's K2 (bfloat16, no gate) under this
+    checkout's ring plan."""
     n, t, h, w, c = x.shape
-    plan = fb._mma_plan(n * t * h * w, c, fb._sm_count(x.device.index),
-                        {"overlap": overlap})
+    plan = fb.fused_block_plan(x.shape, x.dtype,
+                               sms=fb._sm_count(x.device.index),
+                               overlap=overlap)
+    ints = (_build.INT * 17)(*plan.a.as_ints()[:8], *plan.b.as_ints()[:8],
+                             int(plan.overlap))
     out, mid = torch.empty_like(x), torch.empty_like(x)
     taps_n = fb.taps_from_rows(vt.shape[1], 4, aq)
     rc = fn(x.data_ptr(), vt.data_ptr(), wm.data_ptr(), None, None, None,
             mid.data_ptr(), out.data_ptr(), 1, vt.shape[0], n, t, h, w, c,
-            taps_n, 1, int(aq), 0, 0, plan.producers, plan.warps_m,
-            plan.warps_n, plan.n_tiles, plan.grid_x, plan.smem_bytes,
-            int(plan.overlap), _build.stream_of(x))
+            taps_n, 1, int(aq), 0, 0, ints, _build.stream_of(x))
     if rc != 0:
         raise RuntimeError(f"the parent's rubiks_fused_block_run: {rc}")
     return out
@@ -595,21 +604,29 @@ def parent_compare(dev, parent, batches) -> bool:
                     f"{side} {k.replace('rubiks_tc_kernel', '')} "
                     f"{sum(v) / len(v):.4f}"
                     for (side, k), v in sorted(split.items()))
-                t = totals.setdefault((batch, aq), [0.0, 0.0, 0.0, 0.0])
-                for i, v in enumerate((d_p, d_h, e_p, e_h)):
+                b_p, b_h = (sum(sum(v) / len(v)
+                                for (sd, k), v in split.items()
+                                if sd == side and k.endswith("<2>"))
+                            for side in ("parent", "here"))
+                t = totals.setdefault((batch, aq), [0.0] * 6)
+                for i, v in enumerate((d_p, d_h, e_p, e_h, b_p, b_h)):
                     t[i] += count * v
                 print(f"  K2{'-AQ' if aq else ''} {h}x{h}x{c} batch {batch}:"
                       f" {'bit-identical' if same else 'DIFFERS'}; device ms"
                       f" a block parent {d_p:.4f} here {d_h:.4f} "
                       f"({100 * (d_h / d_p - 1):+.1f}%), events {e_p:.4f} "
-                      f"{e_h:.4f} ({100 * (e_h / e_p - 1):+.1f}%); by launch"
-                      f" {launches} [here {plan.describe()}]")
+                      f"{e_h:.4f} ({100 * (e_h / e_p - 1):+.1f}%); launch B "
+                      f"{b_p:.4f} {b_h:.4f} ({100 * (b_h / b_p - 1):+.1f}%);"
+                      f" by launch {launches} [here {plan.describe()}]")
     print("[parent] summed over the 47 blocks of a Large forward: device "
-          "ms parent, here; events ms parent, here")
-    for (batch, aq), (d_p, d_h, e_p, e_h) in sorted(totals.items()):
+          "ms parent, here; events ms parent, here; launch B device ms "
+          "parent, here")
+    for (batch, aq), (d_p, d_h, e_p, e_h, b_p, b_h) in sorted(
+            totals.items()):
         print(f"  K2{'-AQ' if aq else ''} batch {batch}: {d_p:.3f}, {d_h:.3f}"
               f" ({100 * (d_h / d_p - 1):+.1f}%); {e_p:.3f}, {e_h:.3f} "
-              f"({100 * (e_h / e_p - 1):+.1f}%)")
+              f"({100 * (e_h / e_p - 1):+.1f}%); {b_p:.3f}, {b_h:.3f} "
+              f"({100 * (b_h / b_p - 1):+.1f}%)")
     return ok
 
 

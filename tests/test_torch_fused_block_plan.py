@@ -504,6 +504,95 @@ def gather_run(flat, table, dims, c, m_first, nrows):
     return out
 
 
+def gather_run_lean(flat, table, dims, c, m_first, nrows):
+    """:func:`gather_run` as the kernel's walk makes it since the lean loop:
+    a corner outside the clip or the frame (or of zero weight) reads the
+    pixel's own line under a zero weight instead of a predicated zero, and
+    only a column off the line reads zero. Every address read must lie
+    inside ``mid``; the sums are those of :func:`gather_run`."""
+    off, wts, _, _ = table
+    _, t, h, w = dims
+    ar = torch.arange(c)
+    out = torch.zeros((RUN, c))
+    r = 0
+    ww, q = m_first % w, m_first // w
+    hh, frame = q % h, q // h
+    while r < nrows:
+        seg = min(w - ww, nrows - r)
+        tt = frame % t
+        own = (frame * h + hh) * w * c + ar
+        line = ((frame + off[0]) * h + (hh + off[1])) * w * c + ar
+        base, weight = {}, {}
+        for dt in range(2):
+            for dh in range(2):
+                ok = ((wts[0, dt] != 0) & (wts[1, dh] != 0)
+                      & (tt + off[0] + dt >= 0) & (tt + off[0] + dt < t)
+                      & (hh + off[1] + dh >= 0) & (hh + off[1] + dh < h))
+                base[dt, dh] = torch.where(ok, line + (dt * h + dh) * w * c,
+                                           own)
+                weight[dt, dh] = torch.where(ok, wts[0, dt] * wts[1, dh], 0.)
+
+        def column(col):
+            inside = (col >= 0) & (col < w)
+            s = torch.zeros(c)
+            for dt in range(2):
+                for dh in range(2):
+                    idx = base[dt, dh] + col * c
+                    assert bool(((idx >= 0) & (idx < flat.numel()))[inside]
+                                .all()), "a load outside mid"
+                    v = flat[idx.clamp(0, flat.numel() - 1)]
+                    s = s + weight[dt, dh] * torch.where(inside, v, 0.)
+            return s
+
+        col = ww + off[2]
+        prev = column(col)
+        for j in range(seg):
+            col = col + 1
+            sk = column(col)
+            out[r + j] = wts[2, 1] * sk + wts[2, 0] * prev
+            prev = sk
+        r += seg
+        ww += seg
+        if ww == w:
+            ww, hh = 0, hh + 1
+            if hh == h:
+                hh, frame = 0, frame + 1
+    return out
+
+
+# (label, (N, T, H, W, C), max_shift, shifts, quantize)
+LEAN_WALKS = [
+    ("72 wide", (2, 3, 3, 8, 72), 1, "quarters", False),
+    ("max_shift 3", (1, 8, 7, 7, 24), 3, "quarters", False),
+    ("integer and zero shifts", (2, 4, 2, 14, 24), 2, "integer", False),
+    ("quantized, the tap at K+1 kept", (2, 4, 2, 9, 24), 1, "quantized",
+     True),
+    ("lines shorter than a run", (2, 3, 5, 4, 24), 1, "quarters", False),
+]
+
+
+@pytest.mark.parametrize("case", LEAN_WALKS, ids=[d[0] for d in LEAN_WALKS])
+def test_lean_walk_reads_inside_mid_and_equals_the_zero_fill(case):
+    """Launch B's walk without predicates on the loads inside a line: every
+    run of every tile reads only addresses inside mid, and gives the sums of
+    the walk with the zero fill bit for bit (dyadic inputs)."""
+    _, shape, k, kind, quantize = case
+    rng = np.random.default_rng(sum(shape) + k)
+    vt, _ = dyadic_run(rng, shape[-1], 1, k, False, kind, quantize)
+    n, t, h, w, c = shape
+    dims = (n, t, h, w)
+    tn = fb.taps_from_rows(vt.shape[1], 4)
+    table = tap_table(vt[0, 4:4 + 3 * tn], tn, k, h, w, c)
+    flat = torch.from_numpy(rng.integers(-3, 4, n * t * h * w * c).astype(
+        np.float32))
+    m_total = n * t * h * w
+    for m_first in range(0, m_total, RUN):
+        nrows = min(RUN, m_total - m_first)
+        assert torch.equal(
+            gather_run_lean(flat, table, dims, c, m_first, nrows),
+            gather_run(flat, table, dims, c, m_first, nrows))
+
+
 def emulate_launch_b(x, mid, out, vt, w3, gate, dims, plan, k, tn):
     """out = x + ([gate .] shift3d(mid)) @ W3 tile by tile; ``out`` may be
     ``x`` itself: a tile reads exactly the elements of x it then writes."""
