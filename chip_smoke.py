@@ -9,9 +9,12 @@ its tensor-core launches fused_block_tc.cu,
 K3 fused_entry with its tensor-core launches fused_entry_tc.cu, the SE gate
 inside K2 and K3: in bf16 its sums in launch A, tc_se.cuh, and one gate launch,
 se_gate_tc.cu, in f32 se_gate.cuh's two launches; the 2D shift's forward and
-input gradient, shift2d.cu; and the train-mode BN and ReLU pair,
+input gradient, shift2d.cu; the train-mode BN and ReLU pair,
 bn_relu_train.cu, held at every BN shape of a Large train step at batch 32 and
-timed there) from rubiksnet_torch/ops/csrc, holds each against its plain
+timed there; and the fused executor's stem, stem.cu, held in bf16 and f32 at
+224 px for batch 1, 8 and 64, at 112 px, odd sizes and Tiny's width 54, each
+run twice bit-identically, and timed at batch 8 beside cuDNN) from
+rubiksnet_torch/ops/csrc, holds each against its plain
 PyTorch version at every shape of its path (K2 and K3 also off the model's
 shapes, and in bf16 at every batch size they are timed or served at,
 because their launch plans depend on the batch: a K2 or K3 plan that did
@@ -42,8 +45,8 @@ at batch 32 and 2-clip at batch 8, (d) with --loader device and (e) with
 the host's loader (native where g++ finds libjpeg, else PIL), each at
 --prefetch 2 and 0, then (d) again over 64 videos of the data bench's
 427x240 frames, which the device loader resizes: K2's and K3's plans at
-its 32 and 48 clips checked first, its launches counted (47 K2 and 4 K3 a
-batch, one resize_crop_u8 a batch with the device loader, one executor a
+its 32 and 48 clips checked first, its launches counted (the stem, 47 K2
+and 4 K3 a batch, one resize_crop_u8 a batch with the device loader, one executor a
 run), each loader's first batch against the plain model, each loader's
 logits bit-identical across prefetch depths, (f) the two loaders' logits
 compared (informational), and each run's s/video, steady videos/s and
@@ -139,7 +142,9 @@ batch of 427x240, 3 crops a frame). K1's, K1-inverse's and K4's rows,
 K2's three, K3's three and the 2D shift's two carry their device time by
 the profiler; K2's also the time of a forward's blocks as the models call
 them, one run per stage. The SE gate's row (se_gate) carries its device
-time over Small's 17 SE blocks and what its sums add to launch A.
+time over Small's 17 SE blocks and what its sums add to launch A. The
+stem's row (stem_conv) carries its device time beside the library's
+(the weight's cast, cuDNN's channel padding and fprop) at batch 8.
 """
 
 from __future__ import annotations
@@ -177,6 +182,7 @@ from rubiksnet_torch.utils.roofline import (
     library_shift,
     shift_grad_work,
     shift_work,
+    stem_work,
 )
 
 BATCH_CHECK = 2  # clips per kernel / model check
@@ -261,7 +267,7 @@ SMALL_BLOCK_SHAPES = [(112, 72, 1), (56, 72, 2), (28, 144, 3), (14, 288, 5),
 LAUNCH_COUNTERS = ("shift3d", "shift3d_inverse", "shift_grad", "fused_block",
                    "fused_block_ring", "fused_entry", "fused_entry_aq",
                    "se_gate", "shift2d", "shift2d_inverse", "bn_relu_train",
-                   "bn_relu_train_backward")
+                   "bn_relu_train_backward", "stem_conv")
 
 
 def k2_ring(want):
@@ -324,6 +330,11 @@ KERNELS = {
     # (rubiksnet_tpu/nn/backbone.py:27); here it ran as plain PyTorch ops.
     "bn_relu_train": ("rubiksnet_torch/ops/csrc/bn_relu_train.cu",
                       "none (rubiksnet_tpu/nn/backbone.py:27, XLA)"),
+    # The fused executor's stem, the 3x3 stride-2 conv of the frames: no TPU
+    # kernel, XLA's nn.Conv in the JAX package; here it ran as cuDNN's
+    # channel padding and fprop after a cast of the weight.
+    "stem_conv": ("rubiksnet_torch/ops/csrc/stem.cu",
+                  "none (rubiksnet_tpu/nn/backbone.py:222, XLA)"),
 }
 
 
@@ -902,6 +913,40 @@ def check_shift2d_cases(errs, gen, dev):
                          f"equal the plain version exactly")
 
 
+# The stem (ops/stem.py, csrc/stem.cu) against its plain version: (label,
+# clips, H, W, C) of FRAMES frames a clip: 224 px at the serving batches
+# and the benchmark's, 112 px, odd sizes (2- and 4-byte line copies) and
+# Tiny's width 54.
+STEM_CASES = (("224 px", 1, SIZE, SIZE, 72), ("224 px", 8, SIZE, SIZE, 72),
+              ("224 px", 64, SIZE, SIZE, 72), ("112 px", 8, 112, 112, 72),
+              ("odd", 2, 33, 45, 72), ("odd, 4-byte lines", 2, 56, 42, 72),
+              ("Tiny's width", 2, SIZE, SIZE, 54),
+              ("Tiny's width, odd", 2, 45, 33, 54))
+
+
+def check_stem(errs, gen, dev):
+    """The stem's kernel against its plain version (cuDNN, TF32 off) at
+    STEM_CASES, f32 and bf16, each run twice and bit-identical."""
+    from rubiksnet_torch.ops import stem
+
+    print("[kernels] stem_conv (stem.cu) vs plain (F.conv2d on the unpacked "
+          "weight)")
+    for label, b, h, w, c in STEM_CASES:
+        weight = torch.randn((c, 3, 3, 3), generator=gen, device=dev) * 0.3
+        for dt in (torch.float32, torch.bfloat16):
+            x = randn((b, FRAMES, h, w, 3), dt, gen, dev)
+            packed = stem.pack_stem_weight(weight, dt)
+            got = stem.stem_conv_kernel(x, packed)
+            again = stem.stem_conv_kernel(x, packed)
+            tag = f"stem {label} {b}x{FRAMES}x{h}x{w}->{c} {str(dt)[6:]}"
+            judge(tag, got, stem.stem_conv_plain(x, packed), dt,
+                  errs["stem_conv"])
+            if not torch.equal(got, again):
+                fail(f"{tag}: a second run differs")
+            del x, got, again
+    torch.cuda.empty_cache()
+
+
 def check_new_kernels(errs, gen, cpu_gen, dev):
     """The 2D shift's forward and input-gradient kernels, K2 with the
     attention mix, with the SE gate and with both, K3 with the SE gate and
@@ -1253,7 +1298,8 @@ class Timer:
                      for k in names}
 
     def add(self, kind, label, count, kernel_fn, plain_fn, work, dtype,
-            lib_fn=None, kernels_per_call=1, note="", device=False):
+            lib_fn=None, kernels_per_call=1, note="", device=False,
+            lib_label="depthwise conv"):
         """``device``: also the device time of ``kernel_fn`` by the
         profiler (every device kernel of a call), which must launch exactly
         ``kernels_per_call`` device kernels per call, and that of
@@ -1278,7 +1324,7 @@ class Timer:
                 fail(f"{label}: the library call disagrees, rel_l2 {rel}")
             lib_ms = cuda_time_ms(lib_fn, iters=5)
             row["library_ms"] = (row["library_ms"] or 0.0) + count * lib_ms
-            text += f", library (depthwise conv) {lib_ms:.4f} ms"
+            text += f", library ({lib_label}) {lib_ms:.4f} ms"
         if device:
             dev_ms, n_kernels = profiled_ms(kernel_fn, "", label,
                                             expect=kernels_per_call)
@@ -1364,6 +1410,28 @@ def entry_parts(fn):
         parts[part] = parts.get(part, 0.0) + ms / 5
     return "device by launch " + ", ".join(
         f"{part} {ms:.4f} ms" for part, ms in sorted(parts.items()))
+
+
+def time_stem(timer, gen, dev):
+    """The stem at batch TIME_BATCH, 224 px, bf16, beside the library call
+    it replaced (the weight's cast, cuDNN's channel padding and fprop), by
+    events and by the profiler: one device kernel a call."""
+    import torch.nn.functional as F
+
+    from rubiksnet_torch.ops import stem
+
+    c, n = 72, TIME_BATCH * FRAMES
+    weight = torch.randn((c, 3, 3, 3), generator=gen, device=dev) * 0.3
+    x = randn((TIME_BATCH, FRAMES, SIZE, SIZE, 3), torch.bfloat16, gen, dev)
+    packed = stem.pack_stem_weight(weight, torch.bfloat16)
+    flat = x.reshape(n, SIZE, SIZE, 3).permute(0, 3, 1, 2)
+    timer.add("stem_conv", f"stem {SIZE}x{SIZE}x3->{c}", 1,
+              lambda: stem.stem_conv_kernel(x, packed).flatten(0, 1),
+              lambda: stem.stem_conv_plain(x, packed).flatten(0, 1),
+              stem_work(n, SIZE, SIZE, c, 2), torch.bfloat16,
+              lambda: F.conv2d(flat, weight.to(torch.bfloat16), stride=2,
+                               padding=1), device=True,
+              lib_label="cuDNN: the weight's cast, padding, fprop")
 
 
 def time_kernels(timer, gen, cpu_gen, dev, name, smi):
@@ -1526,6 +1594,7 @@ def time_kernels(timer, gen, cpu_gen, dev, name, smi):
               f"stride {s}: {ms:.4f} ms (x{count} per train step)")
     time_gate(timer, gen, cpu_gen, dev)
     time_bn_relu(timer, dev, name, smi)
+    time_stem(timer, gen, dev)
     for kind in timer.rows:
         backward = kind in ("shift3d_inverse", "shift_grad",
                             "shift2d_inverse", "bn_relu_train")
@@ -2109,7 +2178,8 @@ def eval_runs(label, two_clips, bs, views, runs, ckpt, list_file, root, dev,
         results[run] = result
         st, batches = result["stats"], result["batches"]
         want = dict.fromkeys(counts, 0)
-        want.update(fused_block=47 * batches, fused_entry=4 * batches)
+        want.update(fused_block=47 * batches, fused_entry=4 * batches,
+                    stem_conv=batches)
         want = k2_ring(want)
         resizes = device_loader.LAUNCHES.count
         lg = result["logits"]
@@ -2446,7 +2516,7 @@ def route_check(dev, gen):
     modules = [n for k, ns, _ in steps if k == "module" for n in ns]
     _, _, rel = errors(got, ref)
     want = dict.fromkeys(counts, 0)
-    want.update(fused_block=47, fused_entry=3, shift3d=1)
+    want.update(fused_block=47, fused_entry=3, shift3d=1, stem_conv=1)
     want = k2_ring(want)
     ok = (rel <= TOL_MODEL_BF16 and modules == ["layer4_0"]
           and counts == want and bool(torch.isfinite(got.float()).all()))
@@ -2485,7 +2555,7 @@ def small_default_route(dev, gen):
         entries = sum(1 for k, _, _ in steps if k == "entry")
         want = dict.fromkeys(counts, 0)
         want.update(fused_block=blocks, fused_entry=entries,
-                    se_gate=blocks + entries,
+                    se_gate=blocks + entries, stem_conv=1,
                     shift3d=sum(1 for k, _, _ in steps if k == "module"))
         want = k2_ring(want)
         _, _, rel = errors(got, ref)
@@ -2595,7 +2665,8 @@ def train_script_phase(dev, gen, cpu_gen, name, smi):
             args, log=lambda *a: None))
         st, batches = result["stats"], result["batches"]
         want = dict.fromkeys(counts, 0)
-        want.update(fused_block=47 * batches, fused_entry=4 * batches)
+        want.update(fused_block=47 * batches, fused_entry=4 * batches,
+                    stem_conv=batches)
         want = k2_ring(want)
         ok = (counts == want and result["logits"].shape
               == (REGISTRY_VAL, CLASSES))
@@ -2678,17 +2749,19 @@ def train_config(label, tier, variant, want, dev, gen, name, smi):
 # run, launches of one run, {kernels-line row: counter}).
 EXPORT_CASES = (
     ("Large fused, batch 8", "large", "rubiks3d", True, False, (8,),
-     {"fused_block": 47, "fused_entry": 4},
-     {"fused_block": "fused_block", "fused_entry": "fused_entry"}),
+     {"fused_block": 47, "fused_entry": 4, "stem_conv": 1},
+     {"fused_block": "fused_block", "fused_entry": "fused_entry",
+      "stem_conv": "stem_conv"}),
     ("Large fused, batch n in [1, 32]", "large", "rubiks3d", True, True,
-     SERVE_BATCHES, {"fused_block": 47, "fused_entry": 4}, {}),
+     SERVE_BATCHES, {"fused_block": 47, "fused_entry": 4, "stem_conv": 1},
+     {}),
     ("Large module path, batch 8", "large", "rubiks3d", False, False, (8,),
      {"shift3d": 51}, {"shift3d": "shift3d"}),
     ("Large-AQ fused, batch 8", "large", "rubiks3d-aq", True, False, (8,),
-     {"fused_block": 47, "fused_entry_aq": 4},
+     {"fused_block": 47, "fused_entry_aq": 4, "stem_conv": 1},
      {"fused_block_aq": "fused_block", "fused_entry_aq": "fused_entry_aq"}),
     ("Small fused, batch 8", "small", "rubiks3d", True, False, (8,),
-     {"fused_block": 13, "fused_entry": 4, "se_gate": 17},
+     {"fused_block": 13, "fused_entry": 4, "se_gate": 17, "stem_conv": 1},
      {"fused_block_se": "fused_block", "fused_entry_se": "fused_entry",
       "se_gate": "se_gate"}),
 )
@@ -3410,7 +3483,7 @@ def parallel_phase(dev, gen, name, smi):
 
     # (d) test_models with the batch sharded.
     want = k2_ring(dict(zero, fused_block=n_blocks,
-                        fused_entry=len(ENTRY_SHAPES)))
+                        fused_entry=len(ENTRY_SHAPES), stem_conv=1))
     for r, res in enumerate(ranks):
         got = res["test_models"]
         ok = (got["top1"] == ref_models["top1"]
@@ -3851,7 +3924,7 @@ def measurement_phase(errs, gen, cpu_gen, dev, name, smi):
         "--tier", "large", "--batch-sizes",
         *map(str, MEASURE_SERVE_BATCHES), "--iters", "5"])
     check_bench_line("bench infer Large bf16 fused", line, name,
-                     {"fused_block": 47, "fused_entry": 4})
+                     {"fused_block": 47, "fused_entry": 4, "stem_conv": 1})
     torch.cuda.empty_cache()
     line = entry_point("bench train", bench, [
         "--tier", "large", "--mode", "train", "--batch-sizes",
@@ -4015,6 +4088,7 @@ def main() -> int:
     check_entry_cases(errs, gen, cpu_gen, dev)
     check_entry_served_shapes(errs, gen, cpu_gen, dev)
     check_bn_relu(errs, dev)
+    check_stem(errs, gen, dev)
     torch.cuda.synchronize()
     print(f"[clock] kernel checks done at "
           f"{time.perf_counter() - started:.0f} s")
@@ -4034,15 +4108,19 @@ def main() -> int:
     launches = {}
     configs = (
         ("Large rubiks3d", "large", "rubiks3d",
-         {"fused_block": 47, "fused_entry": 4}, {"shift3d": 51},
-         {"fused_block": "fused_block", "fused_entry": "fused_entry"},
+         {"fused_block": 47, "fused_entry": 4, "stem_conv": 1},
+         {"shift3d": 51},
+         {"fused_block": "fused_block", "fused_entry": "fused_entry",
+          "stem_conv": "stem_conv"},
          {"shift3d": "shift3d"}),
         ("Large rubiks3d-aq", "large", "rubiks3d-aq",
-         {"fused_block": 47, "fused_entry_aq": 4}, {"shift2d": 51},
+         {"fused_block": 47, "fused_entry_aq": 4, "stem_conv": 1},
+         {"shift2d": 51},
          {"fused_block_aq": "fused_block",
           "fused_entry_aq": "fused_entry_aq"}, {"shift2d": "shift2d"}),
         ("Small rubiks3d (SE)", "small", "rubiks3d",
-         {"fused_block": 13, "fused_entry": 4, "se_gate": 17},
+         {"fused_block": 13, "fused_entry": 4, "se_gate": 17,
+          "stem_conv": 1},
          {"shift3d": 17},
          {"fused_block_se": "fused_block", "fused_entry_se": "fused_entry",
           "se_gate": "se_gate"},

@@ -28,8 +28,11 @@ or declines it; a declined block runs on the module path. The structure:
   half away from zero, which has no tap form), and the entries K3
   declines, stay on the module path: a rubiks3d-aq block's 2D shift runs
   there on the 2D shift kernel (``ops/shift2d.py``, ``csrc/shift2d.cu``);
-* the stem conv and the head (bn_last, ReLU, spatial mean, new_fc, mean
-  over frames) are plain PyTorch, as they were XLA ops in the JAX package.
+* the stem conv runs on a kernel of its own (``ops/stem.py``,
+  ``csrc/stem.cu``) with its weight packed once here; the JAX package left
+  it to XLA, and the module path keeps ``F.conv2d``;
+* the head (bn_last, ReLU, spatial mean, new_fc, mean over frames) is plain
+  PyTorch, as it was XLA ops in the JAX package.
 
 On a CPU tensor the kernels' plain versions run instead, under the same
 routes.
@@ -54,6 +57,7 @@ from ..ops.fused_entry import (
     stack_entry_params,
     stack_entry_params_aq,
 )
+from ..ops.stem import pack_stem_weight, stem_conv
 from ..parallel.mesh import active_model_group, sharded_modules
 from ..parallel.temporal import active_time_group
 from ..utils.profiling import NULL, setup_span, span
@@ -96,10 +100,13 @@ class FusedExecutor:
             self._stack(model)
 
     def _stack(self, model):
-        """Fold and stack the blocks' parameters into :attr:`steps`."""
+        """Pack the stem's weight (:attr:`stem_weight`), fold and stack the
+        blocks' parameters into :attr:`steps`."""
         dtype, k, q = model.dtype, model.max_shift, model.quantize
         aq = model.variant == "rubiks3d-aq"
         self.aq = aq
+        self.stem_weight = pack_stem_weight(model.backbone.conv1.weight,
+                                            dtype)
         self.blocks = dict(model.backbone.named_blocks())
         self.steps = []
         self.routes = {}  # (input shape, SMs) -> steps
@@ -256,7 +263,7 @@ class FusedExecutor:
             # serialize their programmatic dependent launch under the
             # profiler, and no metric reads those steps' device times.
             with span("rubiksnet.serve.stem"):
-                x = model.backbone.conv1(video.to(model.dtype))
+                x = stem_conv(video.to(model.dtype), self.stem_weight)
             for kind, names, params in steps:
                 if kind not in STEP_SPANS:
                     raise ValueError(f"unknown step kind {kind!r}")

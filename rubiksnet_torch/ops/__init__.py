@@ -66,11 +66,11 @@ def launch_counters():
     launches that ran on two or more operand stages), K3 (fused_entry), K3
     with the attention mix (fused_entry_aq), the SE gate of their
     tensor-core route (se_gate) and the 2D shift's forward and
-    input-gradient kernels (shift2d, shift2d_inverse), and the train-mode
-    BN and ReLU pair's forward and backward (bn_relu_train,
-    bn_relu_train_backward), by name: the registry's counters of these
-    kernels (``utils.profiling.counters``)."""
-    from . import bn_relu, fused_block, fused_entry, shift2d, shift3d
+    input-gradient kernels (shift2d, shift2d_inverse), the train-mode BN
+    and ReLU pair's forward and backward (bn_relu_train,
+    bn_relu_train_backward) and the serving stem (stem_conv), by name: the
+    registry's counters of these kernels (``utils.profiling.counters``)."""
+    from . import bn_relu, fused_block, fused_entry, shift2d, shift3d, stem
 
     return {c.name: c for c in (shift3d.LAUNCHES, shift3d.INVERSE_LAUNCHES,
                                 shift3d.SHIFT_GRAD_LAUNCHES,
@@ -80,4 +80,5 @@ def launch_counters():
                                 fused_entry.AQ_LAUNCHES,
                                 fused_block.SE_GATE_LAUNCHES,
                                 shift2d.LAUNCHES, shift2d.INVERSE_LAUNCHES,
-                                bn_relu.LAUNCHES, bn_relu.BACKWARD_LAUNCHES)}
+                                bn_relu.LAUNCHES, bn_relu.BACKWARD_LAUNCHES,
+                                stem.LAUNCHES)}

@@ -25,6 +25,7 @@ shift operators from the autograd Functions of ``shift3d.py`` and
 | ``fused_entry_run`` | K3 ``fused_entry.py::fused_entry_kernel`` (``aq``: K3-AQ) | ``fused_entry_plain`` |
 | ``shift3d_forward`` | K1 ``shift3d.py::shift3d_kernel`` (staged) | ``shift3d_plain`` |
 | ``shift2d_forward`` | ``shift2d.py::shift2d_kernel`` | ``shift2d_plain`` |
+| ``stem_conv`` | ``stem.py::stem_conv_kernel`` | ``stem_conv_plain`` |
 
 The names go into saved programs, so they say what the operator computes
 and stay fixed when the Python functions behind them are renamed.
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fused_block, fused_entry, shift2d, shift3d
+from . import fused_block, fused_entry, shift2d, shift3d, stem
 
 NAMESPACE = "rubiksnet"
 _LIB = torch.library.Library(NAMESPACE, "DEF")
@@ -143,3 +144,18 @@ shift2d_forward = _define(
         x, shift, tuple(stride), tuple(padding), quantize),
     lambda x, shift, stride, padding, quantize: x.new_empty(
         shift2d.compute_output_shape_2d(x.shape, stride, padding)))
+
+
+# The serving stem, the 3x3 stride-2 conv of the frames (ops/stem.py).
+
+
+def _stem_cpu(x, w):
+    stem._check_args(x, w)
+    return stem.stem_conv_plain(x, w)
+
+
+stem_conv = _define(
+    "stem_conv(Tensor x, Tensor w) -> Tensor",
+    lambda x, w: stem.stem_conv_kernel(x.contiguous(), w.contiguous()),
+    _stem_cpu,
+    lambda x, w: x.new_empty(stem.stem_output_shape(x.shape, w.shape[1])))

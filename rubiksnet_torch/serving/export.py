@@ -6,10 +6,11 @@ traces the multi-view eval forward once into an ``ExportedProgram``, which
 a serving process calls :func:`load_exported` and :func:`run_exported` and
 needs no model code, no checkpoint and no tracing.
 
-The kernels stay kernels in the program: K2, K3, K1's forward and the 2D
-shift's forward are the operators of ``rubiksnet_torch/ops/library.py``
-(``rubiksnet::fused_block_run``, ``fused_entry_run``, ``shift3d_forward``,
-``shift2d_forward``), which the tracer keeps as opaque nodes. On the card
+The kernels stay kernels in the program: K2, K3, K1's forward, the 2D
+shift's forward and the fused executor's stem are the operators of
+``rubiksnet_torch/ops/library.py`` (``rubiksnet::fused_block_run``,
+``fused_entry_run``, ``shift3d_forward``, ``shift2d_forward``,
+``stem_conv``), which the tracer keeps as opaque nodes. On the card
 each node launches its kernel, under the launch plan the kernel's wrapper
 picks from the real input, as eager code does; on the CPU it runs the
 kernel's plain version. :func:`load_exported` registers the operators

@@ -6,10 +6,11 @@ A bound is the least time the card could take for a call: the larger of
 the bytes it must move (each input read once, each output written once)
 over the memory rate and its operations over the peak rate for their type.
 ``chip_smoke.py`` bounds each kernel with :func:`shift_work`,
-:func:`shift_grad_work`, :func:`block_work`, :func:`entry_work` and
-:func:`bound_times_ms`; ``scripts/bench.py`` turns :func:`model_flops` and
-:func:`model_bytes` into the whole model's ``mfu`` and HBM share, and
-``scripts/shift_microbench.py`` bounds the shift op alone.
+:func:`shift_grad_work`, :func:`block_work`, :func:`entry_work`,
+:func:`stem_work` and :func:`bound_times_ms`; ``scripts/bench.py`` turns
+:func:`model_flops` and :func:`model_bytes` into the whole model's ``mfu``
+and HBM share, and ``scripts/shift_microbench.py`` bounds the shift op
+alone.
 """
 
 from __future__ import annotations
@@ -81,6 +82,14 @@ def entry_work(n, h, cin, cm, itemsize, rows, se=False, aq=False):
     other = (m * 2 * (cin + cm) + mo * cm * (4 if aq else 8) * FLOPS_PER_CORNER
              + (3 * m * cm if se else 0) + (6 * m * cin if aq else 0))
     return nbytes, 2 * m * cin * cm + 2 * mo * (cm + cin) * cm, other
+
+
+def stem_work(frames, h, w, c, itemsize):
+    """The serving stem on ``frames`` frames of h x w x 3: the frames read
+    once, the (ceil(h / 2), ceil(w / 2), c) output written once, the
+    weight; 27 multiply-adds an output value."""
+    out = frames * ((h + 1) // 2) * ((w + 1) // 2) * c
+    return (frames * h * w * 3 + out + 27 * c) * itemsize, 2 * 27 * out, 0
 
 
 def bound_times_ms(work, dtype):

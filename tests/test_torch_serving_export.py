@@ -26,7 +26,7 @@ from rubiksnet_torch.models import (
     create_rubiksnet,
     state_dict_from_jax,
 )
-from rubiksnet_torch.ops import library
+from rubiksnet_torch.ops import library, stem
 from rubiksnet_torch.ops.fused_block import (
     stack_block_params,
     stack_block_params_aq,
@@ -59,7 +59,7 @@ N, CROPS, T, SIZE, CLASSES = 2, 2, 2, 32, 5
 RTOL, ATOL = 2e-4, 2e-5
 # The operators' names, which saved programs hold: fixed.
 OPERATORS = ("fused_block_run", "fused_entry_run", "shift3d_forward",
-             "shift2d_forward")
+             "shift2d_forward", "stem_conv")
 OPS = {f"rubiksnet.{name}" for name in OPERATORS}
 
 
@@ -179,6 +179,12 @@ def _shift_args(dims, stride, padding, quantize):
     return (x, shift, stride, padding, quantize)
 
 
+def _stem_args(dtype):
+    rng = np.random.default_rng(4)
+    return (_rand(rng, 2, T, 9, 7, 3).to(dtype),
+            stem.pack_stem_weight(_rand(rng, 54, 3, 3, 3), dtype))
+
+
 OPCHECK_CASES = {
     "fused_block": lambda: (library.fused_block_run, _block_args(False,
                                                                  False)),
@@ -196,6 +202,9 @@ OPCHECK_CASES = {
         library.shift3d_forward, _shift_args(3, [2, 2, 2], [1, 1, 1], True)),
     "shift2d": lambda: (library.shift2d_forward,
                         _shift_args(2, [1, 2], [0, 1], False)),
+    "stem_conv": lambda: (library.stem_conv, _stem_args(torch.float32)),
+    "stem_conv_bf16": lambda: (library.stem_conv,
+                               _stem_args(torch.bfloat16)),
 }
 
 
@@ -217,15 +226,17 @@ def test_operators_registered_at_import():
 
 
 def test_graph_holds_the_operators(weights, programs):
-    """Each K2 run of the route is one fused_block_run node and each entry
-    one fused_entry_run node; on the module path each shift layer is one
-    shift3d_forward node; no plain gather anywhere."""
+    """Each K2 run of the route is one fused_block_run node, each entry
+    one fused_entry_run node and the stem one stem_conv node; on the module
+    path each shift layer is one shift3d_forward node; no plain gather
+    anywhere."""
     _, model, _ = weights
     route = FusedExecutor(model).route((N * CROPS, T, SIZE, SIZE, 3))
     runs = sum(kind == "block" for kind, _, _ in route)
     blocks = len(dict(model.backbone.named_blocks()))
     want = {True: {"rubiksnet.fused_block_run": runs,
-                   "rubiksnet.fused_entry_run": 4},
+                   "rubiksnet.fused_entry_run": 4,
+                   "rubiksnet.stem_conv": 1},
             False: {"rubiksnet.shift3d_forward": blocks}}
     for (fused, _), program in programs.items():
         counts = operator_counts(program)
@@ -237,8 +248,8 @@ def test_graph_holds_the_operators(weights, programs):
 @pytest.mark.parametrize("fused", [False, True])
 def test_aq_graph_holds_the_operators(fused):
     """rubiks3d-aq: the module path's 2D shifts are shift2d_forward nodes;
-    fused, K2 runs and the four entries on K3 with the attention mix, and
-    no shift2d_forward node."""
+    fused, K2 runs, the four entries on K3 with the attention mix and the
+    stem, and no shift2d_forward node."""
     model = create_rubiksnet("tiny", CLASSES, T, "rubiks3d-aq", max_shift=1,
                              device="cpu")
     program = export_eval_fn(model, N, num_crops=CROPS, input_size=SIZE,
@@ -249,7 +260,8 @@ def test_aq_graph_holds_the_operators(fused):
         route = FusedExecutor(model).route((N * CROPS, T, SIZE, SIZE, 3))
         runs = sum(kind == "block" for kind, _, _ in route)
         assert counts == {"rubiksnet.fused_block_run": runs,
-                          "rubiksnet.fused_entry_run": 4}
+                          "rubiksnet.fused_entry_run": 4,
+                          "rubiksnet.stem_conv": 1}
     else:
         assert counts == {"rubiksnet.shift2d_forward": blocks}
     assert operator_counts(program)["aten.gather"] == 0

@@ -153,9 +153,10 @@ def test_executor_step_spans_say_whether_they_are_gated(tier, se):
 
 @pytest.mark.card
 def test_se_gate_counter_counts_a_launch_per_gated_block():
-    """On the card, one fused forward of Small in bfloat16 launches K2 for
-    its 13 stride-1 blocks, K3 for its 4 entries and the SE gate once for
-    each of the 17, as the registry's counters read them."""
+    """On the card, one fused forward of Small in bfloat16 launches the
+    stem once, K2 for its 13 stride-1 blocks, K3 for its 4 entries and the
+    SE gate once for each of the 17, as the registry's counters read
+    them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     torch.manual_seed(0)
@@ -171,7 +172,7 @@ def test_se_gate_counter_counts_a_launch_per_gated_block():
     torch.cuda.synchronize()
     want = dict.fromkeys(counters, 0)
     want.update(fused_block=13, fused_block_ring=13, fused_entry=4,
-                se_gate=17)
+                se_gate=17, stem_conv=1)
     assert {n: c.count for n, c in counters.items()} == want
     assert profiling.counters("se_gate") == {"se_gate": 17}
 
@@ -321,7 +322,8 @@ def test_launch_counters_are_the_registrys():
     assert sorted(counters) == sorted([
         "shift3d", "shift3d_inverse", "shift_grad", "fused_block",
         "fused_block_ring", "fused_entry", "fused_entry_aq", "se_gate", "shift2d",
-        "shift2d_inverse", "bn_relu_train", "bn_relu_train_backward"])
+        "shift2d_inverse", "bn_relu_train", "bn_relu_train_backward",
+        "stem_conv"])
     registry = profiling.counters()
     assert {n: c.count for n, c in counters.items()}.items() <= (
         registry.items())
